@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Smoke run of the PyTorch/CUDA port's serving and training paths on one
+NVIDIA card.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
@@ -15,6 +16,16 @@ Phases, one JSON line each:
            fea_up, 4 orbit views with ground truth); the render and query
            CLIs on cuda with every launch count set to 0 just before and
            read just after; outputs checked finite; ms per view
+  k2       the backward kernel against its plain version on K1's own logt
+           and ncomp, random g_out and a nonzero g_alpha, at mid size (C 39
+           and C 3) and full width: errors of the per-Gaussian sums,
+           kernel and plain times, the roofline bound
+  train_small  three train steps and a refine step on a small field, on the
+           card and on the CPU path from the same init and batch
+  train    the full-width train step (bench field grown to capacity 400k,
+           bench camera, bench batch shapes, seeded fea_up), steps 4000 to
+           4099 and a refine step with every launch count set to 0 just
+           before and read just after; ms per step, px/s, a profile
 Then the kernels line, the nvidia-smi line and, last, the ok line. Any
 failure exits non-zero without the ok line. Without a card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -39,6 +50,9 @@ F32_PEAK_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 K1_ERR_MAX = 1e-4
 K1_NCOMP_SHARE_MAX = 1e-4  # of pixels whose ncomp may differ, by at most 1
+K2_ERR_MAX = 1e-4  # of each column group's max |per-Gaussian gradient|
+CAPACITY = 400_000
+TRAIN_STEPS = 100
 
 
 def emit(obj) -> None:
@@ -77,17 +91,22 @@ def bench_field(n: int, seed: int, device):
                           sh_coeffs=torch.cat([field.sh_coeffs[:, :1], rest], 1)), alive
 
 
-def seeded_fea_up(seed: int):
-    """fea_up with torch.nn.Linear's default U(-1/sqrt(fan_in), +) draws."""
-    from gaussiangrasper_torch.models.efd import FeaUp
-
+def seeded_fea_up_arrays(seed: int) -> dict:
+    """fea_up weights {w{i} (d_in, d_out), b{i}} with torch.nn.Linear's
+    default U(-1/sqrt(fan_in), +) draws."""
     rng = np.random.default_rng(seed)
     arrays = {}
     for i, (a, b) in enumerate(((32, 128), (128, 512))):
         bound = 1.0 / math.sqrt(a)
         arrays[f"w{i}"] = rng.uniform(-bound, bound, (a, b)).astype(np.float32)
         arrays[f"b{i}"] = rng.uniform(-bound, bound, b).astype(np.float32)
-    return FeaUp.from_numpy(arrays)
+    return arrays
+
+
+def seeded_fea_up(seed: int):
+    from gaussiangrasper_torch.models.efd import FeaUp
+
+    return FeaUp.from_numpy(seeded_fea_up_arrays(seed))
 
 
 def k1_inputs(field, alive, cam, cfg):
@@ -188,6 +207,230 @@ def device_profile(fn, top: int = 8) -> dict:
                    and e.self_device_time_total > 0), key=lambda r: -r[1])
     return {"device_busy_ms": sum(ms for _, ms in rows),
             "top_ms": [[k[:80], ms] for k, ms in rows[:top]]}
+
+
+def k2_inputs(k1_args, seed: int):
+    """K2's inputs on the main path: the stream, K1's own logt and ncomp
+    from the kernel, a random g_out and a nonzero g_alpha (the term
+    sky_alpha_reg drives)."""
+    import torch
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
+
+    gidx, starts, counts, attrs, bg, tw, ts = k1_args
+    _, alpha, logt, ncomp = rc._launch_kernel(*k1_args)
+    gen = torch.Generator(device=attrs.device).manual_seed(seed)
+    g_out = torch.randn(*alpha.shape, attrs.shape[1] - 6, generator=gen, device=attrs.device)
+    g_alpha = torch.randn(alpha.shape, generator=gen, device=attrs.device)
+    return gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp, tw, ts
+
+
+def per_gaussian(args, gpairs):
+    """The (N, 6 + C) per-Gaussian sum of K2's rows, as the backward takes it."""
+    import torch
+
+    return torch.zeros_like(args[3]).index_add_(0, args[0].long(), gpairs)
+
+
+def k2_bound(args, live) -> dict:
+    """Least time for K2's work on these inputs: every pixel tests the rows
+    below min(ncomp, count) (~16 operations each) and each composited row
+    with a live alpha adds ~40 + 4C (log1p, exp, <c, g>, dalpha, the conic
+    chain, dcolour and the pixel sums), at the f32 peak; compulsory bytes
+    (table, walked pair_gidx, g_out, g_alpha, logt, ncomp, gpairs) at the
+    HBM rate."""
+    import torch
+
+    gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp, tw, ts = args
+    c = attrs.shape[1] - 6
+    visits = float(torch.minimum(ncomp.double(), counts.double()[:, None]).sum())
+    n_live = float(live.double().sum())
+    ops = 16.0 * visits + (40.0 + 4.0 * c) * n_live
+    t, p = ncomp.shape
+    nbytes = 4.0 * (attrs.numel() + float(counts.sum()) + 2 * t + c + t * p * (c + 3)
+                    + gidx.shape[0] * attrs.shape[1])
+    t_ops, t_bytes = ops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "visits": visits, "live_visits": n_live, "ops": ops, "bytes": nbytes}
+
+
+def check_k2(label: str, k1_args, time_it: bool) -> dict:
+    """Kernel vs plain version on the same inputs, held on the per-Gaussian
+    sums (column groups dxy, dconic, dopacity, dcolour, each relative to
+    its max |value|); raises past K2_ERR_MAX."""
+    import torch
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
+
+    args = k2_inputs(k1_args, seed=5)
+    got = per_gaussian(args, rc.composite_pairs_bwd(*args))
+    want = per_gaussian(args, rc.composite_pairs_bwd_plain(*args))
+    torch.cuda.synchronize()
+    c = args[3].shape[1] - 6
+    errs, scales = {}, {}
+    for name, lo, hi in (("dxy", 0, 2), ("dconic", 2, 5), ("dopacity", 5, 6), ("dcolor", 6, 6 + c)):
+        scales[name] = float(want[:, lo:hi].abs().max())
+        errs[name] = float((got[:, lo:hi] - want[:, lo:hi]).abs().max()) / max(scales[name], 1e-30)
+    row = {"phase": "k2", "case": label, "tiles": int(args[1].shape[0]), "channels": c,
+           "pairs": int(args[2].sum()), "rel_err": errs, "scale": scales,
+           "max_abs_err": float((got - want).abs().max()),
+           "max_rel_err": max(errs.values())}
+    if time_it:
+        row["ms"] = cuda_ms(lambda: rc._launch_bwd_kernel(*args), 20)
+        row["wrapper_ms"] = cuda_ms(lambda: rc.composite_pairs_bwd(*args), 20)
+        row["plain_ms"] = cuda_ms(lambda: rc.composite_pairs_bwd_plain(*args), 1)
+        live = rc.composite_pairs_fwd_plain(*k1_args, count_live=True)[4]
+        row.update(k2_bound(args, live))
+    emit(row)
+    if not bool(torch.isfinite(got).all()) or max(errs.values()) > K2_ERR_MAX \
+            or min(scales.values()) <= 0.0:
+        raise RuntimeError(f"k2 {label}: kernel disagrees with its plain version: {row}")
+    return row
+
+
+def train_batch(width: int, height: int, groups: int, pairs: int, points: int, seed: int, device):
+    """A supervision batch with the data layer's shapes (bench.py's
+    make_batch): image, depth, normal, valid mask, SAM pairs, CLIP points."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def pix(*shape):
+        return np.stack([rng.integers(0, height, shape), rng.integers(0, width, shape)],
+                        -1).astype(np.int32)
+
+    valid = np.ones((height, width), bool)
+    valid[: height // 20] = False  # a masked-out band: sky_alpha_reg's pixels
+    batch = {
+        "image": rng.uniform(size=(height, width, 3)).astype(np.float32),
+        "depth": np.full((height, width), 3.0, np.float32),
+        "normal": np.tile(np.array([0.0, 0.0, 1.0], np.float32), (height, width, 1)),
+        "valid_mask": valid,
+        "pair_a": pix(groups, pairs), "pair_b": pix(groups, pairs),
+        "pair_valid": np.ones((groups, pairs), bool),
+        "group_valid": np.ones(groups, bool),
+        "points": pix(points), "point_valid": np.ones(points, bool),
+        "gt_clip": rng.standard_normal((points, 512)).astype(np.float32),
+    }
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def train_state_at(n: int, capacity: int, seed: int, device):
+    """bench.py's train state: bench field, seeded fea_up, step 4000, grown
+    to `capacity` so densification has free slots."""
+    import dataclasses
+
+    from gaussiangrasper_torch.engine.train_state import grow_capacity, init_train_state
+    from gaussiangrasper_torch.models.efd import params_from_numpy
+
+    field, alive = bench_field(n, seed=seed, device=device)
+    state = init_train_state(field, alive, params_from_numpy(seeded_fea_up_arrays(seed + 1), device))
+    return grow_capacity(dataclasses.replace(state, step=STEP), capacity)
+
+
+def train_small_phase(cfg) -> None:
+    """Three train steps and a refine step on a 4000-Gaussian field at
+    128x96, on the card and on the CPU path from the same init, batch and
+    split noise. Losses within 1e-3 relative (float32 sums in another
+    order, K2's atomics); parameters within 3 lr N of their group (Adam with
+    eps 1e-15 moves a near-zero-gradient entry by about +-lr on a sign
+    rounding can flip, and after the first step |m_hat| / sqrt(v_hat) can
+    pass 1); alive counts after the refine within 0.5% (a densify or cull
+    threshold can flip with the statistics' rounding)."""
+    import dataclasses
+
+    import torch
+    from gaussiangrasper_torch.core.cameras import Camera
+    from gaussiangrasper_torch.engine import optimizers as optim
+    from gaussiangrasper_torch.engine.train_state import refine_step, train_step
+
+    cam_args = (160.0, 160.0, 64.0, 48.0, orbit_c2w(0.2), 128, 96)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        state = train_state_at(4000, 4400, seed=3, device=dev)
+        rng = np.random.default_rng(4)
+        # spread opacities off init_opacity, so no cull test sits on its threshold
+        state = dataclasses.replace(state, step=STEP + 97, field=state.field._replace(
+            opacity_logits=torch.as_tensor(rng.normal(-1.0, 1.0, 4400).astype(np.float32), device=dev)))
+        batch = train_batch(128, 96, 4, 64, 100, seed=6, device=dev)
+        cam = Camera.create(*cam_args, device=dev)
+        losses = []
+        for _ in range(3):
+            state, m = train_step(state, cam, batch, cfg)
+            losses.append({k: float(v) for k, v in m.items() if not k.startswith("grad_norm")})
+        noise = torch.as_tensor(np.random.default_rng(7).standard_normal((4400, 3)).astype(np.float32),
+                                device=dev)
+        before = state
+        after = refine_step(state, cfg, 128, 96, num_train_data=4, noise=noise)
+        runs[dev] = (losses, before, after)
+    (gl, gb, ga), (cl, cb, ca) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for a, b in zip(gl, cl) for k in b)
+    param_err = {}
+    for leaf, group in optim.FIELD_GROUP_OF.items():
+        lim = 3.0 * optim.DEFAULT_GROUPS[group].lr_init * 3
+        param_err[leaf] = float((getattr(gb.field, leaf).cpu() - getattr(cb.field, leaf)).abs().max()) / lim
+    alive = [int(gb.alive.sum()), int(ga.alive.sum()), int(ca.alive.sum())]
+    row = {"phase": "train_small", "gaussians": 4000, "capacity": 4400, "losses_cuda": gl,
+           "max_loss_rel_err": loss_err, "param_err_over_limit": param_err,
+           "alive_before_after_cuda_cpu": alive}
+    emit(row)
+    finite = all(bool(torch.isfinite(x).all()) for x in ga.field)
+    if (loss_err > 1e-3 or max(param_err.values()) > 1.0 or not finite
+            or abs(alive[1] - alive[2]) > 0.005 * alive[2] or alive[1] == alive[0]):
+        raise RuntimeError(f"train_small: the card disagrees with the CPU path: {row}")
+
+
+def train_phase(device, cfg) -> dict:
+    """Full-width train steps 4000..4099 and a refine step, bench.py's point."""
+    import torch
+    from gaussiangrasper_torch.engine.train_state import refine_step, train_step
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
+
+    state = train_state_at(N_FULL, CAPACITY, seed=0, device=device)
+    batch = train_batch(WIDTH, HEIGHT, 32, 800, 1000, seed=8, device=device)
+    cam = bench_camera(WIDTH, HEIGHT, device)
+    torch.cuda.synchronize()
+    rc.composite_pairs_fwd.launches = 0
+    rc.composite_pairs_bwd.launches = 0
+    batch_s, losses = [], []
+    for _ in range(TRAIN_STEPS // 10):
+        t0 = time.perf_counter()
+        metrics = []
+        for _ in range(10):
+            state, m = train_step(state, cam, batch, cfg)
+            metrics.append(torch.stack([v.float() for v in m.values()]))
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+        stacked = torch.stack(metrics)
+        if not bool(torch.isfinite(stacked).all()):
+            raise RuntimeError(f"non-finite train metrics: {dict(zip(m, stacked[-1].tolist()))}")
+        losses.append(float(stacked[-1, 0]))
+    alive_before = int(state.alive.sum())
+    refined = refine_step(state, cfg, WIDTH, HEIGHT, num_train_data=4)
+    alive_after = int(refined.alive.sum())
+    torch.cuda.synchronize()
+    launches = {"k1": rc.composite_pairs_fwd.launches, "k2": rc.composite_pairs_bwd.launches}
+    if launches != {"k1": TRAIN_STEPS, "k2": TRAIN_STEPS}:
+        raise RuntimeError(f"launches {launches} for {TRAIN_STEPS} train steps")
+    if alive_after == alive_before or not all(bool(torch.isfinite(x).all()) for x in refined.field):
+        raise RuntimeError(f"refine: alive {alive_before} -> {alive_after}")
+    ms = 1e3 * float(np.median(batch_s[1:])) / 10
+    final = dict(zip(m, (float(x) for x in stacked[-1])))
+    # one more step of the last batch's state (before the refine), traced
+    profile = device_profile(lambda: train_step(state, cam, batch, cfg), top=10)
+    t0 = time.perf_counter()
+    train_step(state, cam, batch, cfg)
+    torch.cuda.synchronize()
+    profile["step_ms"] = 1e3 * (time.perf_counter() - t0)
+    row = {"phase": "train", "gaussians": N_FULL, "capacity": CAPACITY, "width": WIDTH,
+           "height": HEIGHT, "channels": cfg.num_channels, "steps": [STEP, STEP + TRAIN_STEPS - 1],
+           "launches": launches, "ms_per_step": ms, "px_per_s": WIDTH * HEIGHT / (ms / 1e3),
+           "batch_ms_per_step": [1e3 * b / 10 for b in batch_s], "loss_every_10": losses,
+           "final_metrics": final, "alive_before_refine": alive_before,
+           "alive_after_refine": alive_after, "train_profile": profile,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    row["device_idle_share"] = 1.0 - profile["device_busy_ms"] / profile["step_ms"]
+    emit(row)
+    return row
 
 
 def serve_phase(device, cfg) -> dict:
@@ -331,32 +574,37 @@ def main() -> int:
     field, alive = bench_field(N_FULL, seed=0, device=device)
     with torch.no_grad():
         cam_mid = bench_camera(400, 300, device)
-        check_k1("mid_c39", k1_inputs(field, alive, cam_mid, cfg), time_it=False)
-        mid3 = list(k1_inputs(field, alive, cam_mid, cfg))
+        mid39 = k1_inputs(field, alive, cam_mid, cfg)
+        check_k1("mid_c39", mid39, time_it=False)
+        mid3 = list(mid39)
         mid3[3] = torch.cat([mid3[3][:, :6], mid3[3][:, 6:9]], 1).contiguous()
         mid3[4] = mid3[4][:3].contiguous()
-        check_k1("mid_c3", tuple(mid3), time_it=False)
-        full = check_k1("full_width_c39",
-                        k1_inputs(field, alive, bench_camera(WIDTH, HEIGHT, device), cfg),
-                        time_it=True)
-    del field, alive
+        mid3 = tuple(mid3)
+        check_k1("mid_c3", mid3, time_it=False)
+        full_args = k1_inputs(field, alive, bench_camera(WIDTH, HEIGHT, device), cfg)
+        full = check_k1("full_width_c39", full_args, time_it=True)
+        check_k2("mid_c39", mid39, time_it=False)
+        check_k2("mid_c3", mid3, time_it=False)
+        full2 = check_k2("full_width_c39", full_args, time_it=True)
+    del field, alive, mid39, mid3, full_args
     render_small_phase(cfg)
     serve = serve_phase(device, cfg)
+    train_small_phase(cfg)
+    train = train_phase(device, cfg)
 
-    emit({"kernels": [{
-        "name": "composite_pairs_fwd",
-        "route": "cuda",
-        "source": "gaussiangrasper_torch/csrc/composite_pairs_fwd.cu",
-        "replaces": "rasterize_pallas.py:490 (_fwd_pairs_kernel)",
-        "launches": serve["k1_launches"],
-        "max_abs_err": full["max_abs_err"],
-        "ms": full["ms"],
-        "kernel_ms": full["ms"],
-        "plain_ms": full["plain_ms"],
-        "bound_ms": full["bound_ms"],
-        "bound_by": full["bound_by"],
-        "library_ms": None,
-    }]})
+    def kernel_row(name, replaces, row, launches):
+        return {"name": name, "route": "cuda", "source": f"gaussiangrasper_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": sum(launches.values()),
+                "launches_by_path": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "wrapper_ms": row["wrapper_ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None}
+
+    emit({"kernels": [
+        kernel_row("composite_pairs_fwd", "rasterize_pallas.py:490 (_fwd_pairs_kernel)", full,
+                   {"serve": serve["k1_launches"], "train": train["launches"]["k1"]}),
+        kernel_row("composite_pairs_bwd", "rasterize_pallas.py:600 (_bwd_pairs_kernel)", full2,
+                   {"train": train["launches"]["k2"]}),
+    ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,4 @@
-"""The port's serving run directory.
+"""The port's serving run directory, and training checkpoints.
 
     <run>/checkpoint.pt  one torch.save file: field, alive, fea_up state,
                          step, model config, experiment name
@@ -10,19 +10,28 @@
 
 `cameras.npz` stands in for the capture until the port has its data layer.
 Orbax runs of the JAX package cannot be read here (that needs JAX);
-convert them through `weights.state_from_numpy` in a process that has both.
+convert them through `weights.state_from_numpy` (serving) or
+`weights.train_state_from_numpy` (training) in a process that has both.
+
+A training checkpoint is one torch.save file `<dir>/step_{:09d}.pt` holding
+the whole `TrainState`: step, field, alive, fea_up, every optimizer
+group's moments, count and accumulator, the densify stats and the state of
+the split-noise generator.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from gaussiangrasper_torch.core.cameras import Camera
+from gaussiangrasper_torch.engine import optimizers as optim
+from gaussiangrasper_torch.engine.refinement import DensifyStats
+from gaussiangrasper_torch.engine.train_state import TrainState
 from gaussiangrasper_torch.engine.weights import ServeState
 from gaussiangrasper_torch.models.efd import FeaUp
 from gaussiangrasper_torch.models.gaussian_field import FIELD_KEYS, GaussianParams
@@ -31,6 +40,7 @@ from gaussiangrasper_torch.models.model import GaussianSplatConfig
 CHECKPOINT = "checkpoint.pt"
 CAMERAS = "cameras.npz"
 GT_KEYS = ("image", "depth", "normal", "valid_mask")
+STEP_FMT = "step_{:09d}.pt"
 
 
 def save_run(run_dir: Path, state: ServeState, cfg: GaussianSplatConfig,
@@ -90,3 +100,57 @@ def load_cameras(run_dir: Path, device=None) -> Tuple[List[Camera], Dict[str, np
                           data["c2w"][i], int(data["width"]), int(data["height"]), device=device)
             for i in range(data["c2w"].shape[0])]
     return cams, data
+
+
+def _cpu(tree):
+    return optim.tree_map(lambda x: x.detach().cpu(), tree)
+
+
+def save_checkpoint(ckpt_dir: Path, state: TrainState, step: Optional[int] = None,
+                    keep_only_latest: bool = True) -> Path:
+    ckpt_dir = Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    step = state.step if step is None else step
+    path = (ckpt_dir / STEP_FMT.format(step)).absolute()
+    torch.save({
+        "step": state.step,
+        "field": {k: v.detach().cpu() for k, v in zip(FIELD_KEYS, state.field)},
+        "alive": state.alive.cpu(),
+        "fea_up": _cpu(state.fea_up),
+        "opt": {name: {"mu": _cpu(st.mu), "nu": _cpu(st.nu), "count": st.count.cpu(),
+                       "accum": _cpu(st.accum)} for name, st in state.opt.items()},
+        "stats": {k: v.cpu() for k, v in zip(DensifyStats._fields, state.stats)},
+        "generator": state.generator.get_state(),
+    }, path)
+    if keep_only_latest:
+        for p in ckpt_dir.glob("step_*.pt"):
+            if p.absolute() != path:
+                p.unlink()
+    return path
+
+
+def latest_checkpoint(ckpt_dir: Path) -> Optional[Path]:
+    ckpt_dir = Path(ckpt_dir)
+    if not ckpt_dir.exists():
+        return None
+    steps = sorted(ckpt_dir.glob("step_*.pt"))
+    return steps[-1].absolute() if steps else None
+
+
+def load_checkpoint(path: Path, device=None) -> TrainState:
+    """The `TrainState` saved at `path`, on `device` (default cpu)."""
+    payload = torch.load(Path(path), map_location="cpu", weights_only=True)
+    dev = torch.device(device or "cpu")
+    to = lambda tree: optim.tree_map(lambda x: x.to(dev), tree)  # noqa: E731
+    generator = torch.Generator(device=dev)
+    generator.set_state(payload["generator"])
+    return TrainState(
+        step=int(payload["step"]),
+        field=GaussianParams(*(payload["field"][k].to(dev) for k in FIELD_KEYS)),
+        alive=payload["alive"].to(dev),
+        fea_up=to(payload["fea_up"]),
+        opt={name: optim.GroupOptState(to(st["mu"]), to(st["nu"]), st["count"].to(dev),
+                                       to(st["accum"])) for name, st in payload["opt"].items()},
+        stats=DensifyStats(*(payload["stats"][k].to(dev) for k in DensifyStats._fields)),
+        generator=generator,
+    )

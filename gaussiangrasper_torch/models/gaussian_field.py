@@ -116,3 +116,54 @@ def init_random(
     params = params.pad_to(cap)
     alive = torch.arange(cap, device=device) < n
     return params, alive
+
+
+def knn_mean_distance(points: np.ndarray, k: int = 3) -> np.ndarray:
+    """Mean distance from each point to its k nearest other points
+    (scipy's cKDTree; the JAX package uses scikit-learn's NearestNeighbors,
+    which returns the same sorted distances)."""
+    from scipy.spatial import cKDTree
+
+    pts = np.asarray(points, np.float64)
+    distances, _ = cKDTree(pts).query(pts, k=k + 1)
+    return distances[:, 1:].mean(axis=-1).astype(np.float32)
+
+
+def seed_draws(rng: np.random.Generator, n: int, feature_dim: int = 32) -> Dict[str, np.ndarray]:
+    """The uniform draws `init_from_seeds` consumes, from a numpy generator."""
+    return {"quats": rng.random((3, n), np.float32),
+            "features": rng.random((n, feature_dim), np.float32)}
+
+
+def init_from_seeds(
+    seed_xyz: np.ndarray,
+    seed_rgb: np.ndarray,
+    draws: Dict[str, np.ndarray],
+    *,
+    sh_degree: int = 4,
+    capacity: Optional[int] = None,
+    init_opacity: float = 0.1,
+    device=None,
+) -> Tuple[GaussianParams, torch.Tensor]:
+    """Initialize from SfM / RGB-D seed points, seed_rgb in [0, 255]: scales
+    from the mean distance to the 3 nearest seeds, base colour from the
+    seed colour, uniform quats and features from injected uniforms (see
+    `seed_draws`). Returns (params, alive)."""
+    n = seed_xyz.shape[0]
+    cap = capacity or n
+    if cap < n:
+        raise ValueError(f"capacity {cap} is below the {n} seed points")
+    avg_dist = np.maximum(knn_mean_distance(seed_xyz), 1e-7)
+    log_scales = torch.log(torch.as_tensor(avg_dist, device=device))[:, None].repeat(1, 3)
+    shs = torch.zeros(n, sh.num_sh_bases(sh_degree), 3, device=device)
+    shs[:, 0, :] = rgb_to_sh0(torch.as_tensor(np.asarray(seed_rgb, np.float32), device=device) / 255.0)
+    feats = torch.tensor(np.asarray(draws["features"], np.float32), device=device)
+    params = GaussianParams(
+        means=torch.as_tensor(np.asarray(seed_xyz, np.float32), device=device),
+        log_scales=log_scales,
+        quats=random_quats(torch.tensor(np.asarray(draws["quats"], np.float32), device=device)),
+        opacity_logits=torch.full((n,), math.log(init_opacity / (1.0 - init_opacity)), device=device),
+        sh_coeffs=shs,
+        features=feats * 2.0 - 1.0,
+    )
+    return params.pad_to(cap), torch.arange(cap, device=device) < n

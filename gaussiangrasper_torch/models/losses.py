@@ -1,7 +1,8 @@
-"""Evaluation losses and metrics (counterpart of the eval subset of
-the JAX package's models/losses.py): safe_norm, SSIM, masked L1/MSE,
-cosine similarity and PSNR. The training losses come with the training
-slice."""
+"""Losses and metrics (counterpart of the JAX package's models/losses.py):
+masked L1 + SSIM on RGB, masked depth L1, normal MSE + cosine, the
+SAM-mask contrastive feature loss, the CLIP distillation ("up") loss, the
+SH and scale-ratio regularizers, and PSNR. The sampled pixel and point
+index sets arrive as fixed-size tensors from the data layer."""
 
 from __future__ import annotations
 
@@ -90,6 +91,56 @@ def cosine_similarity_loss(a: torch.Tensor, b: torch.Tensor,
         return 1.0 - sim.mean()
     w = weights.to(sim.dtype)
     return 1.0 - torch.sum(sim * w) / torch.clamp(w.sum(), min=1.0)
+
+
+def normal_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """0.5 * masked MSE + 0.5 * masked cosine loss."""
+    cos = cosine_similarity_loss(pred.reshape(-1, 3), gt.reshape(-1, 3), weights=mask.reshape(-1))
+    return 0.5 * masked_mse(pred, gt, mask) + 0.5 * cos
+
+
+def contrastive_pairs_loss(fa: torch.Tensor, fb: torch.Tensor, pair_valid: torch.Tensor,
+                           group_valid: torch.Tensor) -> torch.Tensor:
+    """Contrastive loss on gathered pair features fa, fb (G, P, F): per
+    SAM-mask group, 1 - mean cos(fa, fb) over valid pairs; averaged over
+    valid groups."""
+    sim = torch.sum((fa / safe_norm(fa)) * (fb / safe_norm(fb)), dim=-1)  # (G, P)
+    pv = pair_valid.to(sim.dtype)
+    per_group = 1.0 - torch.sum(sim * pv, dim=-1) / torch.clamp(pv.sum(-1), min=1.0)
+    gv = group_valid.to(sim.dtype)
+    return torch.sum(per_group * gv) / torch.clamp(gv.sum(), min=1.0)
+
+
+def contrastive_feature_loss(feature_map: torch.Tensor, pair_a: torch.Tensor, pair_b: torch.Tensor,
+                             pair_valid: torch.Tensor, group_valid: torch.Tensor) -> torch.Tensor:
+    """`contrastive_pairs_loss` at (row, col) pixel pairs (G, P, 2) of an
+    (H, W, F) feature map."""
+    fa = feature_map[pair_a[..., 0].long(), pair_a[..., 1].long()]
+    fb = feature_map[pair_b[..., 0].long(), pair_b[..., 1].long()]
+    return contrastive_pairs_loss(fa, fb, pair_valid, group_valid)
+
+
+def distillation_loss(lifted: torch.Tensor, gt_clip: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """CLIP-space cosine distillation ("up_loss") over valid points (S, 512)."""
+    return cosine_similarity_loss(lifted, gt_clip, weights=valid)
+
+
+def sh_reg(sh_coeffs: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """Mean L2 norm of the rest-band SH coefficients over alive Gaussians."""
+    norms = safe_norm(sh_coeffs[:, 1:, :], dim=1, keepdim=False)  # (N, 3)
+    a = alive.to(norms.dtype)[:, None]
+    return torch.sum(norms * a) / torch.clamp(a.sum() * 3.0, min=1.0)
+
+
+def scale_reg(log_scales: torch.Tensor, alive: torch.Tensor, max_gauss_ratio: float = 10.0) -> torch.Tensor:
+    """Anisotropy regularizer: 0.1 * mean over alive Gaussians of
+    max(scale ratio, r) - r. amax/amin share the gradient among ties, as
+    JAX's max/min reductions do."""
+    s = torch.exp(log_scales)
+    ratio = torch.amax(s, dim=-1) / torch.clamp(torch.amin(s, dim=-1), min=1e-12)
+    penalty = torch.clamp(ratio, min=max_gauss_ratio) - max_gauss_ratio
+    a = alive.to(penalty.dtype)
+    return 0.1 * torch.sum(penalty * a) / torch.clamp(a.sum(), min=1.0)
 
 
 def psnr(pred: torch.Tensor, gt: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:

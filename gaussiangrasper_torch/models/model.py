@@ -1,14 +1,16 @@
-"""The language-embedded Gaussian-splatting model's render path
-(counterpart of the JAX package's models/model.py, serving subset).
+"""The language-embedded Gaussian-splatting model: render and training
+loss (counterpart of the JAX package's models/model.py).
 
 ONE fused rasterization pass over 3 + F + 1 + 3 channels (rgb, latent
-feature, depth, normal). The training loss, the densification probe, pose
-deltas and the tile-sharded compositor come with later slices."""
+feature, depth, normal). The screen-space gradient statistics that drive
+densification come from a zero `probe` added to the projected centres, so
+one backward gives the parameter gradients and dL/dxy. Pose deltas and the
+tile-sharded compositor come with later slices."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -17,6 +19,7 @@ from gaussiangrasper_torch.core import sh
 from gaussiangrasper_torch.core.cameras import Camera, view_matrix
 from gaussiangrasper_torch.core.transforms import quat_to_rotmat
 from gaussiangrasper_torch.models import losses
+from gaussiangrasper_torch.models.efd import mlp_apply
 from gaussiangrasper_torch.models.gaussian_field import GaussianParams
 from gaussiangrasper_torch.ops.projection import project_gaussians
 from gaussiangrasper_torch.ops.rasterize import RasterizeConfig, rasterize_projected
@@ -84,9 +87,11 @@ def active_sh_degree(step: Union[int, torch.Tensor], cfg: GaussianSplatConfig):
 
 def render_inputs(field: GaussianParams, alive: torch.Tensor, camera: Camera,
                   step: Union[int, torch.Tensor], cfg: GaussianSplatConfig,
-                  crop_mask: Optional[torch.Tensor] = None):
+                  crop_mask: Optional[torch.Tensor] = None, probe: Optional[torch.Tensor] = None):
     """What `render` hands the rasterizer: (projection, fused colours
-    (N, 3 + F + 1 + 3), opacities (N,), background (C,))."""
+    (N, 3 + F + 1 + 3), opacities (N,), background (C,)). `probe` (N, 2),
+    zero-valued, is added to the projected centres so its gradient is
+    dL/dxy."""
     vm = view_matrix(camera.camera_to_world)
     mask = alive if crop_mask is None else (alive & crop_mask)
     proj = project_gaussians(
@@ -94,6 +99,8 @@ def render_inputs(field: GaussianParams, alive: torch.Tensor, camera: Camera,
         camera.fx, camera.fy, camera.cx, camera.cy, camera.width, camera.height,
         mask=mask,
     )
+    if probe is not None:
+        proj = proj._replace(xys=proj.xys + probe)
     viewdirs = field.means.detach() - camera.origin[None, :]
     viewdirs = viewdirs / losses.safe_norm(viewdirs)
     rgbs = torch.clamp(
@@ -111,11 +118,12 @@ def render(
     cfg: GaussianSplatConfig,
     *,
     crop_mask: Optional[torch.Tensor] = None,
+    probe: Optional[torch.Tensor] = None,
 ) -> Dict[str, Any]:
     """Render rgb / feature / depth / normal maps for one camera. Returns
     per-channel images, alpha, the projection and the binning stats."""
     F = cfg.feature_dim
-    proj, colors, opac, bg = render_inputs(field, alive, camera, step, cfg, crop_mask)
+    proj, colors, opac, bg = render_inputs(field, alive, camera, step, cfg, crop_mask, probe)
     out = rasterize_projected(proj, colors, opac, bg, camera.width, camera.height, cfg.raster)
     img = out["image"]
     return {
@@ -128,6 +136,83 @@ def render(
         "proj": proj,
         "bins": out["bins"],
     }
+
+
+def train_loss(
+    state: Dict[str, Any],
+    alive: torch.Tensor,
+    camera: Camera,
+    batch: Dict[str, torch.Tensor],
+    step: int,
+    cfg: GaussianSplatConfig,
+    probe: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Total training loss and aux outputs. `state` holds "field"
+    (GaussianParams) and "fea_up" (`mlp_apply` params).
+
+    batch: image (H, W, 3), depth (H, W), normal (H, W, 3), valid_mask
+    (H, W) bool, pair_a / pair_b (G, P, 2) int (row, col), pair_valid
+    (G, P), group_valid (G,), points (S, 2) int, point_valid (S,),
+    gt_clip (S, 512)."""
+    if cfg.pose_opt_mode != "off":
+        raise NotImplementedError("pose optimization (core/pose_opt.py) is not ported yet")
+    field: GaussianParams = state["field"]
+    outs = render(field, alive, camera, step, cfg, probe=probe)
+
+    gt_img = batch["image"]
+    valid = batch["valid_mask"]
+    depth_gt = batch["depth"]
+    depth_mask = (depth_gt > 0.05) & valid
+    gt_normal = batch["normal"] / losses.safe_norm(batch["normal"])
+
+    rgb = outs["rgb"]
+    l1 = losses.masked_l1(rgb, gt_img, valid)
+    vm3 = valid[..., None].to(rgb.dtype)
+    sim = 1.0 - losses.ssim(gt_img * vm3, rgb * vm3)
+    main_loss = (1.0 - cfg.ssim_lambda) * l1 + cfg.ssim_lambda * sim
+    depth_loss = losses.masked_l1(outs["depth"][..., 0], depth_gt, depth_mask)
+    normal_l = losses.normal_loss(outs["normal"], gt_normal, depth_mask)
+
+    # one fused pixel gather for pair_a, pair_b and the distillation points
+    fea = outs["feature"]
+    g, p_, _ = batch["pair_a"].shape
+    idx = torch.cat([batch["pair_a"].reshape(-1, 2), batch["pair_b"].reshape(-1, 2),
+                     batch["points"]], dim=0).long()
+    feats = fea[idx[:, 0], idx[:, 1]]  # (2 G P + S, F)
+    fa = feats[: g * p_].reshape(g, p_, -1)
+    fb = feats[g * p_: 2 * g * p_].reshape(g, p_, -1)
+    fea_loss = losses.contrastive_pairs_loss(fa, fb, batch["pair_valid"], batch["group_valid"])
+    lifted = mlp_apply(state["fea_up"], feats[2 * g * p_:])
+    up_loss = losses.distillation_loss(lifted, batch["gt_clip"], batch["point_valid"])
+
+    # every-10-step regularizers, multiplied in as the JAX package does
+    reg_on = float(int(step) % 10 == 0)
+    loss_dict = {
+        "main_loss": main_loss,
+        "feature_loss": fea_loss,
+        "up_loss": up_loss,
+        "depth_loss": depth_loss,
+        "normal_loss": normal_l,
+        "sh_reg": reg_on * losses.sh_reg(field.sh_coeffs, alive),
+        "scale_reg": reg_on * losses.scale_reg(field.log_scales, alive, cfg.max_gauss_ratio),
+    }
+    if cfg.sky_alpha_reg > 0.0:
+        # opt-in: rendered alpha on masked-out (free-space) pixels is pushed to zero
+        inv = 1.0 - valid.to(rgb.dtype)
+        loss_dict["sky_alpha_reg"] = cfg.sky_alpha_reg * (
+            torch.sum(outs["alpha"] * inv) / torch.clamp(inv.sum(), min=1.0))
+    total = sum(loss_dict.values())
+    bins = outs["bins"]
+    aux = {
+        "loss_dict": loss_dict,
+        "psnr": losses.psnr(rgb, gt_img, valid),
+        "radii": outs["proj"].radii,
+        "overflow": bins.overflow,
+        "dropped_tiles": bins.dropped_tiles,
+        "pair_overflow": bins.pair_overflow,
+        "alpha": outs["alpha"],
+    }
+    return total, aux
 
 
 def feature_pca_vis(feature_map: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,28 @@
-"""Per-tile front-to-back compositing over the sorted pair stream
-(counterpart of the JAX package's ops/rasterize_pallas.py, K1 only).
+"""Per-tile compositing over the sorted pair stream, forward and backward
+(counterpart of the JAX package's ops/rasterize_pallas.py, pair-stream
+kernels K1 and K2).
 
-`composite_pairs_fwd` launches the hand-written Hopper kernel
-`csrc/composite_pairs_fwd.cu` for CUDA tensors and its plain PyTorch
-version, `composite_pairs_fwd_plain`, for CPU tensors; for a CUDA tensor
-it launches the kernel or raises, never falling back. Every launch adds one
-to `composite_pairs_fwd.launches`.
+`composite_pairs_fwd` (K1, `csrc/composite_pairs_fwd.cu`) and
+`composite_pairs_bwd` (K2, `csrc/composite_pairs_bwd.cu`) launch their
+hand-written Hopper kernels for CUDA tensors and their plain PyTorch
+versions (`composite_pairs_fwd_plain`, `composite_pairs_bwd_plain`) for CPU
+tensors; for a CUDA tensor they launch the kernel or raise, never falling
+back. Every launch adds one to the wrapper's `launches`.
 
-`composite_pair_stream` is the differentiable entry the rasterizer calls.
-Its backward is the K2 kernel (`_bwd_pairs_kernel`), which the training
-slice ports; until then it raises.
+`composite_pair_stream` is the differentiable entry the rasterizer calls:
+K1 forward, K2 backward, then one `index_add_` by the pair payload into
+per-Gaussian gradients and the background gradient sum_p T_final g_out.
+
+Gradient identities (out = sum_k w_k c_k + T_final bg, w_k = alpha_k
+prod_{j<k} (1 - alpha_j), the cut folded into alpha):
+  dL/dc_k      = sum_p w_kp g_out[p]
+  dL/dalpha_kp = T_before <c_k, g> - suffix_k / (1 - alpha)
+                 - (<bg, g_out[p]> - g_alpha_p) T_final / (1 - alpha)
+with suffix_k = sum_{j>k} w_j <c_j, g>; then through alpha = min(.999,
+o exp(-sigma)): do = exp(-sigma) dalpha, dsigma = -o exp(-sigma) dalpha
+(0 where clamped or invalid), sigma = .5 (a dx^2 + c dy^2) + b dx dy with
+dx = px - x_k: da = .5 dx^2 dsigma, db = dx dy dsigma, dc = .5 dy^2 dsigma,
+dx_k = -(a dx + b dy) dsigma, dy_k = -(b dx + c dy) dsigma.
 """
 
 from __future__ import annotations
@@ -19,6 +32,7 @@ from typing import Tuple
 
 import torch
 
+from gaussiangrasper_torch._device import full_f32
 from gaussiangrasper_torch.ops.rasterize import ALPHA_CLAMP, ALPHA_CUTOFF, _LOG_EPS
 
 WALK_CHUNK = 128
@@ -178,17 +192,153 @@ def stream_bounds(pair_gidx, seg_starts, tile_count, k_cap: int):
     return starts.to(torch.int32).contiguous(), counts.to(torch.int32).contiguous()
 
 
+def composite_pairs_bwd_plain(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
+                              tw: int, ts: int):
+    """Plain PyTorch version of K2: the reverse walk, one stream row at a
+    time from the last composited row down to 0, vectorized over every
+    tile and pixel, in the kernel's operation order.
+
+    Stream inputs as in `composite_pairs_fwd_plain`; g_out (T, P, C),
+    g_alpha, and K1's saved logt and ncomp (T, P). A pixel's walk covers
+    rows k < min(ncomp, count): the composite mask is k < ncomp, and K1
+    rounds an uncut ncomp up to its 128-row chunk, so the count bounds it
+    too. Returns gpairs (B, 6 + C): per stream row, dxy | dconic | dopacity
+    | dcolour summed over the tile's pixels; rows no tile walks are zero."""
+    T = starts.shape[0]
+    C = attrs.shape[1] - 6
+    dev = attrs.device
+    gpairs = torch.zeros(pair_gidx.shape[0], 6 + C, dtype=torch.float32, device=dev)
+    if T == 0:
+        return gpairs
+    px, py = _pixel_coords(T, tw, ts, dev)
+    counts64 = counts.to(torch.int64)
+    kstart = torch.minimum(ncomp.to(torch.int64), counts64[:, None])
+    tail = torch.exp(logt) * ((g_out * bg).sum(-1) - g_alpha)
+    suffix_comp = torch.zeros_like(logt)
+    suffix_wgc = torch.zeros_like(logt)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    with full_f32():
+        for k in range(int(kstart.max()) - 1, -1, -1):
+            walking = counts64 > k
+            pos = torch.where(walking, starts.to(torch.int64) + k, 0)
+            row = attrs[pair_gidx[pos].to(torch.int64)]  # (T, 6 + C)
+            dx = px - row[:, 0:1]
+            dy = py - row[:, 1:2]
+            sigma = 0.5 * (row[:, 2:3] * dx * dx + row[:, 4:5] * dy * dy) + row[:, 3:4] * dx * dy
+            esig = torch.exp(-sigma)
+            raw = row[:, 5:6] * esig
+            a = torch.clamp(raw, max=ALPHA_CLAMP)
+            ok = (kstart > k) & (sigma >= 0.0) & (a >= ALPHA_CUTOFF)
+            lt = torch.where(ok, torch.log1p(-a), zero)
+            t_before = torch.exp(logt - (suffix_comp + lt))
+            w = torch.where(ok, a * t_before, zero)
+            gc = torch.einsum("tc,tpc->tp", row[:, 6:], g_out)
+            wgc = w * gc
+            one_m = torch.clamp(1.0 - a, min=1e-6)
+            dalpha = t_before * gc - (suffix_wgc + tail) / one_m
+            dalpha = torch.where(ok & (w > 0.0) & (raw < ALPHA_CLAMP), dalpha, zero)
+            dsigma = -raw * dalpha
+            grads = torch.cat([
+                -((row[:, 2:3] * dx + row[:, 3:4] * dy) * dsigma).sum(1, keepdim=True),
+                -((row[:, 3:4] * dx + row[:, 4:5] * dy) * dsigma).sum(1, keepdim=True),
+                (0.5 * dx * dx * dsigma).sum(1, keepdim=True),
+                (dx * dy * dsigma).sum(1, keepdim=True),
+                (0.5 * dy * dy * dsigma).sum(1, keepdim=True),
+                (esig * dalpha).sum(1, keepdim=True),
+                torch.einsum("tp,tpc->tc", w, g_out),
+            ], dim=1)
+            gpairs[pos[walking]] = grads[walking]
+            suffix_comp = suffix_comp + lt
+            suffix_wgc = suffix_wgc + wgc
+    return gpairs
+
+
+def _check_bwd_inputs(attrs, starts, g_out, g_alpha, logt, ncomp, ts: int):
+    T, P, C = starts.shape[0], ts * ts, attrs.shape[1] - 6
+    for name, x, shape in (("g_out", g_out, (T, P, C)), ("g_alpha", g_alpha, (T, P)),
+                           ("logt", logt, (T, P)), ("ncomp", ncomp, (T, P))):
+        if x.device != attrs.device or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 on {attrs.device}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} {tuple(x.shape)}: want {shape}")
+
+
+def _launch_bwd_kernel(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
+                       tw: int, ts: int):
+    C = attrs.shape[1] - 6
+    if C not in KERNEL_CHANNELS:
+        raise ValueError(f"composite_pairs_bwd kernel is built for C in {KERNEL_CHANNELS}, got {C}")
+    if ts * ts > 1024 or (ts * ts) % 32:
+        raise ValueError(f"tile_size {ts}: one thread per pixel in whole warps needs "
+                         "ts*ts <= 1024 and a multiple of 32")
+    from gaussiangrasper_torch._build import load_library
+
+    lib = load_library("composite_pairs_bwd")
+    fn = lib.ggt_composite_pairs_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    lib.ggt_cuda_error_string.restype = ctypes.c_char_p
+    lib.ggt_cuda_error_string.argtypes = [ctypes.c_int]
+
+    T = starts.shape[0]
+    gpairs = torch.zeros(pair_gidx.shape[0], 6 + C, dtype=torch.float32, device=attrs.device)
+    if T == 0:
+        return gpairs
+    stream = torch.cuda.current_stream(attrs.device).cuda_stream
+    err = fn(pair_gidx.data_ptr(), starts.data_ptr(), counts.data_ptr(), attrs.data_ptr(),
+             bg.data_ptr(), g_out.data_ptr(), g_alpha.data_ptr(), logt.data_ptr(),
+             ncomp.data_ptr(), T, tw, ts, C, gpairs.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("composite_pairs_bwd launch failed: "
+                           + lib.ggt_cuda_error_string(err).decode())
+    composite_pairs_bwd.launches += 1
+    return gpairs
+
+
+def _bwd_dispatch(*args):
+    attrs = args[3]
+    if attrs.device.type == "cuda":
+        return _launch_bwd_kernel(*args)
+    if attrs.device.type != "cpu":
+        raise ValueError(f"composite_pairs_bwd runs on cuda or cpu, not {attrs.device}")
+    return composite_pairs_bwd_plain(*args)
+
+
+def composite_pairs_bwd(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
+                        tw: int, ts: int):
+    """K2's per-stream-row gradients gpairs (B, 6 + C): the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors. Arguments as in
+    `composite_pairs_bwd_plain`."""
+    _check_inputs(pair_gidx, starts, counts, attrs, bg)
+    _check_bwd_inputs(attrs, starts, g_out, g_alpha, logt, ncomp, ts)
+    return _bwd_dispatch(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp, tw, ts)
+
+
+composite_pairs_bwd.launches = 0
+
+
 class _CompositePairs(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pair_gidx, starts, counts, xys, conics, opacities, colors, bg, tw, ts):
-        out, alpha, _, _ = composite_pairs_fwd(pair_gidx, starts, counts,
-                                               pack_attrs(xys, conics, opacities, colors),
-                                               bg.float().contiguous(), tw, ts)
+        attrs = pack_attrs(xys, conics, opacities, colors)
+        bg = bg.float().contiguous()
+        out, alpha, logt, ncomp = composite_pairs_fwd(pair_gidx, starts, counts, attrs, bg, tw, ts)
+        ctx.save_for_backward(pair_gidx, starts, counts, attrs, bg, logt, ncomp)
+        ctx.tiles = (tw, ts)
         return out, alpha
 
     @staticmethod
     def backward(ctx, g_out, g_alpha):
-        raise NotImplementedError("K2 _bwd_pairs_kernel: next slice")
+        pair_gidx, starts, counts, attrs, bg, logt, ncomp = ctx.saved_tensors
+        g_out, g_alpha = g_out.float().contiguous(), g_alpha.float().contiguous()
+        # the forward already checked the stream against the table: no second host sync
+        _check_bwd_inputs(attrs, starts, g_out, g_alpha, logt, ncomp, ctx.tiles[1])
+        gpairs = _bwd_dispatch(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
+                               *ctx.tiles)
+        acc = torch.zeros_like(attrs).index_add_(0, pair_gidx.to(torch.int64), gpairs)
+        gbg = torch.einsum("tp,tpc->c", torch.exp(logt), g_out)
+        return (None, None, None, acc[:, 0:2], acc[:, 2:5], acc[:, 5], acc[:, 6:], gbg,
+                None, None)
 
 
 def composite_pair_stream(pair_gidx, seg_starts, tile_count, xys, conics, opacities, colors,
