@@ -6,26 +6,42 @@ NVIDIA card.
 
 Phases, one JSON line each:
   device   the card (nvidia-smi name and power limit), torch and CUDA versions
-  build    nvcc of every kernel in gaussiangrasper_torch/csrc (seconds, ptxas report)
+  build    nvcc of every kernel in gaussiangrasper_torch/csrc and g++ of the native
+           sampler, all into gaussiangrasper_torch/build (seconds, ptxas report, the
+           sampler's branch, how many two-CTA clusters of K5 / K6 the card holds)
   k1       each kernel against its plain PyTorch version on the card, at a mid
            size and at full width (200k Gaussians, 800x800, C = 39): errors,
            kernel and plain times, the roofline bound
+  k2       the backward kernel against its plain version on K1's own logt
+           and ncomp, random g_out and a nonzero g_alpha, at mid size (C 39
+           and C 3) and full width: errors of the per-Gaussian sums,
+           kernel and plain times, the roofline bound
+  k5       the two-tile forward against K1 (all four outputs bit-equal) at
+           an odd mid tile count (C 39 and C 3, also against the plain
+           version) and at full width (625 tiles); its time beside K1's and
+           the bound
+  k6       the two-tile backward against K2 and the plain version with K2's
+           criterion, at the same sizes; its time beside K2's and the bound
   render_small  the whole render path on the card against the same path on
            the CPU (plain compositor) on a small field
   serve    a full-width run directory (seeded field, step 4000, seeded
            fea_up, 4 orbit views with ground truth); the render and query
            CLIs on cuda with every launch count set to 0 just before and
            read just after; outputs checked finite; ms per view
-  k2       the backward kernel against its plain version on K1's own logt
-           and ncomp, random g_out and a nonzero g_alpha, at mid size (C 39
-           and C 3) and full width: errors of the per-Gaussian sums,
-           kernel and plain times, the roofline bound
   train_small  three train steps and a refine step on a small field, on the
            card and on the CPU path from the same init and batch
   train    the full-width train step (bench field grown to capacity 400k,
            bench camera, bench batch shapes, seeded fea_up), steps 4000 to
            4099 and a refine step with every launch count set to 0 just
            before and read just after; ms per step, px/s, a profile
+  trainer  the training CLI (`ggt-torch-train`) on an 800x800, 8-view
+           ray-traced tabletop with 200k seed points: 300 steps (250 at
+           400x400, 50 at 800x800), refines at steps 100, 200, 300, capacity
+           400k, C = 39, then the render CLI on the run; every launch count
+           set to 0 just before; ms per step at each resolution, px/s, the
+           wait on the data path, losses, alive counts, peak memory, a profile
+  trainer_tp2  the same run with rasterize_cuda.TP = 2 (K5 / K6): its
+           step-0 loss equal to trainer's, and how far the runs drift apart
 Then the kernels line, the nvidia-smi line and, last, the ok line. Any
 failure exits non-zero without the ok line. Without a card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -53,6 +69,8 @@ K1_NCOMP_SHARE_MAX = 1e-4  # of pixels whose ncomp may differ, by at most 1
 K2_ERR_MAX = 1e-4  # of each column group's max |per-Gaussian gradient|
 CAPACITY = 400_000
 TRAIN_STEPS = 100
+TRAINER_STEPS = 300
+TRAINER_SCENE = dict(width=800, height=800, n_views=8, seed_points=200_000, seed=0)
 
 
 def emit(obj) -> None:
@@ -254,6 +272,16 @@ def k2_bound(args, live) -> dict:
             "visits": visits, "live_visits": n_live, "ops": ops, "bytes": nbytes}
 
 
+def grad_errors(got, want, c: int):
+    """Per column group (dxy, dconic, dopacity, dcolour) of per-Gaussian
+    sums: max |got - want| over the group's max |want|, and that max."""
+    errs, scales = {}, {}
+    for name, lo, hi in (("dxy", 0, 2), ("dconic", 2, 5), ("dopacity", 5, 6), ("dcolor", 6, 6 + c)):
+        scales[name] = float(want[:, lo:hi].abs().max())
+        errs[name] = float((got[:, lo:hi] - want[:, lo:hi]).abs().max()) / max(scales[name], 1e-30)
+    return errs, scales
+
+
 def check_k2(label: str, k1_args, time_it: bool) -> dict:
     """Kernel vs plain version on the same inputs, held on the per-Gaussian
     sums (column groups dxy, dconic, dopacity, dcolour, each relative to
@@ -266,10 +294,7 @@ def check_k2(label: str, k1_args, time_it: bool) -> dict:
     want = per_gaussian(args, rc.composite_pairs_bwd_plain(*args))
     torch.cuda.synchronize()
     c = args[3].shape[1] - 6
-    errs, scales = {}, {}
-    for name, lo, hi in (("dxy", 0, 2), ("dconic", 2, 5), ("dopacity", 5, 6), ("dcolor", 6, 6 + c)):
-        scales[name] = float(want[:, lo:hi].abs().max())
-        errs[name] = float((got[:, lo:hi] - want[:, lo:hi]).abs().max()) / max(scales[name], 1e-30)
+    errs, scales = grad_errors(got, want, c)
     row = {"phase": "k2", "case": label, "tiles": int(args[1].shape[0]), "channels": c,
            "pairs": int(args[2].sum()), "rel_err": errs, "scale": scales,
            "max_abs_err": float((got - want).abs().max()),
@@ -284,6 +309,74 @@ def check_k2(label: str, k1_args, time_it: bool) -> dict:
     if not bool(torch.isfinite(got).all()) or max(errs.values()) > K2_ERR_MAX \
             or min(scales.values()) <= 0.0:
         raise RuntimeError(f"k2 {label}: kernel disagrees with its plain version: {row}")
+    return row
+
+
+def check_k5(label: str, args, time_it: bool, plain: bool) -> dict:
+    """K5 against K1 on the same inputs: all four outputs bit-equal
+    (torch.equal); with `plain`, also against the plain version under K1's
+    criterion. Timed beside K1 with the same CUDA events."""
+    import torch
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
+
+    got = rc.composite_pairs_fwd2(*args)
+    k1 = rc._launch_kernel(*args)
+    torch.cuda.synchronize()
+    equal = [bool(torch.equal(a, b)) for a, b in zip(got, k1)]
+    row = {"phase": "k5", "case": label, "tiles": int(args[1].shape[0]),
+           "channels": int(args[3].shape[1] - 6), "pairs": int(args[2].sum()),
+           "bit_equal_to_k1": dict(zip(("out", "alpha", "logt", "ncomp"), equal))}
+    ok = all(equal) and all(bool(torch.isfinite(x).all()) for x in got)
+    want = None
+    if plain or time_it:
+        want = rc.composite_pairs_fwd_plain(*args, count_live=True)
+    if plain:
+        err = max(float((a - b).abs().max()) for a, b in zip(got[:3], want[:3]))
+        dn = (got[3] - want[3]).abs()
+        row.update(max_abs_err=err, ncomp_diff_pixels=int((dn > 0).sum()),
+                   ncomp_diff_max=float(dn.max()))
+        ok = ok and err <= K1_ERR_MAX and float(dn.max()) <= 1 \
+            and int((dn > 0).sum()) <= K1_NCOMP_SHARE_MAX * dn.numel()
+    if time_it:
+        row["ms"] = cuda_ms(lambda: rc._launch_kernel2(*args), 20)
+        row["k1_ms"] = cuda_ms(lambda: rc._launch_kernel(*args), 20)
+        row["plain_ms"] = cuda_ms(lambda: rc.composite_pairs_fwd_plain(*args), 3)
+        row.update(k1_bound(args, want[3], want[4]))
+        row.setdefault("max_abs_err", max(float((a - b).abs().max()) for a, b in zip(got[:3], want[:3])))
+    emit(row)
+    if not ok:
+        raise RuntimeError(f"k5 {label}: K5 disagrees with K1 or the plain version: {row}")
+    return row
+
+
+def check_k6(label: str, k1_args, time_it: bool) -> dict:
+    """K6 against K2 and against the plain version on the same inputs, with
+    K2's criterion on the per-Gaussian sums; timed beside K2."""
+    import torch
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
+
+    args = k2_inputs(k1_args, seed=5)
+    got = per_gaussian(args, rc.composite_pairs_bwd2(*args))
+    k2 = per_gaussian(args, rc._launch_bwd_kernel(*args))
+    want = per_gaussian(args, rc.composite_pairs_bwd_plain(*args))
+    torch.cuda.synchronize()
+    c = args[3].shape[1] - 6
+    errs_k2, _ = grad_errors(got, k2, c)
+    errs, scales = grad_errors(got, want, c)
+    row = {"phase": "k6", "case": label, "tiles": int(args[1].shape[0]), "channels": c,
+           "pairs": int(args[2].sum()), "rel_err_vs_plain": errs, "rel_err_vs_k2": errs_k2,
+           "scale": scales, "max_abs_err": float((got - want).abs().max()),
+           "max_rel_err": max(max(errs.values()), max(errs_k2.values()))}
+    if time_it:
+        row["ms"] = cuda_ms(lambda: rc._launch_bwd_kernel2(*args), 20)
+        row["k2_ms"] = cuda_ms(lambda: rc._launch_bwd_kernel(*args), 20)
+        row["plain_ms"] = cuda_ms(lambda: rc.composite_pairs_bwd_plain(*args), 1)
+        live = rc.composite_pairs_fwd_plain(*k1_args, count_live=True)[4]
+        row.update(k2_bound(args, live))
+    emit(row)
+    if not bool(torch.isfinite(got).all()) or row["max_rel_err"] > K2_ERR_MAX \
+            or min(scales.values()) <= 0.0:
+        raise RuntimeError(f"k6 {label}: K6 disagrees with K2 or the plain version: {row}")
     return row
 
 
@@ -433,6 +526,103 @@ def train_phase(device, cfg) -> dict:
     return row
 
 
+def trainer_phase(scene: Path, label: str, tp: int) -> dict:
+    """The training CLI in-process on the tabletop, then the render CLI on
+    the run. A shim around train_state.train_step / refine_step times each
+    step between two synchronizations and records losses and alive counts;
+    it is this script's instrument, not the trainer's."""
+    import torch
+    from gaussiangrasper_torch.engine import train_state
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
+    from gaussiangrasper_torch.scripts import render, train
+
+    steps, refines = [], []
+    train_step, refine_step = train_state.train_step, train_state.refine_step
+
+    def timed_step(state, cam, batch, cfg, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(state, cam, batch, cfg, *a, **k)
+        torch.cuda.synchronize()
+        steps.append((cam.width, 1e3 * (time.perf_counter() - t0),
+                      float(out[1]["loss"]), float(out[1]["psnr"])))
+        return out
+
+    def counted_refine(state, *a, **k):
+        new = refine_step(state, *a, **k)
+        refines.append([state.step, int(state.alive.sum()), int(new.alive.sum())])
+        return new
+
+    kernels = (rc.composite_pairs_fwd, rc.composite_pairs_bwd, rc.composite_pairs_fwd2,
+               rc.composite_pairs_bwd2)
+    names = ("k1", "k2", "k5", "k6")
+    with tempfile.TemporaryDirectory() as tmp:
+        rc.TP = tp
+        train_state.train_step, train_state.refine_step = timed_step, counted_refine
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        try:
+            trainer = train.main(["--data", str(scene), "--max-iterations", str(TRAINER_STEPS),
+                                  "--capacity", str(CAPACITY), "--steps-per-save",
+                                  str(TRAINER_STEPS), "--output-dir", tmp])
+            torch.cuda.synchronize()
+        finally:
+            train_state.train_step, train_state.refine_step = train_step, refine_step
+            rc.TP = 1
+        wall_s = time.perf_counter() - t0
+        launches = dict(zip(names, (k.launches for k in kernels)))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        run = Path(tmp) / "gaussian-splatting"
+        render.main(["--run-dir", str(run), "--num-views", "2"])
+        torch.cuda.synchronize()
+        render_launches = {n: k.launches - launches[n] for n, k in zip(names, kernels)}
+        metrics = json.loads((run / "renders" / "metrics.json").read_text())["results"]
+        # one more full-resolution step of the trained state through the
+        # same kernels, traced
+        rc.TP = tp
+        try:
+            cam, batch = trainer.dm.get_batch(0)
+            cfg = trainer.config.model
+            profile = device_profile(lambda: train_step(trainer.state, cam, batch, cfg), top=10)
+            t0 = time.perf_counter()
+            train_step(trainer.state, cam, batch, cfg)
+            torch.cuda.synchronize()
+            profile["step_ms"] = 1e3 * (time.perf_counter() - t0)
+        finally:
+            rc.TP = 1
+    by_width = {w: [ms for w2, ms, _, _ in steps if w2 == w] for w in (WIDTH // 2, WIDTH)}
+    ms = {f"{w}x{w}": float(np.median(v)) for w, v in by_width.items()}
+    losses = [loss for _, _, loss, _ in steps]
+    row = {"phase": label, "tp": tp, "steps": len(steps), "seed_points": TRAINER_SCENE["seed_points"],
+           "capacity": CAPACITY, "channels": trainer.config.model.num_channels,
+           "launches_train": launches, "launches_render": render_launches,
+           "ms_per_step_median": ms, "steps_at": {k: len(v) for k, v in zip(ms, by_width.values())},
+           "px_per_s_800x800": WIDTH * HEIGHT / (ms[f"{WIDTH}x{HEIGHT}"] / 1e3),
+           "data_wait_ms_mean": 1e3 * float(np.mean(trainer.data_wait_s)),
+           "wall_s": wall_s, "loss_first_last": [losses[0], losses[-1]],
+           "psnr_first_last": [steps[0][3], steps[-1][3]],
+           "loss_every_50": losses[::50], "refine_step_alive_before_after": refines,
+           "peak_mem_gb": peak_gb, "sampler_branch": trainer.dm.sampler_branch,
+           "render_metrics": {k: metrics[k] for k in ("psnr", "ssim", "psnr_masked") if k in metrics},
+           "train_profile": profile, "losses": losses}
+    row["device_idle_share"] = 1.0 - profile["device_busy_ms"] / profile["step_ms"]
+    emit({k: v for k, v in row.items() if k != "losses"})
+    want = {"k1": 0, "k2": 0, "k5": TRAINER_STEPS, "k6": TRAINER_STEPS} if tp == 2 else \
+        {"k1": TRAINER_STEPS, "k2": TRAINER_STEPS, "k5": 0, "k6": 0}
+    if launches != want:
+        raise RuntimeError(f"{label}: launches {launches}, want {want}")
+    if render_launches != {"k1": 2, "k2": 0, "k5": 0, "k6": 0}:
+        raise RuntimeError(f"{label}: render launches {render_launches}")
+    if len(steps) != TRAINER_STEPS or not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0] or len(refines) != TRAINER_STEPS // 100:
+        raise RuntimeError(f"{label}: {len(steps)} steps, losses {losses[::50]}, refines {refines}")
+    if not all(math.isfinite(v) for v in row["render_metrics"].values()):
+        raise RuntimeError(f"{label}: render metrics {row['render_metrics']}")
+    return row
+
+
 def serve_phase(device, cfg) -> dict:
     """Full-width run directory through the render and query CLIs."""
     import torch
@@ -555,7 +745,9 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
         return 3
+    from gaussiangrasper_torch import native
     from gaussiangrasper_torch.models.model import GaussianSplatConfig
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
 
     card = nvidia_smi()
     emit({"phase": "device", "nvidia_smi": card, "name": torch.cuda.get_device_name(0),
@@ -567,7 +759,14 @@ def main() -> int:
     ptxas = {name: [ln.strip() for ln in text.splitlines()
                     if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
              for name, text in reports.items()}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    sampler = native.branch()
+    clusters = {f"{k}_c{c}": rc.max_active_clusters(k, c, 32) for k in ("fwd2", "bwd2")
+                for c in rc.KERNEL_CHANNELS}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas,
+          "sampler_branch": sampler, "sampler_library": str(native.LIB_PATH.relative_to(ROOT)),
+          "max_active_two_cta_clusters": clusters})
+    if min(clusters.values()) == 0:
+        raise RuntimeError(f"no two-CTA cluster of K5 / K6 fits on this card: {clusters}")
 
     device = torch.device("cuda")
     cfg = GaussianSplatConfig()
@@ -576,39 +775,81 @@ def main() -> int:
         cam_mid = bench_camera(400, 300, device)
         mid39 = k1_inputs(field, alive, cam_mid, cfg)
         check_k1("mid_c39", mid39, time_it=False)
-        mid3 = list(mid39)
-        mid3[3] = torch.cat([mid3[3][:, :6], mid3[3][:, 6:9]], 1).contiguous()
-        mid3[4] = mid3[4][:3].contiguous()
-        mid3 = tuple(mid3)
+        mid3 = c3_inputs(mid39)
         check_k1("mid_c3", mid3, time_it=False)
         full_args = k1_inputs(field, alive, bench_camera(WIDTH, HEIGHT, device), cfg)
         full = check_k1("full_width_c39", full_args, time_it=True)
         check_k2("mid_c39", mid39, time_it=False)
         check_k2("mid_c3", mid3, time_it=False)
         full2 = check_k2("full_width_c39", full_args, time_it=True)
-    del field, alive, mid39, mid3, full_args
+        odd39 = k1_inputs(field, alive, bench_camera(400, 288, device), cfg)  # 13 x 9 tiles
+        odd3 = c3_inputs(odd39)
+        check_k5("mid_odd_c39", odd39, time_it=False, plain=True)
+        check_k5("mid_odd_c3", odd3, time_it=False, plain=True)
+        full5 = check_k5("full_width_c39", full_args, time_it=True, plain=False)
+        check_k6("mid_odd_c39", odd39, time_it=False)
+        check_k6("mid_odd_c3", odd3, time_it=False)
+        full6 = check_k6("full_width_c39", full_args, time_it=True)
+    del field, alive, mid39, mid3, full_args, odd39, odd3
     render_small_phase(cfg)
     serve = serve_phase(device, cfg)
     train_small_phase(cfg)
     train = train_phase(device, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        from gaussiangrasper_torch.data.synthetic import generate_tabletop
 
-    def kernel_row(name, replaces, row, launches):
-        return {"name": name, "route": "cuda", "source": f"gaussiangrasper_torch/csrc/{name}.cu",
+        t0 = time.perf_counter()
+        scene = generate_tabletop(Path(tmp) / "tabletop", **TRAINER_SCENE)
+        emit({"phase": "trainer_data", "seconds": time.perf_counter() - t0, **TRAINER_SCENE})
+        trainer = trainer_phase(scene, "trainer", tp=1)
+        trainer2 = trainer_phase(scene, "trainer_tp2", tp=2)
+    l1, l2 = trainer["losses"], trainer2["losses"]
+    drift = [abs(a - b) / abs(b) for a, b in zip(l2, l1)]
+    emit({"phase": "trainer_tp2_vs_trainer", "step0_loss": [l1[0], l2[0]],
+          "last_loss": [l1[-1], l2[-1]], "rel_drift_at_step": {str(i): drift[i] for i in
+                                                               (0, 1, 10, 100, 250, len(drift) - 1)},
+          "max_rel_drift": max(drift)})
+    if drift[0] > 1e-6:
+        raise RuntimeError(f"trainer_tp2: step-0 loss {l2[0]} != {l1[0]}")
+
+    def kernel_row(name, source, replaces, row, launches):
+        return {"name": name, "route": "cuda", "source": f"gaussiangrasper_torch/csrc/{source}.cu",
                 "replaces": replaces, "launches": sum(launches.values()),
                 "launches_by_path": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                "wrapper_ms": row["wrapper_ms"], "plain_ms": row["plain_ms"],
+                "wrapper_ms": row.get("wrapper_ms"), "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None}
 
     emit({"kernels": [
-        kernel_row("composite_pairs_fwd", "rasterize_pallas.py:490 (_fwd_pairs_kernel)", full,
-                   {"serve": serve["k1_launches"], "train": train["launches"]["k1"]}),
-        kernel_row("composite_pairs_bwd", "rasterize_pallas.py:600 (_bwd_pairs_kernel)", full2,
-                   {"train": train["launches"]["k2"]}),
+        kernel_row("composite_pairs_fwd", "composite_pairs_fwd",
+                   "rasterize_pallas.py:490 (_fwd_pairs_kernel)", full,
+                   {"serve": serve["k1_launches"], "train": train["launches"]["k1"],
+                    "trainer": trainer["launches_train"]["k1"],
+                    "trainer_render": trainer["launches_render"]["k1"],
+                    "trainer_tp2_render": trainer2["launches_render"]["k1"]}),
+        kernel_row("composite_pairs_bwd", "composite_pairs_bwd",
+                   "rasterize_pallas.py:600 (_bwd_pairs_kernel)", full2,
+                   {"train": train["launches"]["k2"], "trainer": trainer["launches_train"]["k2"]}),
+        kernel_row("composite_pairs_fwd2", "composite_pairs_fwd",
+                   "rasterize_pallas.py:1059 (_fwd_pairs2_kernel)", full5,
+                   {"trainer_tp2": trainer2["launches_train"]["k5"]}),
+        kernel_row("composite_pairs_bwd2", "composite_pairs_bwd",
+                   "rasterize_pallas.py:1189 (_bwd_pairs2_kernel)", full6,
+                   {"trainer_tp2": trainer2["launches_train"]["k6"]}),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def c3_inputs(args):
+    """The same stream with only the rgb channels (C = 3)."""
+    import torch
+
+    c3 = list(args)
+    c3[3] = torch.cat([c3[3][:, :6], c3[3][:, 6:9]], 1).contiguous()
+    c3[4] = c3[4][:3].contiguous()
+    return tuple(c3)
 
 
 def bench_camera(width: int, height: int, device):

@@ -1,7 +1,11 @@
 // Backward of the per-tile compositing over the depth-sorted pair stream, for Hopper (sm_90a).
 //
-// Replaces rasterize_pallas.py:_bwd_pairs_kernel (K2) of the JAX package, launched there by
-// _call_bwd_pairs from _composite_pairs_bwd. Inputs: the stream (pair_gidx, starts, counts),
+// Replaces two kernels of the JAX package's rasterize_pallas.py, with one per-tile body:
+//   K2 _bwd_pairs_kernel (launched by _call_bwd_pairs from _composite_pairs_bwd): one tile per
+//      kernel instance;
+//   K6 _bwd_pairs2_kernel (launched by _call_bwd_pairs2 under GGT_TP=2): tiles 2j and 2j + 1 per
+//      kernel instance.
+// Inputs: the stream (pair_gidx, starts, counts),
 // the attribute table (N, 6 + C) (xy | conic a, b, c | opacity | colour), bg (C,), the upstream
 // g_out (T, P, C) and g_alpha (T, P), and K1's saved logt and ncomp (T, P). Output: gpairs
 // (B, 6 + C), per stream row dxy(2), dconic(3), dopacity(1), dcolour(C), each summed over the
@@ -35,11 +39,25 @@
 // alpha >= 1/255, o exp(-sigma) < 0.999) use K1's explicitly rounded operations, so they decide
 // as the plain version does.
 //
+// Two tiles per instance (K6). As K5 in composite_pairs_fwd.cu: a grid of 2 ceil(T/2) CTAs in
+// two-CTA clusters, tile = 2 clusterid + cluster_ctarank, the phantom CTA of an odd T returning
+// before any barrier; both kernels call the one per-tile body (grad_tile), so the gradient math
+// exists once. Each CTA keeps K2's ~206 KB of dynamic shared memory, so a cluster needs two free
+// SMs of one GPC; the launcher sets cudaFuncAttributeMaxDynamicSharedMemorySize and the wrapper
+// raises when cudaOccupancyMaxActiveClusters says no cluster fits. The JAX kernel flushes a
+// kr-row gradient window that may overrun into the next tile's segment, so it must flush tile
+// 2j before tile 2j + 1 on a sequential grid (_bwd_pairs2_kernel's docstring). Here each CTA
+// writes only rows [start, start + count) of its own tile's segment (the rows it walked), the
+// segments do not overlap, and the CTAs of a cluster, like all CTAs, may run in any order: the
+// flush-ordering argument has no counterpart.
+//
 // Bound on this card (H100 SXM: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s): each
 // walked pair-pixel visit costs ~16 operations for sigma and alpha; each contributing visit
 // adds log1p, two expf, the 2C-flop <c, g>, ~30 for dalpha and the conic chain, C products for
 // dcolour and 6 + C adds for the pixel sums. chip_smoke.py computes the bound from the run's
-// own visit counts; the kernel is bound by operations.
+// own visit counts; the kernel is bound by operations. Measured by chip_smoke.py on an H100
+// 80GB HBM3 at 700 W: K6 17.51 ms beside K2's 17.24 ms in the same run, 29x the 0.595 ms
+// bound; the card holds 66 two-CTA clusters of K6 (one CTA an SM, for its shared memory).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,9 +92,10 @@ size_t smem_bytes(int p) {
          sizeof(int32_t) * kBatch;
 }
 
+// The whole per-tile backward of tile t, run by its CTA (one thread per pixel).
 template <int C>
-__global__ void __launch_bounds__(1024, 1) composite_pairs_bwd_kernel(
-    const int32_t* __restrict__ pair_gidx, const int32_t* __restrict__ starts,
+__device__ __forceinline__ void grad_tile(
+    int t, const int32_t* __restrict__ pair_gidx, const int32_t* __restrict__ starts,
     const int32_t* __restrict__ counts, const float* __restrict__ attrs,
     const float* __restrict__ bg, const float* __restrict__ g_out,
     const float* __restrict__ g_alpha, const float* __restrict__ logt,
@@ -91,7 +110,6 @@ __global__ void __launch_bounds__(1024, 1) composite_pairs_bwd_kernel(
   float* s_acc = s_attr + kBatch * A;  // kBatch x A
   int32_t* s_gid = (int32_t*)(s_acc + kBatch * A);
 
-  const int t = blockIdx.x;
   const int lin = threadIdx.x;
   const int lane = lin & 31;
   const int start = starts[t];
@@ -193,6 +211,87 @@ __global__ void __launch_bounds__(1024, 1) composite_pairs_bwd_kernel(
   }
 }
 
+// K2: one CTA per tile.
+template <int C>
+__global__ void __launch_bounds__(1024, 1) composite_pairs_bwd_kernel(
+    const int32_t* __restrict__ pair_gidx, const int32_t* __restrict__ starts,
+    const int32_t* __restrict__ counts, const float* __restrict__ attrs,
+    const float* __restrict__ bg, const float* __restrict__ g_out,
+    const float* __restrict__ g_alpha, const float* __restrict__ logt,
+    const float* __restrict__ ncomp, int tw, int ts, float* __restrict__ gpairs) {
+  grad_tile<C>(blockIdx.x, pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
+               tw, ts, gpairs);
+}
+
+// Tile of this CTA in a grid of two-CTA clusters: 2 clusterid.x + cluster_ctarank.
+__device__ __forceinline__ int cluster_pair_tile() {
+  unsigned cluster, rank;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(cluster));
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  return 2 * (int)cluster + (int)rank;
+}
+
+// K6: two tiles per two-CTA cluster.
+template <int C>
+__global__ void __launch_bounds__(1024, 1) composite_pairs_bwd2_kernel(
+    const int32_t* __restrict__ pair_gidx, const int32_t* __restrict__ starts,
+    const int32_t* __restrict__ counts, const float* __restrict__ attrs,
+    const float* __restrict__ bg, const float* __restrict__ g_out,
+    const float* __restrict__ g_alpha, const float* __restrict__ logt,
+    const float* __restrict__ ncomp, int num_tiles, int tw, int ts,
+    float* __restrict__ gpairs) {
+  const int t = cluster_pair_tile();
+  if (t >= num_tiles) return;  // the phantom CTA of an odd tile count: before any barrier
+  grad_tile<C>(t, pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp, tw, ts,
+               gpairs);
+}
+
+cudaLaunchConfig_t pair_config(int num_tiles, int p, size_t bytes, cudaStream_t s,
+                               cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * ((num_tiles + 1) / 2));
+  cfg.blockDim = dim3(p);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 2;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int C>
+int launch2(const void* pair_gidx, const void* starts, const void* counts, const void* attrs,
+            const void* bg, const void* g_out, const void* g_alpha, const void* logt,
+            const void* ncomp, int num_tiles, int tw, int ts, void* gpairs, cudaStream_t s) {
+  const size_t bytes = smem_bytes<C>(ts * ts);
+  cudaError_t err = cudaFuncSetAttribute(composite_pairs_bwd2_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = pair_config(num_tiles, ts * ts, bytes, s, &attr);
+  err = cudaLaunchKernelEx(&cfg, composite_pairs_bwd2_kernel<C>, (const int32_t*)pair_gidx,
+                           (const int32_t*)starts, (const int32_t*)counts, (const float*)attrs,
+                           (const float*)bg, (const float*)g_out, (const float*)g_alpha,
+                           (const float*)logt, (const float*)ncomp, num_tiles, tw, ts,
+                           (float*)gpairs);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int max_clusters2(int ts, int* n) {
+  const size_t bytes = smem_bytes<C>(ts * ts);
+  cudaError_t err = cudaFuncSetAttribute(composite_pairs_bwd2_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = pair_config(2, ts * ts, bytes, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(n, composite_pairs_bwd2_kernel<C>, &cfg);
+}
+
 template <int C>
 int launch(const void* pair_gidx, const void* starts, const void* counts, const void* attrs,
            const void* bg, const void* g_out, const void* g_alpha, const void* logt,
@@ -232,6 +331,39 @@ extern "C" int ggt_composite_pairs_bwd(const void* pair_gidx, const void* starts
                         num_tiles, tw, ts, gpairs, s);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Launches K6 (same arguments and output as K2) in two-CTA clusters; returns the CUDA error.
+extern "C" int ggt_composite_pairs_bwd2(const void* pair_gidx, const void* starts,
+                                        const void* counts, const void* attrs, const void* bg,
+                                        const void* g_out, const void* g_alpha, const void* logt,
+                                        const void* ncomp, int num_tiles, int tw, int ts,
+                                        int channels, void* gpairs, void* stream) {
+  const int p = ts * ts;
+  if (num_tiles <= 0 || p < 32 || p > 1024 || p % 32 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (channels) {
+    case 3:
+      return launch2<3>(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
+                        num_tiles, tw, ts, gpairs, s);
+    case 39:
+      return launch2<39>(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
+                         num_tiles, tw, ts, gpairs, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// cudaOccupancyMaxActiveClusters for K6 at this channel count and tile size, with its dynamic
+// shared memory: how many two-CTA clusters the card can hold at once (0: it cannot launch).
+extern "C" int ggt_composite_pairs_bwd2_max_clusters(int channels, int ts, int* n) {
+  const int p = ts * ts;
+  if (p < 32 || p > 1024 || p % 32 != 0) return (int)cudaErrorInvalidValue;
+  switch (channels) {
+    case 3: return max_clusters2<3>(ts, n);
+    case 39: return max_clusters2<39>(ts, n);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

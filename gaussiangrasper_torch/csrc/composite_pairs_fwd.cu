@@ -1,7 +1,10 @@
 // Forward per-tile compositing over the depth-sorted pair stream, for Hopper (sm_90a).
 //
-// Replaces rasterize_pallas.py:_fwd_pairs_kernel (K1) of the JAX package, launched there
-// by _call_fwd_pairs. Same inputs, same four outputs:
+// Replaces two kernels of the JAX package's rasterize_pallas.py, with one per-tile body:
+//   K1 _fwd_pairs_kernel (launched by _call_fwd_pairs): one tile per kernel instance;
+//   K5 _fwd_pairs2_kernel (launched by _call_fwd_pairs2 under GGT_TP=2): tiles 2j and 2j + 1
+//      per kernel instance, bit-identical to K1.
+// Same inputs, same four outputs:
 //   out   (T, P, C) = sum_k w_k c_k + T_final * bg
 //   alpha (T, P)    = 1 - T_final
 //   logt  (T, P)    = sum of log(1 - alpha_k) over the composited entries (T_final = exp(logt))
@@ -21,6 +24,16 @@
 // renders) so the C accumulators live in registers; the wrapper raises for any other C.
 // The walk is bounded by count, never by a padded window, so it never reads past B.
 //
+// Two tiles per instance (K5). On the TPU the two tiles of one instance interleave their
+// walks chunk by chunk so the scheduler has two independent dependency chains. On Hopper the
+// SM's warp scheduler already interleaves 32 independent warps, so K5 maps "one instance, two
+// tiles" onto a thread-block cluster of two CTAs, one tile each: a grid of 2 ceil(T/2) CTAs in
+// clusters of {2, 1, 1}, tile = 2 clusterid + cluster_ctarank. The two CTAs of a cluster run at
+// once on two SMs of one GPC. Both kernels call the one per-tile body (composite_tile), so K5
+// computes exactly K1's arithmetic and its outputs are bit-equal. For an odd T the second CTA
+// of the last cluster has no tile: it returns before any barrier and writes nothing, and the
+// outputs are exactly (T, P, C) / (T, P) (no pad-and-crop as in _call_fwd_pairs2).
+//
 // Cut semantics are the JAX package's log form, not gsplat's product form: composite iff
 // cum_all + log1pf(-alpha) > log(1e-4), with t_before = expf(logt_comp). The alpha chain and
 // the cut test use explicitly rounded operations (__fmul_rn / __fadd_rn, no FMA contraction)
@@ -35,9 +48,11 @@
 // (N, 45) table, pair_gidx, the (T, P, 42) outputs), 0.04 ms at 3.35 TB/s. The kernel is bound
 // by operations. The design spends them only where needed: a rejected visit (alpha < 1/255,
 // most of them) skips log1pf, the second expf and the 2C FMAs, and a pixel or a whole tile
-// stops walking at its cut. Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W: 2.93 ms,
-// 8.6x the bound. ptxas: C = 39 uses 64 registers (the cap at 1024 threads), 0 spills, 23.5 KB
-// static shared memory; C = 3 uses 28 registers.
+// stops walking at its cut. K5 does the same work, so it has K1's bound. Measured by
+// chip_smoke.py on an H100 80GB HBM3 at 700 W: K1 2.93 ms, 8.6x the bound; K5 2.95 ms beside
+// K1's 2.92 ms in the same run. ptxas: C = 39 uses 64 registers (the cap at 1024 threads), 0
+// spills, 23.5 KB static shared memory (K5 the same); C = 3 uses 28 registers (K5 30). The
+// card holds 66 two-CTA clusters of K5 at C = 39 (132 at C = 3).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,9 +65,10 @@ constexpr float kLogEps = -9.2103403719761836f;  // log(1e-4)
 constexpr int kWalkChunk = 128;                  // K1's KC: the rounding of an uncut ncomp
 constexpr int kBatch = 128;                      // rows staged in shared memory per batch
 
+// The whole per-tile forward of tile t, run by its CTA (one thread per pixel).
 template <int C>
-__global__ void __launch_bounds__(1024, 1) composite_pairs_fwd_kernel(
-    const int32_t* __restrict__ pair_gidx, const int32_t* __restrict__ starts,
+__device__ __forceinline__ void composite_tile(
+    int t, const int32_t* __restrict__ pair_gidx, const int32_t* __restrict__ starts,
     const int32_t* __restrict__ counts, const float* __restrict__ attrs,
     const float* __restrict__ bg, int tw, int ts, float* __restrict__ out,
     float* __restrict__ alpha_out, float* __restrict__ logt_out,
@@ -61,7 +77,6 @@ __global__ void __launch_bounds__(1024, 1) composite_pairs_fwd_kernel(
   __shared__ float s_attr[kBatch * A];
   __shared__ int32_t s_gid[kBatch];
 
-  const int t = blockIdx.x;
   const int lin = threadIdx.x;
   const int nthreads = blockDim.x;
   const int start = starts[t];
@@ -123,9 +138,79 @@ __global__ void __launch_bounds__(1024, 1) composite_pairs_fwd_kernel(
   ncomp_out[pix] = (float)(cut >= 0 ? cut : (count + kWalkChunk - 1) / kWalkChunk * kWalkChunk);
 }
 
+// K1: one CTA per tile.
+template <int C>
+__global__ void __launch_bounds__(1024, 1) composite_pairs_fwd_kernel(
+    const int32_t* __restrict__ pair_gidx, const int32_t* __restrict__ starts,
+    const int32_t* __restrict__ counts, const float* __restrict__ attrs,
+    const float* __restrict__ bg, int tw, int ts, float* __restrict__ out,
+    float* __restrict__ alpha_out, float* __restrict__ logt_out,
+    float* __restrict__ ncomp_out) {
+  composite_tile<C>(blockIdx.x, pair_gidx, starts, counts, attrs, bg, tw, ts, out, alpha_out,
+                    logt_out, ncomp_out);
+}
+
+// Tile of this CTA in a grid of two-CTA clusters: 2 clusterid.x + cluster_ctarank.
+__device__ __forceinline__ int cluster_pair_tile() {
+  unsigned cluster, rank;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(cluster));
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  return 2 * (int)cluster + (int)rank;
+}
+
+// K5: two tiles per two-CTA cluster.
+template <int C>
+__global__ void __launch_bounds__(1024, 1) composite_pairs_fwd2_kernel(
+    const int32_t* __restrict__ pair_gidx, const int32_t* __restrict__ starts,
+    const int32_t* __restrict__ counts, const float* __restrict__ attrs,
+    const float* __restrict__ bg, int num_tiles, int tw, int ts, float* __restrict__ out,
+    float* __restrict__ alpha_out, float* __restrict__ logt_out,
+    float* __restrict__ ncomp_out) {
+  const int t = cluster_pair_tile();
+  if (t >= num_tiles) return;  // the phantom CTA of an odd tile count: before any barrier
+  composite_tile<C>(t, pair_gidx, starts, counts, attrs, bg, tw, ts, out, alpha_out, logt_out,
+                    ncomp_out);
+}
+
+cudaLaunchConfig_t pair_config(int num_tiles, int p, cudaStream_t s, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * ((num_tiles + 1) / 2));
+  cfg.blockDim = dim3(p);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 2;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int C>
+int launch_fwd2(const void* pair_gidx, const void* starts, const void* counts, const void* attrs,
+                const void* bg, int num_tiles, int tw, int ts, void* out, void* alpha, void* logt,
+                void* ncomp, cudaStream_t s) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = pair_config(num_tiles, ts * ts, s, &attr);
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, composite_pairs_fwd2_kernel<C>, (const int32_t*)pair_gidx, (const int32_t*)starts,
+      (const int32_t*)counts, (const float*)attrs, (const float*)bg, num_tiles, tw, ts,
+      (float*)out, (float*)alpha, (float*)logt, (float*)ncomp);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int max_clusters_fwd2(int ts, int* n) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = pair_config(2, ts * ts, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(n, composite_pairs_fwd2_kernel<C>, &cfg);
+}
+
 }  // namespace
 
-// Launches the kernel on `stream` (a cudaStream_t) and returns cudaGetLastError(); 0 is success.
+// Launches K1 on `stream` (a cudaStream_t) and returns cudaGetLastError(); 0 is success.
 // Pointers are device pointers: pair_gidx (B,), starts (T,), counts (T,) int32 with
 // counts[t] <= B - starts[t]; attrs (N, 6 + C), bg (C,) float32; outputs out (T, ts*ts, C),
 // alpha / logt / ncomp (T, ts*ts) float32.
@@ -149,6 +234,37 @@ extern "C" int ggt_composite_pairs_fwd(const void* pair_gidx, const void* starts
   }
 #undef GGT_LAUNCH
   return (int)cudaGetLastError();
+}
+
+// Launches K5 (same arguments and outputs as K1) in two-CTA clusters; returns the CUDA error.
+extern "C" int ggt_composite_pairs_fwd2(const void* pair_gidx, const void* starts,
+                                        const void* counts, const void* attrs, const void* bg,
+                                        int num_tiles, int tw, int ts, int channels, void* out,
+                                        void* alpha, void* logt, void* ncomp, void* stream) {
+  const int p = ts * ts;
+  if (num_tiles <= 0 || p < 1 || p > 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (channels) {
+    case 3:
+      return launch_fwd2<3>(pair_gidx, starts, counts, attrs, bg, num_tiles, tw, ts, out, alpha,
+                            logt, ncomp, s);
+    case 39:
+      return launch_fwd2<39>(pair_gidx, starts, counts, attrs, bg, num_tiles, tw, ts, out, alpha,
+                             logt, ncomp, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// cudaOccupancyMaxActiveClusters for K5 at this channel count and tile size: how many two-CTA
+// clusters the card can hold at once (0: it cannot launch). Returns the CUDA error.
+extern "C" int ggt_composite_pairs_fwd2_max_clusters(int channels, int ts, int* n) {
+  if (ts * ts < 1 || ts * ts > 1024) return (int)cudaErrorInvalidValue;
+  switch (channels) {
+    case 3: return max_clusters_fwd2<3>(ts, n);
+    case 39: return max_clusters_fwd2<39>(ts, n);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* ggt_cuda_error_string(int err) {

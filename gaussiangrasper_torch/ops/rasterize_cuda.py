@@ -1,6 +1,6 @@
 """Per-tile compositing over the sorted pair stream, forward and backward
 (counterpart of the JAX package's ops/rasterize_pallas.py, pair-stream
-kernels K1 and K2).
+kernels K1, K2, K5 and K6).
 
 `composite_pairs_fwd` (K1, `csrc/composite_pairs_fwd.cu`) and
 `composite_pairs_bwd` (K2, `csrc/composite_pairs_bwd.cu`) launch their
@@ -8,10 +8,18 @@ hand-written Hopper kernels for CUDA tensors and their plain PyTorch
 versions (`composite_pairs_fwd_plain`, `composite_pairs_bwd_plain`) for CPU
 tensors; for a CUDA tensor they launch the kernel or raise, never falling
 back. Every launch adds one to the wrapper's `launches`.
+`composite_pairs_fwd2` (K5) and `composite_pairs_bwd2` (K6) are the
+two-tile kernels, in the same two files: the same per-tile body launched
+in two-CTA clusters, one tile per CTA. They compute K1's and K2's
+functions, so on CPU tensors they run the same plain versions; each has
+its own `launches`.
 
 `composite_pair_stream` is the differentiable entry the rasterizer calls:
-K1 forward, K2 backward, then one `index_add_` by the pair payload into
-per-Gaussian gradients and the background gradient sum_p T_final g_out.
+the forward kernel, the backward kernel, then one `index_add_` by the pair
+payload into per-Gaussian gradients and the background gradient
+sum_p T_final g_out. `TP` picks the kernels: 1 (default) K1 / K2, 2 K5 / K6,
+read once from the GGT_TP environment variable as the JAX package reads
+its own `rasterize_pallas.TP`; set the attribute to switch in-process.
 
 Gradient identities (out = sum_k w_k c_k + T_final bg, w_k = alpha_k
 prod_{j<k} (1 - alpha_j), the cut folded into alpha):
@@ -28,7 +36,8 @@ dx_k = -(a dx + b dy) dsigma, dy_k = -(b dx + c dy) dsigma.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import os
+from typing import Dict, Tuple
 
 import torch
 
@@ -43,6 +52,18 @@ rounded up to this. The port reproduces that count exactly."""
 KERNEL_CHANNELS = (3, 39)
 """Channel counts the kernel is instantiated for (rgb; rgb + 32-d feature
 + depth + normal). Any other C raises on a CUDA tensor."""
+
+
+def tiles_per_instance(value) -> int:
+    """The `TP` setting: 1 or 2 tiles per kernel instance; anything else raises."""
+    tp = int(value)
+    if tp not in (1, 2):
+        raise ValueError(f"GGT_TP / rasterize_cuda.TP must be 1 or 2, got {value!r}")
+    return tp
+
+
+TP = tiles_per_instance(os.environ.get("GGT_TP", "1"))
+"""Tiles per compositor kernel instance: 1 runs K1 / K2, 2 runs K5 / K6."""
 
 
 def _pixel_coords(num_tiles: int, tw: int, ts: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -130,20 +151,60 @@ def _check_inputs(pair_gidx, starts, counts, attrs, bg):
                              f"must index attrs ({n} rows)")
 
 
-def _launch_kernel(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int):
-    C = attrs.shape[1] - 6
-    if C not in KERNEL_CHANNELS:
-        raise ValueError(f"composite_pairs_fwd kernel is built for C in {KERNEL_CHANNELS}, got {C}")
-    if ts * ts > 1024:
-        raise ValueError(f"tile_size {ts}: one thread per pixel needs ts*ts <= 1024")
+def _entry(source: str, name: str, argtypes):
+    """The C entry `name` of csrc/<source>.cu, built and loaded on first use."""
     from gaussiangrasper_torch._build import load_library
 
-    lib = load_library("composite_pairs_fwd")
-    fn = lib.ggt_composite_pairs_fwd
+    lib = load_library(source)
+    fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
+    fn.argtypes = argtypes
     lib.ggt_cuda_error_string.restype = ctypes.c_char_p
     lib.ggt_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib, fn
+
+
+def _check(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: " + lib.ggt_cuda_error_string(err).decode())
+
+
+_clusters: Dict[Tuple[str, int, int], int] = {}
+
+
+def max_active_clusters(kernel: str, channels: int, ts: int) -> int:
+    """cudaOccupancyMaxActiveClusters of the two-tile kernel `kernel`
+    ("fwd2" for K5, "bwd2" for K6) at this C and tile size: how many
+    two-CTA clusters the current card holds at once."""
+    key = (kernel, channels, ts)
+    if key not in _clusters:
+        source = {"fwd2": "composite_pairs_fwd", "bwd2": "composite_pairs_bwd"}[kernel]
+        lib, fn = _entry(source, f"ggt_composite_pairs_{kernel}_max_clusters",
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        n = ctypes.c_int(0)
+        _check(lib, fn(channels, ts, ctypes.byref(n)), f"cudaOccupancyMaxActiveClusters ({kernel})")
+        _clusters[key] = n.value
+    return _clusters[key]
+
+
+def _require_clusters(kernel: str, channels: int, ts: int) -> None:
+    if max_active_clusters(kernel, channels, ts) == 0:
+        raise RuntimeError(f"composite_pairs_{kernel}: no two-CTA cluster of this kernel fits "
+                           f"on the card (C {channels}, tile {ts}); run with TP = 1")
+
+
+def _launch_kernel(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int, two_tile: bool = False):
+    """K1, or K5 with `two_tile`."""
+    C = attrs.shape[1] - 6
+    name = "composite_pairs_fwd2" if two_tile else "composite_pairs_fwd"
+    if C not in KERNEL_CHANNELS:
+        raise ValueError(f"{name} kernel is built for C in {KERNEL_CHANNELS}, got {C}")
+    if ts * ts > 1024:
+        raise ValueError(f"tile_size {ts}: one thread per pixel needs ts*ts <= 1024")
+    lib, fn = _entry("composite_pairs_fwd", f"ggt_{name}",
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
+    if two_tile:
+        _require_clusters("fwd2", C, ts)
 
     T = starts.shape[0]
     P = ts * ts
@@ -156,11 +217,14 @@ def _launch_kernel(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int):
     err = fn(pair_gidx.data_ptr(), starts.data_ptr(), counts.data_ptr(), attrs.data_ptr(),
              bg.data_ptr(), T, tw, ts, C, out.data_ptr(), alpha.data_ptr(), logt.data_ptr(),
              ncomp.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("composite_pairs_fwd launch failed: "
-                           + lib.ggt_cuda_error_string(err).decode())
-    composite_pairs_fwd.launches += 1
+    _check(lib, err, f"{name} launch")
+    (composite_pairs_fwd2 if two_tile else composite_pairs_fwd).launches += 1
     return out, alpha, logt, ncomp
+
+
+def _launch_kernel2(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int):
+    """K5: K1's arguments and outputs, two tiles per two-CTA cluster."""
+    return _launch_kernel(pair_gidx, starts, counts, attrs, bg, tw, ts, two_tile=True)
 
 
 def composite_pairs_fwd(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int):
@@ -176,6 +240,20 @@ def composite_pairs_fwd(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int):
 
 
 composite_pairs_fwd.launches = 0
+
+
+def composite_pairs_fwd2(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int):
+    """K5: K1's function and outputs, the two-tile CUDA kernel for CUDA
+    tensors, K1's plain version for CPU tensors."""
+    _check_inputs(pair_gidx, starts, counts, attrs, bg)
+    if attrs.device.type == "cuda":
+        return _launch_kernel2(pair_gidx, starts, counts, attrs, bg, tw, ts)
+    if attrs.device.type != "cpu":
+        raise ValueError(f"composite_pairs_fwd2 runs on cuda or cpu, not {attrs.device}")
+    return composite_pairs_fwd_plain(pair_gidx, starts, counts, attrs, bg, tw, ts)
+
+
+composite_pairs_fwd2.launches = 0
 
 
 def pack_attrs(xys, conics, opacities, colors) -> torch.Tensor:
@@ -264,21 +342,19 @@ def _check_bwd_inputs(attrs, starts, g_out, g_alpha, logt, ncomp, ts: int):
 
 
 def _launch_bwd_kernel(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
-                       tw: int, ts: int):
+                       tw: int, ts: int, two_tile: bool = False):
+    """K2, or K6 with `two_tile`."""
     C = attrs.shape[1] - 6
+    name = "composite_pairs_bwd2" if two_tile else "composite_pairs_bwd"
     if C not in KERNEL_CHANNELS:
-        raise ValueError(f"composite_pairs_bwd kernel is built for C in {KERNEL_CHANNELS}, got {C}")
+        raise ValueError(f"{name} kernel is built for C in {KERNEL_CHANNELS}, got {C}")
     if ts * ts > 1024 or (ts * ts) % 32:
         raise ValueError(f"tile_size {ts}: one thread per pixel in whole warps needs "
                          "ts*ts <= 1024 and a multiple of 32")
-    from gaussiangrasper_torch._build import load_library
-
-    lib = load_library("composite_pairs_bwd")
-    fn = lib.ggt_composite_pairs_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-    lib.ggt_cuda_error_string.restype = ctypes.c_char_p
-    lib.ggt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib, fn = _entry("composite_pairs_bwd", f"ggt_{name}",
+                     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+    if two_tile:
+        _require_clusters("bwd2", C, ts)
 
     T = starts.shape[0]
     gpairs = torch.zeros(pair_gidx.shape[0], 6 + C, dtype=torch.float32, device=attrs.device)
@@ -288,17 +364,20 @@ def _launch_bwd_kernel(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, log
     err = fn(pair_gidx.data_ptr(), starts.data_ptr(), counts.data_ptr(), attrs.data_ptr(),
              bg.data_ptr(), g_out.data_ptr(), g_alpha.data_ptr(), logt.data_ptr(),
              ncomp.data_ptr(), T, tw, ts, C, gpairs.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("composite_pairs_bwd launch failed: "
-                           + lib.ggt_cuda_error_string(err).decode())
-    composite_pairs_bwd.launches += 1
+    _check(lib, err, f"{name} launch")
+    (composite_pairs_bwd2 if two_tile else composite_pairs_bwd).launches += 1
     return gpairs
 
 
-def _bwd_dispatch(*args):
+def _launch_bwd_kernel2(*args):
+    """K6: K2's arguments and output, two tiles per two-CTA cluster."""
+    return _launch_bwd_kernel(*args, two_tile=True)
+
+
+def _bwd_dispatch(*args, two_tile: bool = False):
     attrs = args[3]
     if attrs.device.type == "cuda":
-        return _launch_bwd_kernel(*args)
+        return _launch_bwd_kernel(*args, two_tile=two_tile)
     if attrs.device.type != "cpu":
         raise ValueError(f"composite_pairs_bwd runs on cuda or cpu, not {attrs.device}")
     return composite_pairs_bwd_plain(*args)
@@ -317,12 +396,27 @@ def composite_pairs_bwd(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, lo
 composite_pairs_bwd.launches = 0
 
 
+def composite_pairs_bwd2(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
+                         tw: int, ts: int):
+    """K6: K2's function and output, the two-tile CUDA kernel for CUDA
+    tensors, K2's plain version for CPU tensors."""
+    _check_inputs(pair_gidx, starts, counts, attrs, bg)
+    _check_bwd_inputs(attrs, starts, g_out, g_alpha, logt, ncomp, ts)
+    return _bwd_dispatch(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp, tw, ts,
+                         two_tile=True)
+
+
+composite_pairs_bwd2.launches = 0
+
+
 class _CompositePairs(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pair_gidx, starts, counts, xys, conics, opacities, colors, bg, tw, ts):
         attrs = pack_attrs(xys, conics, opacities, colors)
         bg = bg.float().contiguous()
-        out, alpha, logt, ncomp = composite_pairs_fwd(pair_gidx, starts, counts, attrs, bg, tw, ts)
+        ctx.two_tile = tiles_per_instance(TP) == 2
+        fwd = composite_pairs_fwd2 if ctx.two_tile else composite_pairs_fwd
+        out, alpha, logt, ncomp = fwd(pair_gidx, starts, counts, attrs, bg, tw, ts)
         ctx.save_for_backward(pair_gidx, starts, counts, attrs, bg, logt, ncomp)
         ctx.tiles = (tw, ts)
         return out, alpha
@@ -334,7 +428,7 @@ class _CompositePairs(torch.autograd.Function):
         # the forward already checked the stream against the table: no second host sync
         _check_bwd_inputs(attrs, starts, g_out, g_alpha, logt, ncomp, ctx.tiles[1])
         gpairs = _bwd_dispatch(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
-                               *ctx.tiles)
+                               *ctx.tiles, two_tile=ctx.two_tile)
         acc = torch.zeros_like(attrs).index_add_(0, pair_gidx.to(torch.int64), gpairs)
         gbg = torch.einsum("tp,tpc->c", torch.exp(logt), g_out)
         return (None, None, None, acc[:, 0:2], acc[:, 2:5], acc[:, 5], acc[:, 6:], gbg,
@@ -344,7 +438,8 @@ class _CompositePairs(torch.autograd.Function):
 def composite_pair_stream(pair_gidx, seg_starts, tile_count, xys, conics, opacities, colors,
                           bg, tw: int, ts: int, k_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-tile compositing straight off the sorted pair stream; walks
-    `stream_bounds` pairs per tile. Returns (out (T, P, C), alpha (T, P))."""
+    `stream_bounds` pairs per tile, through K1 / K2 or, with `TP` 2, K5 / K6.
+    Returns (out (T, P, C), alpha (T, P))."""
     starts, counts = stream_bounds(pair_gidx, seg_starts, tile_count, k_cap)
     return _CompositePairs.apply(pair_gidx.to(torch.int32).contiguous(), starts, counts,
                                  xys, conics, opacities, colors, bg, tw, ts)

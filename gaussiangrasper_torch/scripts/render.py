@@ -1,7 +1,10 @@
 """Offline render-out of rgb / CLIP-feature / normal / depth maps
 (counterpart of the JAX package's scripts/render.py, dataset views).
 
-For up to --num-views views of the run's cameras.npz, writes
+The run is either a trainer run (config.json + checkpoints/, written by
+`scripts/train.py`; its views and ground truth come from the data dir its
+config names, or from --data) or a serving run (checkpoint.pt +
+cameras.npz). For up to --num-views of its views, writes
   rgb/<i>.png
   clip/<i>_fea.npy     fea_up-lifted 512-d CLIP map (float16)
   normal/<i>.npy/.png  rotated back to the capture frame by the inverse
@@ -11,6 +14,9 @@ plus metrics.json (psnr, ssim, psnr_masked, depth_mae, normal_cos) for the
 views whose ground truth cameras.npz holds.
 
     python -m gaussiangrasper_torch.scripts.render --run-dir RUN [--device cpu]
+
+Camera-path trajectories (--traj interpolate / spiral) are not ported yet
+(ROADMAP.md, Queue 1 item 8) and raise.
 """
 
 from __future__ import annotations
@@ -18,14 +24,14 @@ from __future__ import annotations
 import argparse
 import json
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from gaussiangrasper_torch._device import resolve_device
 from gaussiangrasper_torch.core.cameras import Camera
-from gaussiangrasper_torch.engine.checkpoint import load_cameras, load_run
+from gaussiangrasper_torch.engine.checkpoint import CHECKPOINT, GT_KEYS, load_cameras, load_run
 from gaussiangrasper_torch.engine.weights import ServeState
 from gaussiangrasper_torch.models import losses
 from gaussiangrasper_torch.models.efd import FeaUp
@@ -69,17 +75,51 @@ def view_metrics(outs: Dict, gt: Dict[str, np.ndarray], i: int, scale: float) ->
     return row
 
 
+def load_trainer_run(run_dir: Path, num_views: int, device, step: Optional[int] = None,
+                     data_dir: Optional[Path] = None
+                     ) -> Tuple[GaussianSplatConfig, ServeState, str, List[Camera], Dict]:
+    """A trainer run as the serving route takes it: (model config, state,
+    experiment name, the first `num_views` dataset cameras, their ground
+    truth and the dataparser scale and transform)."""
+    from gaussiangrasper_torch.scripts.common import load_run as load_trainer
+
+    config, trainer, tstate = load_trainer(run_dir, step=step, data_override=data_dir,
+                                           device=device)
+    fea_up = FeaUp(config.model.feature_dim, config.model.clip_dim)
+    fea_up.load_state_dict(tstate.fea_up)
+    state = ServeState(tstate.field, tstate.alive, fea_up.to(device), tstate.step)
+    dm = trainer.dm
+    n = min(num_views, len(dm))
+    views = [dm.view_data(i) for i in range(n)]
+    data = {k: [v[k] for v in views] for k in GT_KEYS}
+    data["dataparser_scale"] = dm.outputs.dataparser_scale
+    data["dataparser_transform"] = dm.outputs.dataparser_transform
+    return config.model, state, config.experiment_name, [dm.camera(i) for i in range(n)], data
+
+
 def main(argv=None) -> None:
-    p = argparse.ArgumentParser(description="Render eval maps from a serving run")
+    p = argparse.ArgumentParser(description="Render eval maps from a trainer or serving run")
     p.add_argument("--run-dir", type=Path, required=True)
     p.add_argument("--output", type=Path, default=None)
     p.add_argument("--num-views", type=int, default=16)
+    p.add_argument("--step", type=int, default=None, help="trainer run: this checkpoint")
+    p.add_argument("--data", type=Path, default=None,
+                   help="trainer run: evaluate against this capture instead of the training one")
+    p.add_argument("--traj", choices=("dataset", "interpolate", "spiral"), default="dataset",
+                   help="dataset views; camera-path trajectories are not ported yet (raise)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
+    if args.traj != "dataset":
+        raise NotImplementedError(f"--traj {args.traj}: camera paths are not ported to "
+                                  "gaussiangrasper_torch yet (ROADMAP.md, Queue 1 item 8)")
 
     device = resolve_device(args.device)
-    cfg, state, name = load_run(args.run_dir, device)
-    cams, data = load_cameras(args.run_dir, device)
+    if (args.run_dir / CHECKPOINT).exists():
+        cfg, state, name = load_run(args.run_dir, device)
+        cams, data = load_cameras(args.run_dir, device)
+    else:
+        cfg, state, name, cams, data = load_trainer_run(args.run_dir, args.num_views, device,
+                                                        args.step, args.data)
     out_dir = args.output or (args.run_dir / "renders")
     for sub in ("rgb", "clip", "normal", "depth"):
         (out_dir / sub).mkdir(parents=True, exist_ok=True)

@@ -1,0 +1,335 @@
+"""PyTorch port vs the JAX package: the data layer.
+
+The same files (a ray-traced tabletop from the JAX generator, PNGs from
+Pillow and from hand-filtered scanlines) go through both packages on the
+CPU. Parsers, datamanager draws, the generator's arrays and the PNG reader
+are held exactly: they are the same numpy code, so any difference is a
+fault. `downscale_batch` (torch bilinear on the device against OpenCV's
+INTER_LINEAR) is held at 1e-6 of each channel's max |value| where the size
+divides by the factor (both average the same two-by-two blocks in float32,
+in another order) and at 1e-5 where it does not (the two compute the
+fractional weights with other float32 roundings).
+"""
+
+import struct
+import subprocess
+import sys
+import zlib
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gaussiangrasper_torch import native as t_native
+from gaussiangrasper_torch.core.cameras import Camera as TCamera
+from gaussiangrasper_torch.data import colmap_io as tcio
+from gaussiangrasper_torch.data.dataparsers.zoo import resolve_parser as t_resolve
+from gaussiangrasper_torch.data.manager import FullImageDatamanager as TDM
+from gaussiangrasper_torch.data.manager import SamplerConfig as TSampler
+from gaussiangrasper_torch.data.prefetch import PrefetchingDatamanager
+from gaussiangrasper_torch.data.synthetic import generate_tabletop as t_generate
+from gaussiangrasper_torch.engine.trainer import downscale_batch as t_downscale
+from gaussiangrasper_torch.utils.image_io import png_size, read_png, write_png
+from gaussiangrasper_tpu import native as j_native
+from gaussiangrasper_tpu.core.cameras import Camera as JCamera
+from gaussiangrasper_tpu.data import colmap_io as jcio
+from gaussiangrasper_tpu.data.dataparsers.zoo import resolve_parser as j_resolve
+from gaussiangrasper_tpu.data.manager import FullImageDatamanager as JDM
+from gaussiangrasper_tpu.data.manager import SamplerConfig as JSampler
+from gaussiangrasper_tpu.data.synthetic import generate_tabletop as j_generate
+from gaussiangrasper_tpu.engine.trainer import downscale_batch as j_downscale
+
+W, H, VIEWS = 64, 48, 4
+SMALL_SAMPLER = dict(max_groups=4, pairs_per_group=16, num_points=40, clip_dim=512)
+
+
+@pytest.fixture(scope="module")
+def scene(tmp_path_factory):
+    """A 64x48, 4-view tabletop from the JAX generator."""
+    return j_generate(tmp_path_factory.mktemp("tabletop") / "scene", width=W, height=H,
+                      n_views=VIEWS, feature_downscale=2, seed_points=400)
+
+
+# --- PNG ------------------------------------------------------------------------
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def encode_png(img: np.ndarray, filters) -> bytes:
+    """An 8-bit PNG whose row y is written with filter filters[y % len]."""
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
+    rows = img.reshape(h, w * ch).astype(np.int64)
+    raw = bytearray()
+    prior = np.zeros(w * ch, np.int64)
+    for y in range(h):
+        x = rows[y]
+        a = np.concatenate([np.zeros(ch, np.int64), x[:-ch]])
+        c = np.concatenate([np.zeros(ch, np.int64), prior[:-ch]])
+        kind = filters[y % len(filters)]
+        pred = [0, a, prior, (a + prior) // 2, _paeth(a, prior, c)][kind]
+        raw += bytes([kind]) + ((x - pred) % 256).astype(np.uint8).tobytes()
+        prior = x
+
+    def chunk(kind, data):
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(bytes(raw)))
+            + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+def test_png_reader_undoes_every_filter(channels, tmp_path):
+    rng = np.random.default_rng(channels)
+    shape = (23, 17) if channels == 1 else (23, 17, channels)
+    img = rng.integers(0, 256, shape).astype(np.uint8)
+    img[5:12] = img[4:5]  # flat rows: Up / Paeth predict exactly
+    path = tmp_path / "f.png"
+    path.write_bytes(encode_png(img, [0, 1, 2, 3, 4, 4, 3, 2, 1]))
+    np.testing.assert_array_equal(read_png(path), img)
+    assert png_size(path) == (17, 23)
+
+
+@pytest.mark.parametrize("mode", ["L", "LA", "RGB", "RGBA"])
+def test_png_reader_matches_pillow(mode, tmp_path):
+    from PIL import Image
+
+    rng = np.random.default_rng(len(mode))
+    ch = len(mode)
+    y, x = np.mgrid[0:37, 0:53]
+    img = np.stack([(x * 3 + y * (k + 1) + rng.integers(0, 9, x.shape)) % 256 for k in range(ch)], -1)
+    img = img.astype(np.uint8)
+    img = img[..., 0] if ch == 1 else img
+    Image.fromarray(img, mode).save(tmp_path / "pil.png")
+    want = np.asarray(Image.open(tmp_path / "pil.png"))
+    np.testing.assert_array_equal(read_png(tmp_path / "pil.png"), want)
+    assert png_size(tmp_path / "pil.png") == Image.open(tmp_path / "pil.png").size
+    if ch in (1, 3):  # the port's writer (grey, RGB): Pillow reads back what it wrote
+        write_png(tmp_path / "own.png", img)
+        np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "own.png")), img)
+        np.testing.assert_array_equal(read_png(tmp_path / "own.png"), img)
+
+
+def test_png_reader_rejects_other_formats(tmp_path):
+    from PIL import Image
+
+    Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 1000).save(tmp_path / "d16.png")
+    with pytest.raises(ValueError, match="8-bit"):
+        read_png(tmp_path / "d16.png")
+    Image.fromarray(np.zeros((8, 8), np.uint8)).convert("P").save(tmp_path / "pal.png")
+    with pytest.raises(ValueError, match="colour type"):
+        read_png(tmp_path / "pal.png")
+    (tmp_path / "x.png").write_bytes(b"not a png at all, not at all")
+    with pytest.raises(ValueError, match="not a PNG"):
+        read_png(tmp_path / "x.png")
+
+
+# --- the generator ----------------------------------------------------------------
+
+
+def test_generator_writes_the_jax_generators_files(scene, tmp_path):
+    ours = t_generate(tmp_path / "scene", width=W, height=H, n_views=VIEWS, feature_downscale=2,
+                      seed_points=400)
+    for sub in ("depths", "normals", "masks", "boundary_mask", "features"):
+        names = sorted(p.name for p in (scene / sub).iterdir())
+        assert names == sorted(p.name for p in (ours / sub).iterdir()) and len(names) == VIEWS
+        for name in names:
+            a, b = np.load(scene / sub / name), np.load(ours / sub / name)
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(b, a, err_msg=f"{sub}/{name}")
+    for p in sorted((scene / "images").iterdir()):
+        np.testing.assert_array_equal(read_png(ours / "images" / p.name), read_png(p))
+    for name in ("transforms.json", "sparse/0/points3D.txt"):
+        assert (ours / name).read_text() == (scene / name).read_text()
+
+
+# --- parsers -----------------------------------------------------------------------
+
+
+def _colmap_scene(scene: Path, root: Path, model="PINHOLE", params=None) -> Path:
+    """The tabletop's images and points as a COLMAP text model with random
+    world-to-camera poses (the JAX package's writers)."""
+    rng = np.random.default_rng(21)
+    root.mkdir()
+    (root / "images").symlink_to(scene / "images")
+    sparse = root / "sparse" / "0"
+    sparse.mkdir(parents=True)
+    params = np.array([50.0, 52.0, 31.5, 24.0]) if params is None else params
+    jcio.write_cameras_text(sparse / "cameras.txt", {1: jcio.ColmapCamera(model, W, H, params)})
+    images = {}
+    for i, p in enumerate(sorted((scene / "images").iterdir())):
+        q = rng.normal(size=4)
+        images[i + 1] = jcio.ColmapImage(q / np.linalg.norm(q), rng.normal(size=3), 1, p.name)
+    jcio.write_images_text(sparse / "images.txt", images)
+    xyz, rgb, _ = jcio.read_points3d_text(scene / "sparse" / "0" / "points3D.txt")
+    jcio.write_points3d_text(sparse / "points3D.txt", xyz, rgb)
+    return root
+
+
+def _assert_outputs_equal(got, want):
+    assert [Path(p).name for p in got.image_filenames] == [Path(p).name for p in want.image_filenames]
+    for a, b in zip(got.cameras, want.cameras):
+        assert (a.fx, a.fy, a.cx, a.cy, a.width, a.height, a.camera_type) == \
+            (b.fx, b.fy, b.cx, b.cy, b.width, b.height, b.camera_type)
+        np.testing.assert_array_equal(a.camera_to_world, b.camera_to_world)
+        np.testing.assert_array_equal(a.distortion, b.distortion)
+    assert got.dataparser_scale == want.dataparser_scale
+    np.testing.assert_array_equal(got.dataparser_transform, want.dataparser_transform)
+    assert set(got.metadata) == set(want.metadata)
+    for k in want.metadata:
+        np.testing.assert_array_equal(got.metadata[k], want.metadata[k])
+    assert got.seed_points is not None and len(got.seed_points[0]) == len(want.seed_points[0]) > 0
+
+
+@pytest.mark.parametrize("name", ["auto", "nerfstudio", "dnerf"])
+def test_transforms_json_parser_matches_jax(scene, name, tmp_path):
+    got, want = t_resolve(scene, name).parse(), j_resolve(scene, name).parse()
+    assert type(t_resolve(scene, name)).__name__ == "TransformsJsonParser"
+    _assert_outputs_equal(got, want)
+    # without w / h in transforms.json the size comes from the PNG header
+    meta = (scene / "transforms.json").read_text().replace('"w": 64, "h": 48, ', "")
+    probe = tmp_path / "probe"
+    probe.mkdir()
+    for sub in ("images", "sparse"):
+        (probe / sub).symlink_to(scene / sub)
+    (probe / "transforms.json").write_text(meta)
+    assert '"w"' not in meta
+    _assert_outputs_equal(t_resolve(probe).parse(), j_resolve(probe).parse())
+
+
+@pytest.mark.parametrize("name", ["auto", "colmap", "phototourism"])
+def test_colmap_parser_matches_jax(scene, name, tmp_path):
+    root = _colmap_scene(scene, tmp_path / "colmap")
+    assert type(t_resolve(root, name)).__name__ == "ColmapDataParser"
+    _assert_outputs_equal(t_resolve(root, name).parse(), j_resolve(root, name).parse())
+    # the port's reader gives the JAX reader's arrays
+    for a, b in zip(tcio.read_points3d_text(root / "sparse/0/points3D.txt"),
+                    jcio.read_points3d_text(root / "sparse/0/points3D.txt")):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_unported_parsers_raise(tmp_path):
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        t_resolve(tmp_path, "scannet")
+    (tmp_path / "meta_data.json").write_text("{}")
+    with pytest.raises(NotImplementedError, match="sdfstudio"):
+        t_resolve(tmp_path)
+    with pytest.raises(KeyError):
+        t_resolve(tmp_path, "no-such-parser")
+
+
+# --- the datamanager ---------------------------------------------------------------
+
+
+def _batches(dm, n):
+    out = []
+    for _ in range(n):
+        idx, cam, batch = dm.next_train()
+        out.append((idx, cam, {k: np.asarray(v) for k, v in batch.items()}))
+    return out
+
+
+@pytest.mark.parametrize("branch", ["native", "numpy"])
+def test_datamanager_draws_match_jax(scene, branch, monkeypatch):
+    if branch == "numpy":
+        monkeypatch.setattr(j_native, "sample_mask_batch", lambda *a, **k: None)
+        monkeypatch.setattr(t_native, "sample_mask_batch", lambda *a, **k: None)
+    else:
+        assert t_native.branch() == "native" and j_native.load() is not None
+    outputs = t_resolve(scene).parse()
+    jdm = JDM(j_resolve(scene).parse(), JSampler(**SMALL_SAMPLER), seed=3)
+    tdm = TDM(outputs, TSampler(**SMALL_SAMPLER), seed=3, device="cpu")
+    want, got = _batches(jdm, 2 * VIEWS + 1), _batches(tdm, 2 * VIEWS + 1)
+    assert tdm.sampler_branch == branch
+    assert sorted(i for i, _, _ in got[:VIEWS]) == list(range(VIEWS))
+    for (ji, jc, jb), (ti, tc, tb) in zip(want, got):
+        assert ji == ti and set(jb) == set(tb)
+        for k in jb:
+            assert tb[k].dtype == jb[k].dtype, k
+            np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
+        np.testing.assert_array_equal(tc.camera_to_world.numpy(), np.asarray(jc.camera_to_world))
+        assert (tc.width, tc.height, float(tc.fx)) == (jc.width, jc.height, float(jc.fx))
+    assert any(b["group_valid"].any() and b["point_valid"].any() for _, _, b in got)
+    # the prefetcher draws what the plain datamanager draws
+    pre = PrefetchingDatamanager(TDM(outputs, TSampler(**SMALL_SAMPLER), seed=3, device="cpu"))
+    try:
+        for (ti, _, tb), (pi, _, pb) in zip(got, _batches(pre, len(got))):
+            assert ti == pi and all(np.array_equal(tb[k], pb[k]) for k in tb)
+    finally:
+        pre.close()
+
+
+def test_datamanager_raises_on_distortion(scene, tmp_path):
+    root = _colmap_scene(scene, tmp_path / "colmap",
+                         model="OPENCV", params=np.array([50.0, 52.0, 31.5, 24.0, 0.1, 0, 0, 0]))
+    with pytest.raises(NotImplementedError, match="distortion"):
+        TDM(t_resolve(root).parse(), device="cpu")
+
+
+def test_native_library_builds_outside_the_package():
+    assert t_native.load() is not None
+    assert t_native.LIB_PATH.exists() and t_native.LIB_PATH.parent.name == "build"
+    assert not list(Path(t_native.__file__).parent.glob("*.so"))
+
+
+# --- coarse-to-fine downscale -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("d,size", [(2, (48, 64)), (2, (45, 63)), (4, (48, 64))])
+def test_downscale_batch_matches_jax_cv2(d, size):
+    h, w = size
+    rng = np.random.default_rng(d + h)
+    batch = {
+        "image": rng.random((h, w, 3), np.float32),
+        "depth": rng.uniform(0, 5, (h, w)).astype(np.float32),
+        "normal": rng.normal(size=(h, w, 3)).astype(np.float32),
+        "valid_mask": rng.random((h, w)) > 0.3,
+        "pair_a": np.stack([rng.integers(0, h, (4, 8)), rng.integers(0, w, (4, 8))], -1).astype(np.int32),
+        "pair_b": np.stack([rng.integers(0, h, (4, 8)), rng.integers(0, w, (4, 8))], -1).astype(np.int32),
+        "points": np.stack([rng.integers(0, h, 20), rng.integers(0, w, 20)], -1).astype(np.int32),
+        "gt_clip": rng.normal(size=(20, 512)).astype(np.float32),
+    }
+    batch["pair_a"][0, 0] = (h - 1, w - 1)  # the clamp at the far corner
+    intr = (50.0, 52.0, w / 2, h / 2, np.eye(4, dtype=np.float32)[:3], w, h)
+    jcam, jb = j_downscale({k: jnp.asarray(v) for k, v in batch.items()}, JCamera.create(*intr), d)
+    tcam, tb = t_downscale({k: torch.as_tensor(v) for k, v in batch.items()}, TCamera.create(*intr), d)
+    assert (tcam.width, tcam.height) == (jcam.width, jcam.height) == (w // d, h // d)
+    assert float(tcam.fx) == pytest.approx(float(jcam.fx), rel=1e-7)
+    rel = 1e-6 if h % d == 0 and w % d == 0 else 1e-5
+    for k in ("image", "depth", "normal"):
+        assert tb[k].shape == jb[k].shape, k
+        want = np.asarray(jb[k])
+        np.testing.assert_allclose(tb[k].numpy(), want, atol=rel * np.abs(want).max(), rtol=0,
+                                   err_msg=k)
+    for k in ("valid_mask", "pair_a", "pair_b", "points", "gt_clip"):
+        np.testing.assert_array_equal(tb[k].numpy(), np.asarray(jb[k]), err_msg=k)
+    cam1, b1 = t_downscale(tb, tcam, 1)
+    assert cam1 is tcam and b1 is tb
+
+
+def test_port_imports_no_jax_pillow_opencv():
+    """The data layer and trainer import in a process where jax,
+    gaussiangrasper_tpu, PIL, cv2 and sklearn cannot be imported."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'gaussiangrasper_tpu', 'PIL', 'cv2', 'sklearn'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import gaussiangrasper_torch.scripts.train, gaussiangrasper_torch.scripts.render\n"
+        "import gaussiangrasper_torch.data.synthetic, gaussiangrasper_torch.data.prefetch\n"
+        "import gaussiangrasper_torch.scripts.common, gaussiangrasper_torch.utils.writer\n"
+    )
+    root = Path(__file__).resolve().parent.parent
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr

@@ -34,25 +34,37 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _scene(device, n=3000, opacity=0.1):
+def _scene(device, n=3000, opacity=0.1, w=W, h=H):
     field, alive = init_random(random_draws(np.random.default_rng(0), n), extent=2.0,
                                init_scale=0.05, init_opacity=opacity, device=device)
     field = field._replace(means=field.means + torch.tensor([0.0, 0.0, -3.0], device=device))
-    cam = Camera.create(150.0, 150.0, W / 2, H / 2, np.eye(4, dtype=np.float32)[:3], W, H,
+    cam = Camera.create(150.0, 150.0, w / 2, h / 2, np.eye(4, dtype=np.float32)[:3], w, h,
                         device=device)
     return field, alive, cam
 
 
-def _k1_args(device, channels, opacity):
-    field, alive, cam = _scene(device, opacity=opacity)
+def _k1_args(device, channels, opacity, w=W, h=H):
+    field, alive, cam = _scene(device, opacity=opacity, w=w, h=h)
     cfg = GaussianSplatConfig()
     proj, colors, opac, bg = render_inputs(field, alive, cam, STEP, cfg)
-    bins = bin_gaussians(proj, W, H, cfg.raster, opacities=opac)
+    bins = bin_gaussians(proj, w, h, cfg.raster, opacities=opac)
     starts, counts = rc.stream_bounds(bins.pair_gidx, bins.pair_starts, bins.tile_count,
                                       cfg.raster.max_gaussians_per_tile)
     return (bins.pair_gidx.contiguous(), starts, counts,
             rc.pack_attrs(proj.xys, proj.conics, opac, colors[:, :channels]),
-            bg[:channels].contiguous(), -(-W // 32), 32)
+            bg[:channels].contiguous(), -(-w // 32), 32)
+
+
+def _per_gaussian(args, gpairs):
+    return torch.zeros(args[3].shape[0], args[3].shape[1], device=gpairs.device).index_add_(
+        0, args[0].long(), gpairs)
+
+
+def _assert_grads_close(got, want, channels):
+    for lo, hi in ((0, 2), (2, 5), (5, 6), (6, 6 + channels)):
+        scale = float(want[:, lo:hi].abs().max())
+        assert scale > 0
+        assert float((got[:, lo:hi] - want[:, lo:hi]).abs().max()) <= 1e-4 * scale, (lo, hi)
 
 
 @pytest.mark.gpu
@@ -90,14 +102,84 @@ def test_k2_kernel_matches_plain(cuda_device, channels, opacity):
     want = rc.composite_pairs_bwd_plain(*bargs)
     torch.cuda.synchronize()
     assert rc.composite_pairs_bwd.launches == before + 1
-    n = args[3].shape[0]
-    gidx = args[0].long()
-    got = torch.zeros(n, 6 + channels, device=cuda_device).index_add_(0, gidx, got)
-    want = torch.zeros(n, 6 + channels, device=cuda_device).index_add_(0, gidx, want)
-    for lo, hi in ((0, 2), (2, 5), (5, 6), (6, 6 + channels)):
-        scale = float(want[:, lo:hi].abs().max())
-        assert scale > 0
-        assert float((got[:, lo:hi] - want[:, lo:hi]).abs().max()) <= 1e-4 * scale, (lo, hi)
+    _assert_grads_close(_per_gaussian(args, got), _per_gaussian(args, want), channels)
+
+
+# an odd tile count (5 x 3 at tile 32): the last cluster's second CTA has no tile
+ODD_W, ODD_H = 160, 96
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opacity", [0.1, 0.95])
+@pytest.mark.parametrize("channels", rc.KERNEL_CHANNELS)
+def test_k5_bit_equal_to_k1(cuda_device, channels, opacity):
+    args = _k1_args(cuda_device, channels, opacity, ODD_W, ODD_H)
+    assert args[1].shape[0] % 2 == 1
+    before = (rc.composite_pairs_fwd.launches, rc.composite_pairs_fwd2.launches)
+    got = rc.composite_pairs_fwd2(*args)
+    want = rc.composite_pairs_fwd(*args)
+    torch.cuda.synchronize()
+    assert (rc.composite_pairs_fwd.launches, rc.composite_pairs_fwd2.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got[0].shape == want[0].shape == (args[1].shape[0], 32 * 32, channels)
+    for name, a, b in zip(("out", "alpha", "logt", "ncomp"), got, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels", rc.KERNEL_CHANNELS)
+def test_k6_matches_k2_and_plain(cuda_device, channels):
+    """K2's criterion: per-Gaussian sums within 1e-4 of each column group's
+    max, against K2 and against the plain version."""
+    args = _k1_args(cuda_device, channels, 0.95, ODD_W, ODD_H)
+    _, alpha, logt, ncomp = rc.composite_pairs_fwd(*args)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    g_out = torch.randn(*alpha.shape, channels, generator=gen, device=cuda_device)
+    g_alpha = torch.randn(alpha.shape, generator=gen, device=cuda_device)
+    bargs = args[:5] + (g_out, g_alpha, logt, ncomp) + args[5:]
+    before = rc.composite_pairs_bwd2.launches
+    got = _per_gaussian(args, rc.composite_pairs_bwd2(*bargs))
+    k2 = _per_gaussian(args, rc.composite_pairs_bwd(*bargs))
+    plain = _per_gaussian(args, rc.composite_pairs_bwd_plain(*bargs))
+    torch.cuda.synchronize()
+    assert rc.composite_pairs_bwd2.launches == before + 1
+    _assert_grads_close(got, k2, channels)
+    _assert_grads_close(got, plain, channels)
+
+
+@pytest.mark.gpu
+def test_train_step_tp2_loss_equals_tp1(cuda_device, monkeypatch):
+    """One train step through K5 / K6 and one through K1 / K2 from the same
+    state: K5 is bit-equal to K1, so the loss is the same."""
+    cfg = GaussianSplatConfig()
+    field, alive, cam = _scene(cuda_device, w=ODD_W, h=ODD_H)
+    fea = {k: v.detach().to(cuda_device) for k, v in FeaUp().state_dict().items()}
+    state = dataclasses.replace(init_train_state(field, alive, fea), step=STEP + 9)
+    rng = np.random.default_rng(2)
+    batch = {
+        "image": rng.random((ODD_H, ODD_W, 3), np.float32),
+        "depth": np.full((ODD_H, ODD_W), 3.0, np.float32),
+        "normal": np.tile(np.array([0.0, 0.0, 1.0], np.float32), (ODD_H, ODD_W, 1)),
+        "valid_mask": rng.random((ODD_H, ODD_W)) > 0.1,
+        "pair_a": rng.integers(0, ODD_H, (4, 16, 2)).astype(np.int32),
+        "pair_b": rng.integers(0, ODD_H, (4, 16, 2)).astype(np.int32),
+        "pair_valid": np.ones((4, 16), bool), "group_valid": np.ones(4, bool),
+        "points": rng.integers(0, ODD_H, (32, 2)).astype(np.int32),
+        "point_valid": np.ones(32, bool),
+        "gt_clip": rng.standard_normal((32, 512)).astype(np.float32),
+    }
+    batch = {k: torch.as_tensor(v, device=cuda_device) for k, v in batch.items()}
+    losses = {}
+    for tp in (1, 2):
+        monkeypatch.setattr(rc, "TP", tp)
+        launches = (rc.composite_pairs_fwd2.launches, rc.composite_pairs_bwd2.launches)
+        _, m = train_step(state, cam, batch, cfg)
+        losses[tp] = float(m["loss"])
+        moved = (rc.composite_pairs_fwd2.launches - launches[0],
+                 rc.composite_pairs_bwd2.launches - launches[1])
+        assert moved == ((1, 1) if tp == 2 else (0, 0))
+    assert np.isfinite(losses[1])
+    assert abs(losses[2] - losses[1]) <= 1e-6 * abs(losses[1])
 
 
 @pytest.mark.gpu

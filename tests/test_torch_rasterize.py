@@ -144,7 +144,7 @@ def test_rasterize_projected_matches_oracles(scene_name):
     close(out["image"], ours, atol=2e-5, rtol=1e-4, msg="rasterize vs oracle")
 
 
-def test_pair_stream_backward_is_the_next_slice():
+def test_pair_stream_backward_matches_jax_grad():
     """The backward that the serving slice left to the training slice (K2)
     now runs: rasterize_projected's gradients for the projected centres,
     conics, colours, opacities and background match jax.grad of the JAX
