@@ -22,6 +22,14 @@ Phases, one JSON line each:
            the bound
   k6       the two-tile backward against K2 and the plain version with K2's
            criterion, at the same sizes; its time beside K2's and the bound
+  k3       the table compositor against its plain version at mid size (C 39
+           and C 3, tables from bin_gaussians(build_table=True)) with K1's
+           criterion, and at full width bit-equal to K1 on the stream of the
+           same sort (no K or pair-budget clip); its time beside K1's and
+           the bound
+  k4       the table backward against its plain version at mid size and
+           against K2 at full width, on the per-Gaussian sums with K2's
+           criterion; its time beside K2's and the bound
   render_small  the whole render path on the card against the same path on
            the CPU (plain compositor) on a small field
   serve    a full-width run directory (seeded field, step 4000, seeded
@@ -30,6 +38,19 @@ Phases, one JSON line each:
            read just after; outputs checked finite; ms per view
   train_small  three train steps and a refine step on a small field, on the
            card and on the CPU path from the same init and batch
+  table    the table path at full width: render with a table compositor
+           (bin_gaussians(build_table=True) -> rasterize_projected(bins=...))
+           beside the pair path, ms per view, images bit-equal; then 20
+           iterations of train_loss + backward through each path at the
+           train phase's point, launch counts set to 0 just before (20 K3 +
+           20 K4), ms per iteration and the device time of one traced
+           iteration of each, step-0 losses bit-equal and the field
+           gradients within K2's criterion of the pair path's
+  probes   both probe entry points in-process (kernel_probe: P1, K3 at the
+           probe's shapes; copy_probe: P2, P3), launch counts set to 0 just
+           before, every stage OK; P1-P3 and the library calls for P1 / P2
+           against their plain versions, exact; their device times from the
+           profiler over 50 calls (CUDA events around one call time the host)
   train    the full-width train step (bench field grown to capacity 400k,
            bench camera, bench batch shapes, seeded fea_up), steps 4000 to
            4099 and a refine step with every launch count set to 0 just
@@ -42,7 +63,8 @@ Phases, one JSON line each:
            wait on the data path, losses, alive counts, peak memory, a profile
   trainer_tp2  the same run with rasterize_cuda.TP = 2 (K5 / K6): its
            step-0 loss equal to trainer's, and how far the runs drift apart
-Then the kernels line, the nvidia-smi line and, last, the ok line. Any
+Then the kernels line (nine kernels), the nvidia-smi line and, last, the
+ok line. Any
 failure exits non-zero without the ok line. Without a card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -134,7 +156,8 @@ def k1_inputs(field, alive, cam, cfg):
     from gaussiangrasper_torch.ops.rasterize import bin_gaussians, tile_grid
 
     proj, colors, opac, bg = render_inputs(field, alive, cam, STEP, cfg)
-    bins = bin_gaussians(proj, cam.width, cam.height, cfg.raster, opacities=opac)
+    bins = bin_gaussians(proj, cam.width, cam.height, cfg.raster, opacities=opac,
+                         build_table=False, keep_pairs=True)
     k = min(cfg.raster.max_gaussians_per_tile, proj.xys.shape[0])
     starts, counts = rc.stream_bounds(bins.pair_gidx, bins.pair_starts, bins.tile_count, k)
     tw, _ = tile_grid(cam.width, cam.height, cfg.raster.tile_size)
@@ -158,25 +181,47 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def k1_bound(args, ncomp, live) -> dict:
-    """Least time for K1's work on these inputs: operations from the
-    walk's own visit counts (a pixel walks until its cut entry, inclusive)
-    at the f32 peak, and compulsory bytes at the HBM rate."""
+def roofline(ops: float, nbytes: float, **counts) -> dict:
+    """The least time: the larger of ops at the f32 peak and bytes at the HBM rate."""
+    t_ops, t_bytes = ops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            **counts, "ops": ops, "bytes": nbytes}
+
+
+def walk_ops(counts, ncomp, live, c: int):
+    """(visits, operations) of the forward walk on these inputs: a pixel
+    walks until its cut entry, inclusive."""
     import torch
 
-    gidx, starts, counts, attrs, bg, tw, ts = args
-    c = attrs.shape[1] - 6
     cnt = counts.double()[:, None].expand_as(ncomp)
     visits = float(torch.where(ncomp < cnt, ncomp.double() + 1.0, cnt).sum())
     # per visit: dx, dy, sigma (9), exp, o*exp, min, two tests = 16
     # per composited live visit: log1p, cum add, test, exp, w, logt add + 2C FMA flops
-    ops = 16.0 * visits + (6.0 + 2.0 * c) * float(live.double().sum())
+    return visits, 16.0 * visits + (6.0 + 2.0 * c) * float(live.double().sum())
+
+
+def k1_bound(args, ncomp, live) -> dict:
+    """Least time for K1's work on these inputs: operations from the
+    walk's own visit counts at the f32 peak, and compulsory bytes (the
+    (N, 6 + C) table, the walked pair_gidx, outputs) at the HBM rate."""
+    gidx, starts, counts, attrs, bg, tw, ts = args
+    c = attrs.shape[1] - 6
+    visits, ops = walk_ops(counts, ncomp, live, c)
     t, p = ncomp.shape
     nbytes = 4.0 * (attrs.numel() + float(counts.sum()) + 2 * t + c + t * p * (c + 3))
-    t_ops, t_bytes = ops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
-    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "visits": visits, "ops": ops, "bytes": nbytes}
+    return roofline(ops, nbytes, visits=visits)
+
+
+def k3_bound(targs, ncomp, live) -> dict:
+    """K1's operations on the table's rows; bytes: the walked table rows,
+    counts, bg and the outputs."""
+    counts, tables, bg, tw, ts = targs
+    c = tables.shape[2] - 6
+    visits, ops = walk_ops(counts, ncomp, live, c)
+    t, p = ncomp.shape
+    nbytes = 4.0 * (float(counts.sum()) * tables.shape[2] + t + c + t * p * (c + 3))
+    return roofline(ops, nbytes, visits=visits)
 
 
 def check_k1(label: str, args, time_it: bool) -> dict:
@@ -227,6 +272,19 @@ def device_profile(fn, top: int = 8) -> dict:
             "top_ms": [[k[:80], ms] for k, ms in rows[:top]]}
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time of one fn() call: the profiler's device-busy ms over
+    `reps` calls, divided by reps. For kernels of a few microseconds, where
+    CUDA events around one call time the host's launch path instead. A
+    profile that recorded no device time (seen once, for a kernel that a
+    profile of its own always records) is taken again, up to three in all."""
+    for _ in range(3):
+        busy = device_profile(lambda: [fn() for _ in range(reps)])["device_busy_ms"]
+        if busy > 0:
+            break
+    return busy / reps
+
+
 def k2_inputs(k1_args, seed: int):
     """K2's inputs on the main path: the stream, K1's own logt and ncomp
     from the kernel, a random g_out and a nonzero g_alpha (the term
@@ -256,20 +314,35 @@ def k2_bound(args, live) -> dict:
     chain, dcolour and the pixel sums), at the f32 peak; compulsory bytes
     (table, walked pair_gidx, g_out, g_alpha, logt, ncomp, gpairs) at the
     HBM rate."""
-    import torch
-
     gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp, tw, ts = args
     c = attrs.shape[1] - 6
-    visits = float(torch.minimum(ncomp.double(), counts.double()[:, None]).sum())
-    n_live = float(live.double().sum())
-    ops = 16.0 * visits + (40.0 + 4.0 * c) * n_live
+    visits, n_live, ops = grad_ops(counts, ncomp, live, c)
     t, p = ncomp.shape
     nbytes = 4.0 * (attrs.numel() + float(counts.sum()) + 2 * t + c + t * p * (c + 3)
                     + gidx.shape[0] * attrs.shape[1])
-    t_ops, t_bytes = ops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
-    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "visits": visits, "live_visits": n_live, "ops": ops, "bytes": nbytes}
+    return roofline(ops, nbytes, visits=visits, live_visits=n_live)
+
+
+def grad_ops(counts, ncomp, live, c: int):
+    """(visits, live visits, operations) of the reverse walk (K2 / K4)."""
+    import torch
+
+    visits = float(torch.minimum(ncomp.double(), counts.double()[:, None]).sum())
+    n_live = float(live.double().sum())
+    return visits, n_live, 16.0 * visits + (40.0 + 4.0 * c) * n_live
+
+
+def k4_bound(bargs, live) -> dict:
+    """K2's operations on the table's rows; bytes: the walked table rows,
+    counts, bg, g_out, g_alpha, logt, ncomp and the whole (T, K, 6 + C)
+    gradient table written."""
+    counts, tables, bg, g_out, g_alpha, logt, ncomp, tw, ts = bargs
+    c = tables.shape[2] - 6
+    visits, n_live, ops = grad_ops(counts, ncomp, live, c)
+    t, p = ncomp.shape
+    nbytes = 4.0 * (float(counts.sum()) * tables.shape[2] + t + c + t * p * (c + 3)
+                    + tables.numel())
+    return roofline(ops, nbytes, visits=visits, live_visits=n_live)
 
 
 def grad_errors(got, want, c: int):
@@ -377,6 +450,310 @@ def check_k6(label: str, k1_args, time_it: bool) -> dict:
     if not bool(torch.isfinite(got).all()) or row["max_rel_err"] > K2_ERR_MAX \
             or min(scales.values()) <= 0.0:
         raise RuntimeError(f"k6 {label}: K6 disagrees with K2 or the plain version: {row}")
+    return row
+
+
+def table_inputs(field, alive, cam, cfg) -> dict:
+    """K3's inputs on the table path for one view (counts, tables, bg, tw,
+    ts), from bin_gaussians(build_table=True), with K1's on the pair stream
+    of the same sort, tile_gidx, N and the bins."""
+    import torch
+    from gaussiangrasper_torch.models.model import render_inputs
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
+    from gaussiangrasper_torch.ops.rasterize import bin_gaussians, tile_grid
+
+    proj, colors, opac, bg = render_inputs(field, alive, cam, STEP, cfg)
+    bins = bin_gaussians(proj, cam.width, cam.height, cfg.raster, opacities=opac,
+                         build_table=True, keep_pairs=True)
+    k = bins.tile_gidx.shape[1]
+    tw, _ = tile_grid(cam.width, cam.height, cfg.raster.tile_size)
+    ts = cfg.raster.tile_size
+    counts = torch.clamp(bins.tile_count, max=k).to(torch.int32).contiguous()
+    tables = rc.gather_tables(bins.tile_gidx, proj.xys, proj.conics, opac, colors)
+    starts, kcounts = rc.stream_bounds(bins.pair_gidx, bins.pair_starts, bins.tile_count, k)
+    k1 = (bins.pair_gidx.int().contiguous(), starts, kcounts,
+          rc.pack_attrs(proj.xys, proj.conics, opac, colors), bg, tw, ts)
+    return {"t": (counts, tables, bg, tw, ts), "k1": k1, "gidx": bins.tile_gidx,
+            "n": proj.xys.shape[0], "bins": bins}
+
+
+def table_c3(inp: dict) -> dict:
+    """The same table with only the rgb channels (C = 3)."""
+    counts, tables, bg, tw, ts = inp["t"]
+    return {**inp, "t": (counts, tables[..., :9].contiguous(), bg[:3].contiguous(), tw, ts),
+            "k1": c3_inputs(inp["k1"])}
+
+
+def no_clip(bins) -> None:
+    """K3 = K1 and K4 ~ K2 need the table and the stream to hold the same
+    rows: no K clip and no pair-budget clip."""
+    if int(bins.overflow) or int(bins.pair_overflow):
+        raise RuntimeError(f"overflow {int(bins.overflow)}, pair_overflow "
+                           f"{int(bins.pair_overflow)}: the table and the stream differ")
+
+
+def check_k3(label: str, inp: dict, time_it: bool, against_k1: bool) -> dict:
+    """K3 against its plain version with K1's criterion; with `against_k1`,
+    all four outputs bit-equal to K1's on the stream of the same sort, and
+    timed beside K1."""
+    import torch
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
+
+    targs = inp["t"]
+    got = rc.composite_tables_fwd(*targs)
+    want = rc.composite_tables_fwd_plain(*targs, count_live=True)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:3], want[:3]))
+    dn = (got[3] - want[3]).abs()
+    n_diff, dn_max = int((dn > 0).sum()), float(dn.max())
+    row = {"phase": "k3", "case": label, "tiles": int(targs[0].shape[0]),
+           "channels": int(targs[1].shape[2] - 6), "table_k": int(targs[1].shape[1]),
+           "rows_walked": int(targs[0].sum()), "max_abs_err": err, "ncomp_diff_pixels": n_diff,
+           "ncomp_diff_max": dn_max}
+    ok = all(bool(torch.isfinite(x).all()) for x in got) and err <= K1_ERR_MAX and dn_max <= 1 \
+        and n_diff <= K1_NCOMP_SHARE_MAX * dn.numel()
+    if against_k1:
+        no_clip(inp["bins"])
+        k1 = rc._launch_kernel(*inp["k1"])
+        torch.cuda.synchronize()
+        equal = [bool(torch.equal(a, b)) for a, b in zip(got, k1)]
+        row["bit_equal_to_k1"] = dict(zip(("out", "alpha", "logt", "ncomp"), equal))
+        ok = ok and all(equal)
+    if time_it:
+        row["ms"] = cuda_ms(lambda: rc._launch_table_fwd(*targs), 20)
+        if against_k1:
+            row["k1_ms"] = cuda_ms(lambda: rc._launch_kernel(*inp["k1"]), 20)
+        row["wrapper_ms"] = cuda_ms(lambda: rc.composite_tables_fwd(*targs), 20)
+        row["plain_ms"] = cuda_ms(lambda: rc.composite_tables_fwd_plain(*targs), 3)
+        row.update(k3_bound(targs, want[3], want[4]))
+    emit(row)
+    if not ok:
+        raise RuntimeError(f"k3 {label}: K3 disagrees with its plain version or K1: {row}")
+    return row
+
+
+def check_k4(label: str, inp: dict, time_it: bool, against_k2: bool) -> dict:
+    """K4 against its plain version on K3's own logt and ncomp, random g_out
+    and g_alpha, with K2's criterion on the per-Gaussian sums; with
+    `against_k2`, also against K2 on the stream of the same sort, fed the
+    same upstream gradients (K1's logt / ncomp equal K3's there), and
+    timed beside K2."""
+    import torch
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
+
+    counts, tables, bg, tw, ts = inp["t"]
+    _, alpha, logt, ncomp = rc._launch_table_fwd(*inp["t"])
+    gen = torch.Generator(device=tables.device).manual_seed(5)
+    g_out = torch.randn(*alpha.shape, tables.shape[2] - 6, generator=gen, device=tables.device)
+    g_alpha = torch.randn(alpha.shape, generator=gen, device=tables.device)
+    bargs = (counts, tables, bg, g_out, g_alpha, logt, ncomp, tw, ts)
+    gidx, n, c = inp["gidx"], inp["n"], tables.shape[2] - 6
+    got = rc.scatter_table(gidx, n, rc.composite_tables_bwd(*bargs))
+    want = rc.scatter_table(gidx, n, rc.composite_tables_bwd_plain(*bargs))
+    torch.cuda.synchronize()
+    errs, scales = grad_errors(got, want, c)
+    row = {"phase": "k4", "case": label, "tiles": int(counts.shape[0]), "channels": c,
+           "rows_walked": int(counts.sum()), "rel_err_vs_plain": errs, "scale": scales,
+           "max_abs_err": float((got - want).abs().max())}
+    worst = max(errs.values())
+    if against_k2:
+        no_clip(inp["bins"])
+        k2args = inp["k1"][:5] + (g_out, g_alpha, logt, ncomp) + inp["k1"][5:]
+        k2 = per_gaussian(k2args, rc._launch_bwd_kernel(*k2args))
+        torch.cuda.synchronize()
+        errs_k2, _ = grad_errors(got, k2, c)
+        row["rel_err_vs_k2"] = errs_k2
+        worst = max(worst, max(errs_k2.values()))
+    row["max_rel_err"] = worst
+    if time_it:
+        row["ms"] = cuda_ms(lambda: rc._launch_table_bwd(*bargs), 20)
+        if against_k2:
+            row["k2_ms"] = cuda_ms(lambda: rc._launch_bwd_kernel(*k2args), 20)
+        row["wrapper_ms"] = cuda_ms(lambda: rc.composite_tables_bwd(*bargs), 20)
+        row["plain_ms"] = cuda_ms(lambda: rc.composite_tables_bwd_plain(*bargs), 1)
+        live = rc.composite_tables_fwd_plain(*inp["t"], count_live=True)[4]
+        row.update(k4_bound(bargs, live))
+    emit(row)
+    if not bool(torch.isfinite(got).all()) or worst > K2_ERR_MAX or min(scales.values()) <= 0.0:
+        raise RuntimeError(f"k4 {label}: K4 disagrees with its plain version or K2: {row}")
+    return row
+
+
+def table_compositor(proj, colors, opacities, background, width, height, config):
+    """The table path as a `compositor` for render / train_loss: bin with
+    the (T, K) table, then rasterize_projected(bins=...), which routes the
+    table to composite_binned (K3 / K4)."""
+    from gaussiangrasper_torch.ops.rasterize import bin_gaussians, rasterize_projected
+
+    bins = bin_gaussians(proj, width, height, config, opacities=opacities.detach(),
+                         build_table=True)
+    return rasterize_projected(proj, colors, opacities, background, width, height, config,
+                               bins=bins)
+
+
+TABLE_RENDERS, TABLE_ITERS = 5, 20
+
+
+def table_phase(device, cfg) -> dict:
+    """The table path at full width, beside the pair path in the same phase:
+    renders of the bench field at 800x800, then TABLE_ITERS iterations of
+    train_loss + backward at the train phase's point, the two paths in
+    turn."""
+    import torch
+    from gaussiangrasper_torch.models.gaussian_field import GaussianParams
+    from gaussiangrasper_torch.models.model import render, train_loss
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
+
+    kernels = {"k3": rc.composite_tables_fwd, "k4": rc.composite_tables_bwd,
+               "k1": rc.composite_pairs_fwd, "k2": rc.composite_pairs_bwd}
+    paths = {"table": table_compositor, "pairs": None}
+
+    def reset():
+        for k in kernels.values():
+            k.launches = 0
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    field, alive = bench_field(N_FULL, seed=0, device=device)
+    cam = bench_camera(WIDTH, HEIGHT, device)
+    render_ms = {p: [] for p in paths}
+    reset()
+    with torch.no_grad():
+        for _ in range(TABLE_RENDERS):
+            outs = {}
+            for p, comp in paths.items():
+                outs[p], ms = timed(lambda: render(field, alive, cam, STEP, cfg, compositor=comp))
+                render_ms[p].append(ms)
+    render_launches = {n: k.launches for n, k in kernels.items()}
+    tb, pb = outs["table"]["bins"], outs["pairs"]["bins"]
+    if int(tb.overflow) or int(pb.pair_overflow) or tb.pair_gidx is not None:
+        raise RuntimeError(f"table render: overflow {int(tb.overflow)}, pair_overflow "
+                           f"{int(pb.pair_overflow)}")
+    images_equal = all(bool(torch.equal(outs["table"][k], outs["pairs"][k]))
+                       for k in ("rgb", "feature", "depth", "normal", "alpha"))
+    del field, alive, outs
+
+    state = train_state_at(N_FULL, CAPACITY, seed=0, device=device)
+    batch = train_batch(WIDTH, HEIGHT, 32, 800, 1000, seed=8, device=device)
+
+    def iteration(comp):
+        fld = GaussianParams(*(x.detach().requires_grad_(True) for x in state.field))
+        fea_up = {k: v.detach().requires_grad_(True) for k, v in state.fea_up.items()}
+        probe = torch.zeros(state.field.capacity, 2, device=device, requires_grad=True)
+        total, aux = train_loss({"field": fld, "fea_up": fea_up}, state.alive, cam, batch,
+                                state.step, cfg, probe=probe, compositor=comp)
+        grads = torch.autograd.grad(total, list(fld) + [probe])
+        return total.detach(), aux, grads
+
+    iter_ms = {p: [] for p in paths}
+    first = {}
+    reset()
+    for i in range(TABLE_ITERS):
+        for p, comp in paths.items():
+            res, ms = timed(lambda: iteration(comp))
+            iter_ms[p].append(ms)
+            if i == 0:
+                first[p] = res
+    launches = {n: k.launches for n, k in kernels.items()}
+    (lt, auxt, gt), (lp, auxp, gp) = first["table"], first["pairs"]
+    if int(auxp["overflow"]) or int(auxp["pair_overflow"]) or int(auxt["overflow"]):
+        raise RuntimeError("table train: overflow or pair_overflow at the train point")
+    # one traced iteration of each path: device time, which the host's spread does not move
+    profiles = {p: device_profile(lambda: iteration(comp), top=6) for p, comp in paths.items()}
+    names = list(GaussianParams._fields) + ["probe"]
+    grad_err = {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for n, a, b in zip(names, gt, gp)}
+    row = {"phase": "table", "gaussians": N_FULL, "capacity": CAPACITY, "width": WIDTH,
+           "height": HEIGHT, "channels": cfg.num_channels,
+           "table_k": int(tb.tile_gidx.shape[1]), "render_launches": render_launches,
+           "render_ms_per_view": {p: float(np.median(v[1:])) for p, v in render_ms.items()},
+           "render_images_bit_equal": images_equal, "iterations": TABLE_ITERS,
+           "train_launches": launches,
+           "train_loss_fwd_bwd_ms": {p: float(np.median(v[1:])) for p, v in iter_ms.items()},
+           "train_loss_ms_all": iter_ms, "train_loss_profile": profiles,
+           "step0_loss": [float(lt), float(lp)],
+           "step0_loss_bit_equal": bool(torch.equal(lt, lp)), "grad_rel_err_vs_pairs": grad_err,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    row["table_extra_ms_per_iteration"] = \
+        row["train_loss_fwd_bwd_ms"]["table"] - row["train_loss_fwd_bwd_ms"]["pairs"]
+    row["table_extra_device_ms_per_iteration"] = \
+        profiles["table"]["device_busy_ms"] - profiles["pairs"]["device_busy_ms"]
+    emit(row)
+    want_render = {"k3": TABLE_RENDERS, "k4": 0, "k1": TABLE_RENDERS, "k2": 0}
+    want_train = {"k3": TABLE_ITERS, "k4": TABLE_ITERS, "k1": TABLE_ITERS, "k2": TABLE_ITERS}
+    if render_launches != want_render or launches != want_train:
+        raise RuntimeError(f"table: launches {render_launches} / {launches}, want "
+                           f"{want_render} / {want_train}")
+    if not images_equal or not row["step0_loss_bit_equal"] or max(grad_err.values()) > K2_ERR_MAX \
+            or not all(bool(torch.isfinite(g).all()) for g in gt):
+        raise RuntimeError(f"table: the table path disagrees with the pair path: {row}")
+    return row
+
+
+def probes_phase(device) -> dict:
+    """Both probe entry points in-process, then each probe kernel against
+    its plain version on the card (exact) and timed."""
+    import torch
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
+    from gaussiangrasper_torch.probes import copy_probe, kernel_probe
+    from gaussiangrasper_torch.probes import kernels as pk
+
+    kernels = {"p1": pk.affine, "p2": pk.read_at, "p3": pk.write_at,
+               "k3": rc.composite_tables_fwd}
+    for k in kernels.values():
+        k.launches = 0
+    rcs = {"kernel_probe": kernel_probe.main([]), "copy_probe": copy_probe.main([])}
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    if any(rcs.values()) or launches != {"p1": 1, "p2": 2, "p3": 1, "k3": 3}:
+        raise RuntimeError(f"probes: exit codes {rcs}, launches {launches}")
+
+    x = torch.arange(8 * 128, dtype=torch.float32, device=device).reshape(8, 128) - 300.5
+    src = torch.arange(4096 * 128, dtype=torch.float32, device=device).reshape(4096, 128)
+    rstarts = torch.tensor([3, 77, 1001], dtype=torch.int32, device=device)
+    vals = torch.randn(3, 128, 128, generator=torch.Generator(device=device).manual_seed(9),
+                       device=device)
+    wstarts = torch.tensor([0, 100, 200], dtype=torch.int32, device=device)
+    covered = pk.covered_rows(wstarts, 512).to(device)
+    one = torch.ones((), device=device)
+    windows = src.unfold(0, 128, 1).mT  # windows[s] = rows [s, s + 128) of src
+    rstarts_long = rstarts.long()
+    # compulsory words: inputs read once, outputs written once; P3 reads and
+    # writes only the covered rows, each from the block that wins it
+    cases = {
+        "p1": (lambda: pk._launch_affine(x), lambda: pk.affine_plain(x),
+               lambda: torch.add(one, x, alpha=2.0), 2 * x.numel()),
+        "p2": (lambda: pk._launch_read_at(src, rstarts), lambda: pk.read_at_plain(src, rstarts),
+               lambda: windows[rstarts_long], 2 * 3 * 128 * 128 + 3),
+        "p3": (lambda: pk._launch_write_at(vals, wstarts, 512),
+               lambda: pk.write_at_plain(vals, wstarts, 512), None,
+               2 * int(covered.sum()) * 128 + 3),
+    }
+    rows = {}
+    for name, (kernel, plain, library, words) in cases.items():
+        got, want = kernel(), plain()
+        lib_equal = library is None or bool(torch.equal(library(), want))
+        torch.cuda.synchronize()
+        if name == "p3":
+            got, want = got[covered], want[covered]
+        r = {"max_abs_err": float((got - want).abs().max()), "equal": bool(torch.equal(got, want)),
+             "library_equal": lib_equal, "ms": device_ms(kernel, 50),
+             "plain_ms": device_ms(plain, 20),
+             "library_ms": device_ms(library, 50) if library else None,
+             "host_ms": cuda_ms(kernel, 50)}
+        r["us"] = 1e3 * r["ms"]
+        r.update(roofline(0.0, 4.0 * words))
+        rows[name] = r
+    row = {"phase": "probes", "exit_codes": rcs, "launches": launches, **rows}
+    emit(row)
+    if not all(r["equal"] and r["library_equal"] and r["ms"] > 0 for r in rows.values()):
+        raise RuntimeError(f"probes: a probe kernel or library call disagrees with the plain "
+                           f"version, or the profiler saw no device time: {row}")
     return row
 
 
@@ -790,11 +1167,23 @@ def main() -> int:
         check_k6("mid_odd_c39", odd39, time_it=False)
         check_k6("mid_odd_c3", odd3, time_it=False)
         full6 = check_k6("full_width_c39", full_args, time_it=True)
-    del field, alive, mid39, mid3, full_args, odd39, odd3
+        del mid39, mid3, full_args, odd39, odd3
+        tmid39 = table_inputs(field, alive, cam_mid, cfg)
+        tmid3 = table_c3(tmid39)
+        tfull = table_inputs(field, alive, bench_camera(WIDTH, HEIGHT, device), cfg)
+        check_k3("mid_c39", tmid39, time_it=False, against_k1=False)
+        check_k3("mid_c3", tmid3, time_it=False, against_k1=False)
+        full3 = check_k3("full_width_c39", tfull, time_it=True, against_k1=True)
+        check_k4("mid_c39", tmid39, time_it=False, against_k2=False)
+        check_k4("mid_c3", tmid3, time_it=False, against_k2=False)
+        full4 = check_k4("full_width_c39", tfull, time_it=True, against_k2=True)
+    del field, alive, tmid39, tmid3, tfull
     render_small_phase(cfg)
     serve = serve_phase(device, cfg)
     train_small_phase(cfg)
     train = train_phase(device, cfg)
+    table = table_phase(device, cfg)
+    probes = probes_phase(device)
     with tempfile.TemporaryDirectory() as tmp:
         from gaussiangrasper_torch.data.synthetic import generate_tabletop
 
@@ -817,7 +1206,8 @@ def main() -> int:
                 "replaces": replaces, "launches": sum(launches.values()),
                 "launches_by_path": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "wrapper_ms": row.get("wrapper_ms"), "plain_ms": row["plain_ms"],
-                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None}
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row.get("library_ms")}
 
     emit({"kernels": [
         kernel_row("composite_pairs_fwd", "composite_pairs_fwd",
@@ -825,16 +1215,33 @@ def main() -> int:
                    {"serve": serve["k1_launches"], "train": train["launches"]["k1"],
                     "trainer": trainer["launches_train"]["k1"],
                     "trainer_render": trainer["launches_render"]["k1"],
-                    "trainer_tp2_render": trainer2["launches_render"]["k1"]}),
+                    "trainer_tp2_render": trainer2["launches_render"]["k1"],
+                    "table_phase_pair_render": table["render_launches"]["k1"],
+                    "table_phase_pair_train": table["train_launches"]["k1"]}),
         kernel_row("composite_pairs_bwd", "composite_pairs_bwd",
                    "rasterize_pallas.py:600 (_bwd_pairs_kernel)", full2,
-                   {"train": train["launches"]["k2"], "trainer": trainer["launches_train"]["k2"]}),
+                   {"train": train["launches"]["k2"], "trainer": trainer["launches_train"]["k2"],
+                    "table_phase_pair_train": table["train_launches"]["k2"]}),
         kernel_row("composite_pairs_fwd2", "composite_pairs_fwd",
                    "rasterize_pallas.py:1059 (_fwd_pairs2_kernel)", full5,
                    {"trainer_tp2": trainer2["launches_train"]["k5"]}),
         kernel_row("composite_pairs_bwd2", "composite_pairs_bwd",
                    "rasterize_pallas.py:1189 (_bwd_pairs2_kernel)", full6,
                    {"trainer_tp2": trainer2["launches_train"]["k6"]}),
+        kernel_row("composite_tables_fwd", "composite_pairs_fwd",
+                   "rasterize_pallas.py:160 (_fwd_kernel)", full3,
+                   {"table_render": table["render_launches"]["k3"],
+                    "table_train": table["train_launches"]["k3"],
+                    "kernel_probe": probes["launches"]["k3"]}),
+        kernel_row("composite_tables_bwd", "composite_pairs_bwd",
+                   "rasterize_pallas.py:206 (_bwd_kernel)", full4,
+                   {"table_train": table["train_launches"]["k4"]}),
+        kernel_row("probe_affine", "probes", "pallas_probe.py:38 (kernel)",
+                   probes["p1"], {"kernel_probe": probes["launches"]["p1"]}),
+        kernel_row("probe_read_at", "probes", "dma_probe.py:37 (_read_kernel)",
+                   probes["p2"], {"copy_probe": probes["launches"]["p2"]}),
+        kernel_row("probe_write_at", "probes", "dma_probe.py:65 (_write_kernel)",
+                   probes["p3"], {"copy_probe": probes["launches"]["p3"]}),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

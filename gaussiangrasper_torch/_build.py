@@ -8,15 +8,17 @@ into `build/lib<name>.so` beside this package (a directory git ignores):
 
 No `--use_fast_math`: `__expf` changes the kernels' cut decisions and the
 alpha-cutoff test against their plain PyTorch versions. A library is rebuilt
-when its source is newer. Nothing here runs at import: a machine without
-nvcc or a GPU imports the package and uses the plain versions on CPU
-tensors. `build_all` starts one nvcc per source, all at once.
+when its source, or a csrc/ header the source includes, is newer. Nothing here runs at
+import: a machine without nvcc or a GPU imports the package and uses the
+plain versions on CPU tensors. `build_all` starts one nvcc per source, all
+at once. `entry` binds one C entry point of a built library.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,7 +43,9 @@ def _paths(name: str):
 
 def _stale(name: str) -> bool:
     src, lib, _ = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    headers = [CSRC / h for h in re.findall(r'#include "(\w+\.cuh)"', src.read_text())]
+    newest = max(p.stat().st_mtime for p in [src, *headers])
+    return not lib.exists() or lib.stat().st_mtime < newest
 
 
 def _start(name: str) -> subprocess.Popen:
@@ -83,3 +87,21 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_paths(name)[1]))
             _loaded[name] = lib
         return lib
+
+
+def entry(source: str, name: str, argtypes):
+    """(library, C entry `name` of csrc/<source>.cu), built and loaded on
+    first use. Every entry returns a CUDA error code (0 is success), which
+    `check_error` turns into an exception."""
+    lib = load_library(source)
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    lib.ggt_cuda_error_string.restype = ctypes.c_char_p
+    lib.ggt_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib, fn
+
+
+def check_error(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: " + lib.ggt_cuda_error_string(err).decode())

@@ -1,11 +1,14 @@
-// Backward of the per-tile compositing over the depth-sorted pair stream, for Hopper (sm_90a).
+// Backward of the per-tile compositing, for Hopper (sm_90a).
 //
-// Replaces two kernels of the JAX package's rasterize_pallas.py, with one per-tile body:
+// Replaces three kernels of the JAX package's rasterize_pallas.py, with one per-tile body:
 //   K2 _bwd_pairs_kernel (launched by _call_bwd_pairs from _composite_pairs_bwd): one tile per
-//      kernel instance;
+//      kernel instance, rows from the depth-sorted pair stream;
 //   K6 _bwd_pairs2_kernel (launched by _call_bwd_pairs2 under GGT_TP=2): tiles 2j and 2j + 1 per
-//      kernel instance.
-// Inputs: the stream (pair_gidx, starts, counts),
+//      kernel instance;
+//   K4 _bwd_kernel (launched by _call_bwd from _composite_n_bwd, the table path): one tile per
+//      kernel instance, rows from the packed (T, K, 6 + C) table, gradients into a (T, K, 6 + C)
+//      table (see "The table path" below).
+// Inputs of K2: the stream (pair_gidx, starts, counts),
 // the attribute table (N, 6 + C) (xy | conic a, b, c | opacity | colour), bg (C,), the upstream
 // g_out (T, P, C) and g_alpha (T, P), and K1's saved logt and ncomp (T, P). Output: gpairs
 // (B, 6 + C), per stream row dxy(2), dconic(3), dopacity(1), dcolour(C), each summed over the
@@ -39,6 +42,14 @@
 // alpha >= 1/255, o exp(-sigma) < 0.999) use K1's explicitly rounded operations, so they decide
 // as the plain version does.
 //
+// The table path (K4). grad_tile takes its rows from a row source (tile_rows.cuh): K2 / K6 gather
+// each chunk through pair_gidx and write its row sums to the chunk's stream rows; K4 copies rows
+// [t K + base, ...) of the packed table and writes its sums to the same rows of gattr (T, K,
+// 6 + C), which the wrapper zero-fills and scatter-adds by tile_gidx. The TPU kernel runs two
+// forward passes (total_blend, then the gradients with suffix = total - prefix); K4 keeps K2's
+// single reverse walk from min(ncomp, count) - 1 on K3's ncomp. Rows past a pixel's cut or past
+// the count add zero in both, so the two compute the same gattr to rounding.
+//
 // Two tiles per instance (K6). As K5 in composite_pairs_fwd.cu: a grid of 2 ceil(T/2) CTAs in
 // two-CTA clusters, tile = 2 clusterid + cluster_ctarank, the phantom CTA of an odd T returning
 // before any barrier; both kernels call the one per-tile body (grad_tile), so the gradient math
@@ -57,10 +68,15 @@
 // dcolour and 6 + C adds for the pixel sums. chip_smoke.py computes the bound from the run's
 // own visit counts; the kernel is bound by operations. Measured by chip_smoke.py on an H100
 // 80GB HBM3 at 700 W: K6 17.51 ms beside K2's 17.24 ms in the same run, 29x the 0.595 ms
-// bound; the card holds 66 two-CTA clusters of K6 (one CTA an SM, for its shared memory).
+// bound; the card holds 66 two-CTA clusters of K6 (one CTA an SM, for its shared memory). K4
+// does K2's work on the same rows, so it has K2's operations bound: 17.55 ms beside K2's 17.25 ms
+// in the same run. ptxas: C = 39 uses 64 registers with 24 bytes of spills (K2, K4 and K6 alike),
+// C = 3 47 registers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tile_rows.cuh"
 
 namespace {
 
@@ -92,14 +108,14 @@ size_t smem_bytes(int p) {
          sizeof(int32_t) * kBatch;
 }
 
-// The whole per-tile backward of tile t, run by its CTA (one thread per pixel).
-template <int C>
+// The whole per-tile backward of tile t, run by its CTA (one thread per pixel), over the rows
+// that `rows` (PairRows or TableRows) gives; the row sums go to the same positions of grows.
+template <int C, class Rows>
 __device__ __forceinline__ void grad_tile(
-    int t, const int32_t* __restrict__ pair_gidx, const int32_t* __restrict__ starts,
-    const int32_t* __restrict__ counts, const float* __restrict__ attrs,
+    int t, const Rows& rows, const int32_t* __restrict__ counts,
     const float* __restrict__ bg, const float* __restrict__ g_out,
     const float* __restrict__ g_alpha, const float* __restrict__ logt,
-    const float* __restrict__ ncomp, int tw, int ts, float* __restrict__ gpairs) {
+    const float* __restrict__ ncomp, int tw, int ts, float* __restrict__ grows) {
   constexpr int A = 6 + C;
   extern __shared__ float smem[];
   __shared__ int s_kmax;
@@ -112,7 +128,7 @@ __device__ __forceinline__ void grad_tile(
 
   const int lin = threadIdx.x;
   const int lane = lin & 31;
-  const int start = starts[t];
+  const size_t start = rows.start(t);
   const int count = counts[t];
   const float px = (float)((t % tw) * ts + lin % ts);
   const float py = (float)((t / tw) * ts + lin / ts);
@@ -143,13 +159,8 @@ __device__ __forceinline__ void grad_tile(
   for (int base = kmax > 0 ? (kmax - 1) / kBatch * kBatch : -1; base >= 0; base -= kBatch) {
     const int n = min(kBatch, kmax - base);
     __syncthreads();  // the previous chunk is written out
-    for (int r = lin; r < n; r += P) s_gid[r] = pair_gidx[start + base + r];
     for (int i = lin; i < n * A; i += P) s_acc[i] = 0.f;
-    __syncthreads();
-    for (int i = lin; i < n * A; i += P) {
-      const int r = i / A;
-      s_attr[i] = attrs[(size_t)s_gid[r] * A + (i - r * A)];
-    }
+    rows.template stage<A>(start + base, n, s_attr, s_gid);
     __syncthreads();
 
     for (int j = n - 1; j >= 0; --j) {
@@ -206,7 +217,7 @@ __device__ __forceinline__ void grad_tile(
       }
     }
     __syncthreads();
-    float* dst = gpairs + (size_t)(start + base) * A;
+    float* dst = grows + (start + base) * A;
     for (int i = lin; i < n * A; i += P) dst[i] = s_acc[i];
   }
 }
@@ -219,8 +230,19 @@ __global__ void __launch_bounds__(1024, 1) composite_pairs_bwd_kernel(
     const float* __restrict__ bg, const float* __restrict__ g_out,
     const float* __restrict__ g_alpha, const float* __restrict__ logt,
     const float* __restrict__ ncomp, int tw, int ts, float* __restrict__ gpairs) {
-  grad_tile<C>(blockIdx.x, pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
-               tw, ts, gpairs);
+  grad_tile<C>(blockIdx.x, PairRows{pair_gidx, starts, attrs}, counts, bg, g_out, g_alpha, logt,
+               ncomp, tw, ts, gpairs);
+}
+
+// K4: one CTA per tile, rows from the packed (T, kt, 6 + C) table, sums into gattr (T, kt, 6 + C).
+template <int C>
+__global__ void __launch_bounds__(1024, 1) composite_tables_bwd_kernel(
+    const int32_t* __restrict__ counts, const float* __restrict__ tables, int kt,
+    const float* __restrict__ bg, const float* __restrict__ g_out,
+    const float* __restrict__ g_alpha, const float* __restrict__ logt,
+    const float* __restrict__ ncomp, int tw, int ts, float* __restrict__ gattr) {
+  grad_tile<C>(blockIdx.x, TableRows{tables, kt}, counts, bg, g_out, g_alpha, logt, ncomp, tw,
+               ts, gattr);
 }
 
 // Tile of this CTA in a grid of two-CTA clusters: 2 clusterid.x + cluster_ctarank.
@@ -242,8 +264,8 @@ __global__ void __launch_bounds__(1024, 1) composite_pairs_bwd2_kernel(
     float* __restrict__ gpairs) {
   const int t = cluster_pair_tile();
   if (t >= num_tiles) return;  // the phantom CTA of an odd tile count: before any barrier
-  grad_tile<C>(t, pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp, tw, ts,
-               gpairs);
+  grad_tile<C>(t, PairRows{pair_gidx, starts, attrs}, counts, bg, g_out, g_alpha, logt, ncomp,
+               tw, ts, gpairs);
 }
 
 cudaLaunchConfig_t pair_config(int num_tiles, int p, size_t bytes, cudaStream_t s,
@@ -308,7 +330,47 @@ int launch(const void* pair_gidx, const void* starts, const void* counts, const 
   return (int)cudaGetLastError();
 }
 
+template <int C>
+int launch_tables(const void* counts, const void* tables, int kt, const void* bg,
+                  const void* g_out, const void* g_alpha, const void* logt, const void* ncomp,
+                  int num_tiles, int tw, int ts, void* gattr, cudaStream_t s) {
+  const int p = ts * ts;
+  const size_t bytes = smem_bytes<C>(p);
+  cudaError_t err = cudaFuncSetAttribute(composite_tables_bwd_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  composite_tables_bwd_kernel<C><<<num_tiles, p, bytes, s>>>(
+      (const int32_t*)counts, (const float*)tables, kt, (const float*)bg, (const float*)g_out,
+      (const float*)g_alpha, (const float*)logt, (const float*)ncomp, tw, ts, (float*)gattr);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// Launches K4 on `stream` and returns the CUDA error code; 0 is success. Device pointers: counts
+// (T,) int32 with 0 <= counts[t] <= kt; tables (T, kt, 6 + C), bg (C,), g_out (T, ts*ts, C),
+// g_alpha / logt / ncomp (T, ts*ts) float32 (logt and ncomp K3's); gattr (T, kt, 6 + C) float32,
+// zero-filled by the caller.
+extern "C" int ggt_composite_tables_bwd(const void* counts, const void* tables, const void* bg,
+                                        const void* g_out, const void* g_alpha, const void* logt,
+                                        const void* ncomp, int num_tiles, int kt, int tw, int ts,
+                                        int channels, void* gattr, void* stream) {
+  const int p = ts * ts;
+  if (num_tiles <= 0 || kt < 0 || p < 32 || p > 1024 || p % 32 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (channels) {
+    case 3:
+      return launch_tables<3>(counts, tables, kt, bg, g_out, g_alpha, logt, ncomp, num_tiles, tw,
+                              ts, gattr, s);
+    case 39:
+      return launch_tables<39>(counts, tables, kt, bg, g_out, g_alpha, logt, ncomp, num_tiles, tw,
+                               ts, gattr, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
 // Launches the kernel on `stream` (a cudaStream_t) and returns the CUDA error code; 0 is
 // success. Pointers are device pointers: pair_gidx (B,), starts (T,), counts (T,) int32 with

@@ -1,10 +1,13 @@
-// Forward per-tile compositing over the depth-sorted pair stream, for Hopper (sm_90a).
+// Forward per-tile compositing, for Hopper (sm_90a).
 //
-// Replaces two kernels of the JAX package's rasterize_pallas.py, with one per-tile body:
-//   K1 _fwd_pairs_kernel (launched by _call_fwd_pairs): one tile per kernel instance;
+// Replaces three kernels of the JAX package's rasterize_pallas.py, with one per-tile body:
+//   K1 _fwd_pairs_kernel (launched by _call_fwd_pairs): one tile per kernel instance, rows from
+//      the depth-sorted pair stream;
 //   K5 _fwd_pairs2_kernel (launched by _call_fwd_pairs2 under GGT_TP=2): tiles 2j and 2j + 1
-//      per kernel instance, bit-identical to K1.
-// Same inputs, same four outputs:
+//      per kernel instance, bit-identical to K1;
+//   K3 _fwd_kernel (launched by _call_fwd from composite_binned / composite_tiles): one tile per
+//      kernel instance, rows from a packed per-tile (T, K, 6 + C) table.
+// Same four outputs (the TPU's K3 has no ncomp; the port's K4 reads it):
 //   out   (T, P, C) = sum_k w_k c_k + T_final * bg
 //   alpha (T, P)    = 1 - T_final
 //   logt  (T, P)    = sum of log(1 - alpha_k) over the composited entries (T_final = exp(logt))
@@ -23,6 +26,14 @@
 // (__syncthreads_count). C is a template parameter (3 and 39, the channel counts the port
 // renders) so the C accumulators live in registers; the wrapper raises for any other C.
 // The walk is bounded by count, never by a padded window, so it never reads past B.
+//
+// The table path (K3). composite_tile takes its rows from a row source (tile_rows.cuh): K1 / K5
+// gather each batch through pair_gidx, K3 copies it from rows [t K, t K + count) of the packed
+// table. Everything after the staging is the same code, so K3 is bit-equal to K1 wherever the
+// table and the stream hold the same rows (no K clip and no pair-budget clip). The TPU kernel
+// walks padded 128-row chunks with triangular-matmul prefix sums; the walk here is bounded by
+// the count, so the table needs no padding. K3 is instantiated for C = 3, 7 (the kernel probe's
+// width) and 39.
 //
 // Two tiles per instance (K5). On the TPU the two tiles of one instance interleave their
 // walks chunk by chunk so the scheduler has two independent dependency chains. On Hopper the
@@ -52,10 +63,17 @@
 // chip_smoke.py on an H100 80GB HBM3 at 700 W: K1 2.93 ms, 8.6x the bound; K5 2.95 ms beside
 // K1's 2.92 ms in the same run. ptxas: C = 39 uses 64 registers (the cap at 1024 threads), 0
 // spills, 23.5 KB static shared memory (K5 the same); C = 3 uses 28 registers (K5 30). The
-// card holds 66 two-CTA clusters of K5 at C = 39 (132 at C = 3).
+// card holds 66 two-CTA clusters of K5 at C = 39 (132 at C = 3). K3 does K1's work on the same
+// rows and reads the walked table rows (compulsory: counts x (6 + C) floats) where K1 reads
+// pair_gidx and the (N, 6 + C) table, so it has K1's operations bound. Measured by chip_smoke.py
+// on an H100 80GB HBM3 at 700 W: K3 2.97 ms beside K1's 2.89 ms in the same run, all four
+// outputs bit-equal to K1's. ptxas: K3 at C = 39 uses 64 registers, 0 spills, 22.5 KB static
+// shared memory; C = 7 38 registers, C = 3 27.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tile_rows.cuh"
 
 namespace {
 
@@ -65,11 +83,11 @@ constexpr float kLogEps = -9.2103403719761836f;  // log(1e-4)
 constexpr int kWalkChunk = 128;                  // K1's KC: the rounding of an uncut ncomp
 constexpr int kBatch = 128;                      // rows staged in shared memory per batch
 
-// The whole per-tile forward of tile t, run by its CTA (one thread per pixel).
-template <int C>
+// The whole per-tile forward of tile t, run by its CTA (one thread per pixel), over the rows
+// that `rows` (PairRows or TableRows) gives.
+template <int C, class Rows>
 __device__ __forceinline__ void composite_tile(
-    int t, const int32_t* __restrict__ pair_gidx, const int32_t* __restrict__ starts,
-    const int32_t* __restrict__ counts, const float* __restrict__ attrs,
+    int t, const Rows& rows, const int32_t* __restrict__ counts,
     const float* __restrict__ bg, int tw, int ts, float* __restrict__ out,
     float* __restrict__ alpha_out, float* __restrict__ logt_out,
     float* __restrict__ ncomp_out) {
@@ -79,7 +97,7 @@ __device__ __forceinline__ void composite_tile(
 
   const int lin = threadIdx.x;
   const int nthreads = blockDim.x;
-  const int start = starts[t];
+  const size_t start = rows.start(t);
   const int count = counts[t];
   const float px = (float)((t % tw) * ts + lin % ts);
   const float py = (float)((t / tw) * ts + lin / ts);
@@ -94,12 +112,7 @@ __device__ __forceinline__ void composite_tile(
   for (int base = 0; base < count; base += kBatch) {
     const int n = min(kBatch, count - base);
     __syncthreads();  // every pixel is done with the previous batch
-    for (int r = lin; r < n; r += nthreads) s_gid[r] = pair_gidx[start + base + r];
-    __syncthreads();
-    for (int i = lin; i < n * A; i += nthreads) {
-      const int r = i / A;
-      s_attr[i] = attrs[(size_t)s_gid[r] * A + (i - r * A)];
-    }
+    rows.template stage<A>(start + base, n, s_attr, s_gid);
     __syncthreads();
     if (cut < 0) {
       for (int j = 0; j < n; ++j) {
@@ -146,7 +159,18 @@ __global__ void __launch_bounds__(1024, 1) composite_pairs_fwd_kernel(
     const float* __restrict__ bg, int tw, int ts, float* __restrict__ out,
     float* __restrict__ alpha_out, float* __restrict__ logt_out,
     float* __restrict__ ncomp_out) {
-  composite_tile<C>(blockIdx.x, pair_gidx, starts, counts, attrs, bg, tw, ts, out, alpha_out,
+  composite_tile<C>(blockIdx.x, PairRows{pair_gidx, starts, attrs}, counts, bg, tw, ts, out,
+                    alpha_out, logt_out, ncomp_out);
+}
+
+// K3: one CTA per tile, rows from the packed (T, kt, 6 + C) table.
+template <int C>
+__global__ void __launch_bounds__(1024, 1) composite_tables_fwd_kernel(
+    const int32_t* __restrict__ counts, const float* __restrict__ tables, int kt,
+    const float* __restrict__ bg, int tw, int ts, float* __restrict__ out,
+    float* __restrict__ alpha_out, float* __restrict__ logt_out,
+    float* __restrict__ ncomp_out) {
+  composite_tile<C>(blockIdx.x, TableRows{tables, kt}, counts, bg, tw, ts, out, alpha_out,
                     logt_out, ncomp_out);
 }
 
@@ -168,8 +192,8 @@ __global__ void __launch_bounds__(1024, 1) composite_pairs_fwd2_kernel(
     float* __restrict__ ncomp_out) {
   const int t = cluster_pair_tile();
   if (t >= num_tiles) return;  // the phantom CTA of an odd tile count: before any barrier
-  composite_tile<C>(t, pair_gidx, starts, counts, attrs, bg, tw, ts, out, alpha_out, logt_out,
-                    ncomp_out);
+  composite_tile<C>(t, PairRows{pair_gidx, starts, attrs}, counts, bg, tw, ts, out, alpha_out,
+                    logt_out, ncomp_out);
 }
 
 cudaLaunchConfig_t pair_config(int num_tiles, int p, cudaStream_t s, cudaLaunchAttribute* attr) {
@@ -229,6 +253,30 @@ extern "C" int ggt_composite_pairs_fwd(const void* pair_gidx, const void* starts
       (float*)logt, (float*)ncomp)
   switch (channels) {
     case 3: GGT_LAUNCH(3); break;
+    case 39: GGT_LAUNCH(39); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef GGT_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// Launches K3 on `stream` and returns cudaGetLastError(); 0 is success. Device pointers: counts
+// (T,) int32 with 0 <= counts[t] <= kt; tables (T, kt, 6 + C), bg (C,) float32; outputs as K1's.
+extern "C" int ggt_composite_tables_fwd(const void* counts, const void* tables, const void* bg,
+                                        int num_tiles, int kt, int tw, int ts, int channels,
+                                        void* out, void* alpha, void* logt, void* ncomp,
+                                        void* stream) {
+  const int p = ts * ts;
+  if (num_tiles <= 0 || kt < 0 || p < 1 || p > 1024) return (int)cudaErrorInvalidValue;
+  const dim3 grid(num_tiles), block(p);
+  cudaStream_t s = (cudaStream_t)stream;
+#define GGT_LAUNCH(CH)                                                                      \
+  composite_tables_fwd_kernel<CH><<<grid, block, 0, s>>>(                                  \
+      (const int32_t*)counts, (const float*)tables, kt, (const float*)bg, tw, ts, (float*)out, \
+      (float*)alpha, (float*)logt, (float*)ncomp)
+  switch (channels) {
+    case 3: GGT_LAUNCH(3); break;
+    case 7: GGT_LAUNCH(7); break;
     case 39: GGT_LAUNCH(39); break;
     default: return (int)cudaErrorInvalidValue;
   }

@@ -4,13 +4,14 @@ loss (counterpart of the JAX package's models/model.py).
 ONE fused rasterization pass over 3 + F + 1 + 3 channels (rgb, latent
 feature, depth, normal). The screen-space gradient statistics that drive
 densification come from a zero `probe` added to the projected centres, so
-one backward gives the parameter gradients and dL/dxy. Pose deltas and the
-tile-sharded compositor come with later slices."""
+one backward gives the parameter gradients and dL/dxy. `compositor`
+swaps in another rasterizer with `rasterize_projected`'s signature (a
+closure that passes table bins, say), as in the JAX package."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -119,12 +120,16 @@ def render(
     *,
     crop_mask: Optional[torch.Tensor] = None,
     probe: Optional[torch.Tensor] = None,
+    compositor: Optional[Callable[..., Dict[str, Any]]] = None,
 ) -> Dict[str, Any]:
     """Render rgb / feature / depth / normal maps for one camera. Returns
-    per-channel images, alpha, the projection and the binning stats."""
+    per-channel images, alpha, the projection and the binning stats.
+    `compositor(proj, colors, opacities, bg, width, height, raster_config)`
+    replaces `rasterize_projected`."""
     F = cfg.feature_dim
     proj, colors, opac, bg = render_inputs(field, alive, camera, step, cfg, crop_mask, probe)
-    out = rasterize_projected(proj, colors, opac, bg, camera.width, camera.height, cfg.raster)
+    composite = compositor if compositor is not None else rasterize_projected
+    out = composite(proj, colors, opac, bg, camera.width, camera.height, cfg.raster)
     img = out["image"]
     return {
         "rgb": img[..., 0:3],
@@ -146,6 +151,7 @@ def train_loss(
     step: int,
     cfg: GaussianSplatConfig,
     probe: Optional[torch.Tensor] = None,
+    compositor: Optional[Callable[..., Dict[str, Any]]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Total training loss and aux outputs. `state` holds "field"
     (GaussianParams) and "fea_up" (`mlp_apply` params).
@@ -157,7 +163,7 @@ def train_loss(
     if cfg.pose_opt_mode != "off":
         raise NotImplementedError("pose optimization (core/pose_opt.py) is not ported yet")
     field: GaussianParams = state["field"]
-    outs = render(field, alive, camera, step, cfg, probe=probe)
+    outs = render(field, alive, camera, step, cfg, probe=probe, compositor=compositor)
 
     gt_img = batch["image"]
     valid = batch["valid_mask"]
@@ -203,13 +209,17 @@ def train_loss(
             torch.sum(outs["alpha"] * inv) / torch.clamp(inv.sum(), min=1.0))
     total = sum(loss_dict.values())
     bins = outs["bins"]
+    # pairs the stream budget B clipped; table bins have no stream, so 0
+    pair_ovf = bins.pair_overflow
+    if pair_ovf is None:
+        pair_ovf = torch.zeros((), dtype=torch.int32, device=bins.overflow.device)
     aux = {
         "loss_dict": loss_dict,
         "psnr": losses.psnr(rgb, gt_img, valid),
         "radii": outs["proj"].radii,
         "overflow": bins.overflow,
         "dropped_tiles": bins.dropped_tiles,
-        "pair_overflow": bins.pair_overflow,
+        "pair_overflow": pair_ovf,
         "alpha": outs["alpha"],
     }
     return total, aux

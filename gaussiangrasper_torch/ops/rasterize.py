@@ -1,15 +1,19 @@
 """Tile-based rasterization of projected 2D Gaussians (counterpart of
-the JAX package's ops/rasterize.py, pair-stream path).
+the JAX package's ops/rasterize.py, Pallas backend).
 
 1. binning: each Gaussian emits its covered tile rectangle (capped at
    `max_tiles_per_gaussian`), with pairs provably below the 1/255 alpha
    cutoff pruned; ONE stable sort over (tile id, camera depth) with the
    Gaussian index as payload yields depth-ordered per-tile segments of one
    pair stream. Ties keep index order (stable sort), as the JAX package's
-   two-key `lax.sort` does.
+   two-key `lax.sort` does. From the sorted stream `bin_gaussians` keeps
+   the pair stream itself (`keep_pairs`) and / or a (T, K) table of each
+   tile's first K entries (`build_table`).
 2. compositing: `rasterize_cuda.composite_pair_stream` walks each tile's
-   segment front to back, in the hand-written kernel for CUDA tensors and
-   in its plain PyTorch version for CPU tensors.
+   segment of the stream front to back (kernels K1 / K2);
+   `rasterize_cuda.composite_binned` walks the rows of a (T, K) table
+   (kernels K3 / K4). Each runs its hand-written kernel for CUDA tensors
+   and its plain PyTorch version for CPU tensors.
 
 Semantics shared with the CUDA reference rasterizer:
 - alpha = min(0.999, opac * exp(-sigma)); skipped if sigma < 0 or
@@ -52,7 +56,7 @@ class RasterizeConfig:
 
 
 class TileBins(NamedTuple):
-    tile_gidx: Optional[torch.Tensor]  # always None: no (T, K) table here
+    tile_gidx: Optional[torch.Tensor]  # (T, K) int32 front-most K per tile, -1 pad
     tile_count: torch.Tensor     # (T,) int32 entries per tile (pre-clamp)
     num_tiles_hit: torch.Tensor  # (N,) int32 tiles kept per Gaussian
     overflow: torch.Tensor       # () int32 entries dropped by the K clamp
@@ -152,9 +156,14 @@ def bin_gaussians(
     height: int,
     config: RasterizeConfig,
     opacities: Optional[torch.Tensor] = None,
+    build_table: bool = True,
+    keep_pairs: bool = False,
 ) -> TileBins:
-    """Depth-ordered per-tile segments of one sorted pair stream (the JAX
-    package's `bin_gaussians(keep_pairs=True, build_table=False)`).
+    """Depth-ordered per-tile Gaussian lists, with the JAX package's
+    keywords and defaults: `build_table` fills `tile_gidx` (T, K), the
+    first K (front-most) entries of each tile segment, -1 past the
+    segment; `keep_pairs` keeps the sorted stream itself (`pair_gidx`, its
+    budget B = T * pair_budget_per_tile and `pair_overflow`).
 
     The two-key stable sort becomes ONE stable sort of an int64 key
     `tile << 32 | float32 bits of depth`: live depths are > 0.01 and culled
@@ -180,22 +189,32 @@ def bin_gaussians(
     )
     starts = boundaries[:-1]
     tile_count = boundaries[1:] - starts
-
-    pb = config.pair_budget_per_tile or K
-    B = min(T * pb, n * MT)
-    clamped = torch.clamp(tile_count, max=K)
-    walk_end = torch.clamp(starts + clamped, max=B)
-    pair_overflow = (clamped - torch.clamp(walk_end - torch.clamp(starts, max=B), min=0)).sum()
+    n_pairs = n * MT
     i32 = torch.int32
+
+    tile_gidx = None
+    if build_table:
+        k = torch.arange(K, device=perm.device)
+        pos2 = torch.clamp(starts[:, None] + k[None, :], 0, max(n_pairs - 1, 0))
+        in_seg = k[None, :] < tile_count[:, None]
+        tile_gidx = torch.where(in_seg, sorted_gidx[pos2], -1).to(i32)
+
+    pairs = {}
+    if keep_pairs:
+        pb = config.pair_budget_per_tile or K
+        B = min(T * pb, n_pairs)
+        clamped = torch.clamp(tile_count, max=K)
+        walk_end = torch.clamp(starts + clamped, max=B)
+        pair_overflow = (clamped - torch.clamp(walk_end - torch.clamp(starts, max=B), min=0)).sum()
+        pairs = dict(pair_gidx=sorted_gidx[:B], pair_starts=starts.to(i32),
+                     pair_overflow=pair_overflow.to(i32))
     return TileBins(
-        tile_gidx=None,
+        tile_gidx=tile_gidx,
         tile_count=tile_count.to(i32),
         num_tiles_hit=row_counts,
         overflow=torch.clamp(tile_count - K, min=0).sum().to(i32),
         dropped_tiles=torch.clamp(span - MT, min=0).sum().to(i32),
-        pair_gidx=sorted_gidx[:B],
-        pair_starts=starts.to(i32),
-        pair_overflow=pair_overflow.to(i32),
+        **pairs,
     )
 
 
@@ -225,19 +244,31 @@ def rasterize_projected(
 ):
     """Rasterize projected Gaussians: colors (N, C), opacities (N,)
     post-sigmoid, background (C,). Returns a dict with image (H, W, C),
-    alpha (H, W), bins, and tiles (T, P, C), the pre-assembly view."""
+    alpha (H, W), bins, and tiles (T, P, C), the pre-assembly view.
+
+    Routed as the JAX package's Pallas backend routes: bins with a pair
+    stream (and `bins=None`, which bins the stream alone) go to
+    `composite_pair_stream` (K1 / K2); prebuilt table bins (`tile_gidx`,
+    no stream) go to `composite_binned` (K3 / K4)."""
     from gaussiangrasper_torch.ops import rasterize_cuda
 
     ts = config.tile_size
     tw, th = tile_grid(width, height, ts)
     C = colors.shape[-1]
     if bins is None:
-        bins = bin_gaussians(proj, width, height, config, opacities=opacities)
-    K = min(config.max_gaussians_per_tile, proj.xys.shape[0])
-    out, alpha = rasterize_cuda.composite_pair_stream(
-        bins.pair_gidx, bins.pair_starts, bins.tile_count,
-        proj.xys, proj.conics, opacities, colors, background, tw, ts, k_cap=K,
-    )
+        bins = bin_gaussians(proj, width, height, config, opacities=opacities,
+                             build_table=False, keep_pairs=True)
+    if bins.pair_gidx is not None:
+        K = min(config.max_gaussians_per_tile, proj.xys.shape[0])
+        out, alpha = rasterize_cuda.composite_pair_stream(
+            bins.pair_gidx, bins.pair_starts, bins.tile_count,
+            proj.xys, proj.conics, opacities, colors, background, tw, ts, k_cap=K,
+        )
+    else:
+        out, alpha = rasterize_cuda.composite_binned(
+            bins.tile_gidx, bins.tile_count, proj.xys, proj.conics, opacities, colors,
+            background, tw, ts,
+        )
     # (T, P, C) -> (th, tw, ts, ts, C) -> (H, W, C), cropping tile padding
     image = out.reshape(th, tw, ts, ts, C).transpose(1, 2).reshape(th * ts, tw * ts, C)
     alpha_image = alpha.reshape(th, tw, ts, ts).transpose(1, 2).reshape(th * ts, tw * ts)

@@ -1,6 +1,6 @@
-"""Per-tile compositing over the sorted pair stream, forward and backward
-(counterpart of the JAX package's ops/rasterize_pallas.py, pair-stream
-kernels K1, K2, K5 and K6).
+"""Per-tile compositing, forward and backward (counterpart of the JAX
+package's ops/rasterize_pallas.py: pair-stream kernels K1, K2, K5 and K6,
+table kernels K3 and K4).
 
 `composite_pairs_fwd` (K1, `csrc/composite_pairs_fwd.cu`) and
 `composite_pairs_bwd` (K2, `csrc/composite_pairs_bwd.cu`) launch their
@@ -20,6 +20,17 @@ payload into per-Gaussian gradients and the background gradient
 sum_p T_final g_out. `TP` picks the kernels: 1 (default) K1 / K2, 2 K5 / K6,
 read once from the GGT_TP environment variable as the JAX package reads
 its own `rasterize_pallas.TP`; set the attribute to switch in-process.
+
+The table path walks prebuilt (T, K) per-tile index lists (`tile_gidx`,
+-1 padded) instead of the stream. `composite_binned` is its
+differentiable entry: one fused row gather into a packed (T, K, 6 + C)
+table (`gather_tables`), `composite_tables_fwd` (K3), and in the backward
+`composite_tables_bwd` (K4) into a (T, K, 6 + C) gradient table, one
+`index_add_` by tile_gidx and the background gradient. K3 / K4 are K1 /
+K2's per-tile bodies with the table as their row source, so their plain
+versions are K1 / K2's, run on the table as a stream (row t K + k). The
+table needs no padding to the TPU's 128-row chunk: the walks stop at the
+count. `composite_tiles` is K3 alone over pre-gathered per-tile arrays.
 
 Gradient identities (out = sum_k w_k c_k + T_final bg, w_k = alpha_k
 prod_{j<k} (1 - alpha_j), the cut folded into alpha):
@@ -41,6 +52,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from gaussiangrasper_torch._build import check_error as _check, entry as _entry
 from gaussiangrasper_torch._device import full_f32
 from gaussiangrasper_torch.ops.rasterize import ALPHA_CLAMP, ALPHA_CUTOFF, _LOG_EPS
 
@@ -50,8 +62,11 @@ its last chunk as composited, so an uncut pixel's ncomp is the walk length
 rounded up to this. The port reproduces that count exactly."""
 
 KERNEL_CHANNELS = (3, 39)
-"""Channel counts the kernel is instantiated for (rgb; rgb + 32-d feature
+"""Channel counts the kernels are instantiated for (rgb; rgb + 32-d feature
 + depth + normal). Any other C raises on a CUDA tensor."""
+
+TABLE_FWD_CHANNELS = (3, 7, 39)
+"""K3's channel counts: KERNEL_CHANNELS and the kernel probe's C = 7."""
 
 
 def tiles_per_instance(value) -> int:
@@ -149,24 +164,6 @@ def _check_inputs(pair_gidx, starts, counts, attrs, bg):
         if bool(bad):
             raise ValueError(f"segments must lie in pair_gidx ({b} rows) and pair_gidx "
                              f"must index attrs ({n} rows)")
-
-
-def _entry(source: str, name: str, argtypes):
-    """The C entry `name` of csrc/<source>.cu, built and loaded on first use."""
-    from gaussiangrasper_torch._build import load_library
-
-    lib = load_library(source)
-    fn = getattr(lib, name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
-    lib.ggt_cuda_error_string.restype = ctypes.c_char_p
-    lib.ggt_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib, fn
-
-
-def _check(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed: " + lib.ggt_cuda_error_string(err).decode())
 
 
 _clusters: Dict[Tuple[str, int, int], int] = {}
@@ -331,12 +328,12 @@ def composite_pairs_bwd_plain(pair_gidx, starts, counts, attrs, bg, g_out, g_alp
     return gpairs
 
 
-def _check_bwd_inputs(attrs, starts, g_out, g_alpha, logt, ncomp, ts: int):
-    T, P, C = starts.shape[0], ts * ts, attrs.shape[1] - 6
+def _check_bwd_inputs(device, T: int, C: int, g_out, g_alpha, logt, ncomp, ts: int):
+    P = ts * ts
     for name, x, shape in (("g_out", g_out, (T, P, C)), ("g_alpha", g_alpha, (T, P)),
                            ("logt", logt, (T, P)), ("ncomp", ncomp, (T, P))):
-        if x.device != attrs.device or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32 on {attrs.device}")
+        if x.device != device or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 on {device}")
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} {tuple(x.shape)}: want {shape}")
 
@@ -389,7 +386,8 @@ def composite_pairs_bwd(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, lo
     CUDA tensors, the plain version for CPU tensors. Arguments as in
     `composite_pairs_bwd_plain`."""
     _check_inputs(pair_gidx, starts, counts, attrs, bg)
-    _check_bwd_inputs(attrs, starts, g_out, g_alpha, logt, ncomp, ts)
+    _check_bwd_inputs(attrs.device, starts.shape[0], attrs.shape[1] - 6, g_out, g_alpha, logt,
+                      ncomp, ts)
     return _bwd_dispatch(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp, tw, ts)
 
 
@@ -401,7 +399,8 @@ def composite_pairs_bwd2(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, l
     """K6: K2's function and output, the two-tile CUDA kernel for CUDA
     tensors, K2's plain version for CPU tensors."""
     _check_inputs(pair_gidx, starts, counts, attrs, bg)
-    _check_bwd_inputs(attrs, starts, g_out, g_alpha, logt, ncomp, ts)
+    _check_bwd_inputs(attrs.device, starts.shape[0], attrs.shape[1] - 6, g_out, g_alpha, logt,
+                      ncomp, ts)
     return _bwd_dispatch(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp, tw, ts,
                          two_tile=True)
 
@@ -426,7 +425,8 @@ class _CompositePairs(torch.autograd.Function):
         pair_gidx, starts, counts, attrs, bg, logt, ncomp = ctx.saved_tensors
         g_out, g_alpha = g_out.float().contiguous(), g_alpha.float().contiguous()
         # the forward already checked the stream against the table: no second host sync
-        _check_bwd_inputs(attrs, starts, g_out, g_alpha, logt, ncomp, ctx.tiles[1])
+        _check_bwd_inputs(attrs.device, starts.shape[0], attrs.shape[1] - 6, g_out, g_alpha, logt,
+                          ncomp, ctx.tiles[1])
         gpairs = _bwd_dispatch(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
                                *ctx.tiles, two_tile=ctx.two_tile)
         acc = torch.zeros_like(attrs).index_add_(0, pair_gidx.to(torch.int64), gpairs)
@@ -443,3 +443,201 @@ def composite_pair_stream(pair_gidx, seg_starts, tile_count, xys, conics, opacit
     starts, counts = stream_bounds(pair_gidx, seg_starts, tile_count, k_cap)
     return _CompositePairs.apply(pair_gidx.to(torch.int32).contiguous(), starts, counts,
                                  xys, conics, opacities, colors, bg, tw, ts)
+
+
+# --- the table path: K3 / K4 -------------------------------------------------------
+
+
+def gather_tables(tile_gidx, xys, conics, opacities, colors) -> torch.Tensor:
+    """ONE fused row gather of the packed (T, K, 6 + C) attribute table from
+    tile_gidx (T, K), -1 padded: a -1 slot becomes a zero row (a zero
+    opacity, which the walks skip)."""
+    attrs = pack_attrs(xys, conics, opacities, colors)
+    n, a = attrs.shape
+    rows = torch.cat([attrs, attrs.new_zeros(1, a)])  # row n: the zero row of a -1 slot
+    idx = torch.where(tile_gidx >= 0, tile_gidx, n).reshape(-1).to(torch.int64)
+    return rows.index_select(0, idx).view(*tile_gidx.shape, a)
+
+
+def _table_stream(tables):
+    """The (T, Kt, A) table as a pair stream for K1 / K2's plain versions:
+    row k of tile t is stream row t Kt + k."""
+    t, kt, a = tables.shape
+    dev = tables.device
+    gidx = torch.arange(t * kt, dtype=torch.int32, device=dev)
+    starts = torch.arange(t, dtype=torch.int32, device=dev) * kt
+    return gidx, starts, tables.reshape(t * kt, a)
+
+
+def composite_tables_fwd_plain(counts, tables, bg, tw: int, ts: int, count_live: bool = False):
+    """Plain PyTorch version of K3: K1's plain version walking rows
+    [0, counts[t]) of tile t's table. counts (T,) int32 <= Kt; tables (T,
+    Kt, 6 + C); bg (C,). Returns out (T, P, C), alpha, logt, ncomp (T, P)
+    (+ the live counts with `count_live`), as K1's."""
+    gidx, starts, attrs = _table_stream(tables)
+    return composite_pairs_fwd_plain(gidx, starts, counts, attrs, bg, tw, ts, count_live)
+
+
+def composite_tables_bwd_plain(counts, tables, bg, g_out, g_alpha, logt, ncomp, tw: int, ts: int):
+    """Plain PyTorch version of K4: K2's plain version on the table's rows.
+    Returns gattr (T, Kt, 6 + C); rows no pixel walks are zero."""
+    gidx, starts, attrs = _table_stream(tables)
+    return composite_pairs_bwd_plain(gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
+                                     tw, ts).view(tables.shape)
+
+
+def _check_table_inputs(counts, tables, bg):
+    dev = tables.device
+    for name, x, dt in (("counts", counts, torch.int32), ("tables", tables, torch.float32),
+                        ("bg", bg, torch.float32)):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, tables on {dev}")
+        if x.dtype != dt:
+            raise ValueError(f"{name} must be {dt}, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if tables.ndim != 3 or bg.shape != (tables.shape[2] - 6,) or counts.shape != tables.shape[:1]:
+        raise ValueError(f"counts {tuple(counts.shape)} / tables {tuple(tables.shape)} / bg "
+                         f"{tuple(bg.shape)}: want (T,) / (T, K, 6+C) / (C,)")
+    # the kernels read rows [0, counts[t]) of tile t without bounds checks: one sync
+    if counts.numel() and bool((counts < 0).any() | (counts > tables.shape[1]).any()):
+        raise ValueError(f"counts must lie in [0, {tables.shape[1]}] (the table's K)")
+
+
+def _launch_table_fwd(counts, tables, bg, tw: int, ts: int):
+    T, kt, a = tables.shape
+    C = a - 6
+    if C not in TABLE_FWD_CHANNELS:
+        raise ValueError(f"composite_tables_fwd kernel is built for C in {TABLE_FWD_CHANNELS}, "
+                         f"got {C}")
+    if ts * ts > 1024:
+        raise ValueError(f"tile_size {ts}: one thread per pixel needs ts*ts <= 1024")
+    lib, fn = _entry("composite_pairs_fwd", "ggt_composite_tables_fwd",
+                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5)
+    P = ts * ts
+    out = torch.empty(T, P, C, dtype=torch.float32, device=tables.device)
+    alpha, logt, ncomp = (torch.empty(T, P, dtype=torch.float32, device=tables.device)
+                          for _ in range(3))
+    if T == 0:
+        return out, alpha, logt, ncomp
+    stream = torch.cuda.current_stream(tables.device).cuda_stream
+    err = fn(counts.data_ptr(), tables.data_ptr(), bg.data_ptr(), T, kt, tw, ts, C,
+             out.data_ptr(), alpha.data_ptr(), logt.data_ptr(), ncomp.data_ptr(), stream)
+    _check(lib, err, "composite_tables_fwd launch")
+    composite_tables_fwd.launches += 1
+    return out, alpha, logt, ncomp
+
+
+def composite_tables_fwd(counts, tables, bg, tw: int, ts: int):
+    """K3's four outputs (out (T, P, C), alpha, logt, ncomp (T, P)): the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    Arguments as in `composite_tables_fwd_plain`."""
+    _check_table_inputs(counts, tables, bg)
+    if tables.device.type == "cuda":
+        return _launch_table_fwd(counts, tables, bg, tw, ts)
+    if tables.device.type != "cpu":
+        raise ValueError(f"composite_tables_fwd runs on cuda or cpu, not {tables.device}")
+    return composite_tables_fwd_plain(counts, tables, bg, tw, ts)
+
+
+composite_tables_fwd.launches = 0
+
+
+def _launch_table_bwd(counts, tables, bg, g_out, g_alpha, logt, ncomp, tw: int, ts: int):
+    T, kt, a = tables.shape
+    C = a - 6
+    if C not in KERNEL_CHANNELS:
+        raise ValueError(f"composite_tables_bwd kernel is built for C in {KERNEL_CHANNELS}, "
+                         f"got {C}")
+    if ts * ts > 1024 or (ts * ts) % 32:
+        raise ValueError(f"tile_size {ts}: one thread per pixel in whole warps needs "
+                         "ts*ts <= 1024 and a multiple of 32")
+    lib, fn = _entry("composite_pairs_bwd", "ggt_composite_tables_bwd",
+                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+    gattr = torch.zeros_like(tables)
+    if T == 0:
+        return gattr
+    stream = torch.cuda.current_stream(tables.device).cuda_stream
+    err = fn(counts.data_ptr(), tables.data_ptr(), bg.data_ptr(), g_out.data_ptr(),
+             g_alpha.data_ptr(), logt.data_ptr(), ncomp.data_ptr(), T, kt, tw, ts, C,
+             gattr.data_ptr(), stream)
+    _check(lib, err, "composite_tables_bwd launch")
+    composite_tables_bwd.launches += 1
+    return gattr
+
+
+def _table_bwd_dispatch(*args):
+    tables = args[1]
+    if tables.device.type == "cuda":
+        return _launch_table_bwd(*args)
+    if tables.device.type != "cpu":
+        raise ValueError(f"composite_tables_bwd runs on cuda or cpu, not {tables.device}")
+    return composite_tables_bwd_plain(*args)
+
+
+def composite_tables_bwd(counts, tables, bg, g_out, g_alpha, logt, ncomp, tw: int, ts: int):
+    """K4's per-(tile, slot) gradients gattr (T, Kt, 6 + C): the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors. g_out (T, P, C),
+    g_alpha and K3's logt and ncomp (T, P)."""
+    _check_table_inputs(counts, tables, bg)
+    _check_bwd_inputs(tables.device, tables.shape[0], tables.shape[2] - 6, g_out, g_alpha, logt,
+                      ncomp, ts)
+    return _table_bwd_dispatch(counts, tables, bg, g_out, g_alpha, logt, ncomp, tw, ts)
+
+
+composite_tables_bwd.launches = 0
+
+
+def scatter_table(tile_gidx, n: int, gattr):
+    """The (n, 6 + C) per-Gaussian sum of a (T, K, 6 + C) gradient table:
+    ONE scatter-add by tile_gidx. A -1 slot k goes to dump row n + k, dropped
+    after: one shared dump row serializes the atomics of every padding slot
+    (over a third of the table at the bench point)."""
+    k, a = gattr.shape[1], gattr.shape[2]
+    dump = n + torch.arange(k, device=tile_gidx.device)
+    idx = torch.where(tile_gidx >= 0, tile_gidx, dump).reshape(-1).to(torch.int64)
+    return gattr.new_zeros(n + k, a).index_add_(0, idx, gattr.reshape(-1, a))[:n]
+
+
+class _CompositeBinned(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tile_gidx, counts, xys, conics, opacities, colors, bg, tw, ts):
+        tables = gather_tables(tile_gidx, xys, conics, opacities, colors)
+        bg = bg.float().contiguous()
+        out, alpha, logt, ncomp = composite_tables_fwd(counts, tables, bg, tw, ts)
+        ctx.save_for_backward(tile_gidx, counts, tables, bg, logt, ncomp)
+        ctx.tiles = (tw, ts)
+        ctx.n = xys.shape[0]
+        return out, alpha
+
+    @staticmethod
+    def backward(ctx, g_out, g_alpha):
+        tile_gidx, counts, tables, bg, logt, ncomp = ctx.saved_tensors
+        g_out, g_alpha = g_out.float().contiguous(), g_alpha.float().contiguous()
+        # the forward already checked counts against the table: no second host sync
+        _check_bwd_inputs(tables.device, tables.shape[0], tables.shape[2] - 6, g_out, g_alpha,
+                          logt, ncomp, ctx.tiles[1])
+        gattr = _table_bwd_dispatch(counts, tables, bg, g_out, g_alpha, logt, ncomp, *ctx.tiles)
+        acc = scatter_table(tile_gidx, ctx.n, gattr)
+        gbg = torch.einsum("tp,tpc->c", torch.exp(logt), g_out)
+        return (None, None, acc[:, 0:2], acc[:, 2:5], acc[:, 5], acc[:, 6:], gbg, None, None)
+
+
+def composite_binned(tile_gidx, tile_count, xys, conics, opacities, colors, bg, tw: int,
+                     ts: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable per-tile compositing off the binning table: tile_gidx
+    (T, K) int32, -1 padded; tile_count (T,) int32 (walks min(tile_count,
+    K) slots). Forward K3, backward K4. Returns (out (T, P, C), alpha (T, P))."""
+    counts = torch.clamp(tile_count, max=tile_gidx.shape[1]).to(torch.int32).contiguous()
+    return _CompositeBinned.apply(tile_gidx.to(torch.int32).contiguous(), counts, xys, conics,
+                                  opacities, colors, bg, tw, ts)
+
+
+def composite_tiles(counts, tile_xy, tile_con, tile_opac, tile_col, bg, tw: int, ts: int):
+    """K3 alone over pre-gathered per-tile arrays (the kernel probe's entry):
+    counts (T,), tile_xy (T, K, 2), tile_con (T, K, 3), tile_opac (T, K),
+    tile_col (T, K, C), bg (C,). Not differentiable. Returns (out, alpha)."""
+    tables = torch.cat([tile_xy, tile_con, tile_opac[..., None], tile_col], -1).float().contiguous()
+    out, alpha, _, _ = composite_tables_fwd(counts.to(torch.int32).contiguous(), tables,
+                                            bg.float().contiguous(), tw, ts)
+    return out, alpha

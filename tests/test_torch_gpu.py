@@ -23,6 +23,7 @@ from gaussiangrasper_torch.models.gaussian_field import init_random, random_draw
 from gaussiangrasper_torch.models.model import GaussianSplatConfig, render, render_inputs
 from gaussiangrasper_torch.ops import rasterize_cuda as rc
 from gaussiangrasper_torch.ops.rasterize import bin_gaussians
+from gaussiangrasper_torch.probes import kernels as pk
 
 W, H, STEP = 128, 96, 4000
 
@@ -47,7 +48,8 @@ def _k1_args(device, channels, opacity, w=W, h=H):
     field, alive, cam = _scene(device, opacity=opacity, w=w, h=h)
     cfg = GaussianSplatConfig()
     proj, colors, opac, bg = render_inputs(field, alive, cam, STEP, cfg)
-    bins = bin_gaussians(proj, w, h, cfg.raster, opacities=opac)
+    bins = bin_gaussians(proj, w, h, cfg.raster, opacities=opac, build_table=False,
+                         keep_pairs=True)
     starts, counts = rc.stream_bounds(bins.pair_gidx, bins.pair_starts, bins.tile_count,
                                       cfg.raster.max_gaussians_per_tile)
     return (bins.pair_gidx.contiguous(), starts, counts,
@@ -232,3 +234,116 @@ def test_cuda_tensor_with_unsupported_channels_raises(cuda_device):
     one = torch.ones(1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="built for C"):
         rc.composite_pairs_fwd(one - 1, one - 1, one, x, torch.zeros(5, device=cuda_device), 1, 32)
+
+
+def _table_args(device, channels, opacity, w=W, h=H):
+    """K3's inputs (counts, tables, bg, tw, ts), K1's on the stream of the
+    same sort, tile_gidx and N."""
+    field, alive, cam = _scene(device, opacity=opacity, w=w, h=h)
+    cfg = GaussianSplatConfig()
+    proj, colors, opac, bg = render_inputs(field, alive, cam, STEP, cfg)
+    bins = bin_gaussians(proj, w, h, cfg.raster, opacities=opac, keep_pairs=True)
+    assert int(bins.overflow) == 0 and int(bins.pair_overflow) == 0
+    k = bins.tile_gidx.shape[1]
+    colors = colors[:, :channels]
+    tables = rc.gather_tables(bins.tile_gidx, proj.xys, proj.conics, opac, colors)
+    counts = torch.clamp(bins.tile_count, max=k).int().contiguous()
+    starts, kcounts = rc.stream_bounds(bins.pair_gidx, bins.pair_starts, bins.tile_count, k)
+    bg = bg[:channels].contiguous()
+    tw = -(-w // 32)
+    k1 = (bins.pair_gidx.contiguous(), starts, kcounts,
+          rc.pack_attrs(proj.xys, proj.conics, opac, colors), bg, tw, 32)
+    return (counts, tables, bg, tw, 32), k1, bins.tile_gidx, proj.xys.shape[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opacity", [0.1, 0.95])
+@pytest.mark.parametrize("channels", rc.KERNEL_CHANNELS)
+def test_k3_matches_plain_and_is_bit_equal_to_k1(cuda_device, channels, opacity):
+    targs, k1, _, _ = _table_args(cuda_device, channels, opacity)
+    before = rc.composite_tables_fwd.launches
+    got = rc.composite_tables_fwd(*targs)
+    want = rc.composite_tables_fwd_plain(*targs)
+    k1_out = rc.composite_pairs_fwd(*k1)
+    torch.cuda.synchronize()
+    assert rc.composite_tables_fwd.launches == before + 1
+    for name, a, b in zip(("out", "alpha", "logt"), got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0, msg=name)
+    torch.testing.assert_close(got[3], want[3], atol=0, rtol=0)
+    for name, a, b in zip(("out", "alpha", "logt", "ncomp"), got, k1_out):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels", rc.KERNEL_CHANNELS)
+def test_k4_matches_plain_and_k2(cuda_device, channels):
+    """K2's criterion on the per-Gaussian sums, against the plain version
+    and against K2 on the stream of the same sort."""
+    targs, k1, tile_gidx, n = _table_args(cuda_device, channels, 0.95)
+    _, alpha, logt, ncomp = rc.composite_tables_fwd(*targs)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    g_out = torch.randn(*alpha.shape, channels, generator=gen, device=cuda_device)
+    g_alpha = torch.randn(alpha.shape, generator=gen, device=cuda_device)
+    bargs = targs[:3] + (g_out, g_alpha, logt, ncomp) + targs[3:]
+    before = rc.composite_tables_bwd.launches
+    got = rc.scatter_table(tile_gidx, n, rc.composite_tables_bwd(*bargs))
+    plain = rc.scatter_table(tile_gidx, n, rc.composite_tables_bwd_plain(*bargs))
+    k2 = _per_gaussian(k1, rc.composite_pairs_bwd(*(k1[:5] + (g_out, g_alpha, logt, ncomp)
+                                                    + k1[5:])))
+    torch.cuda.synchronize()
+    assert rc.composite_tables_bwd.launches == before + 1
+    _assert_grads_close(got, plain, channels)
+    _assert_grads_close(got, k2, channels)
+
+
+@pytest.mark.gpu
+def test_k3_probe_width_and_small_tiles(cuda_device):
+    """C = 7 at 8x8 px tiles (the kernel probe's stage 2) and C = 39 at
+    16x16 (stage 3), against the plain version."""
+    from gaussiangrasper_torch.probes.kernel_probe import tiny_tile_inputs
+
+    for shape in (dict(), dict(t=16, k=256, ts=16, c=39)):
+        inputs = tiny_tile_inputs(seed=1, device=cuda_device, **shape)
+        ts = shape.get("ts", 8)
+        tables = torch.cat([inputs[1], inputs[2], inputs[3][..., None], inputs[4]], -1).contiguous()
+        got = rc.composite_tables_fwd(inputs[0], tables, inputs[5], 2, ts)
+        want = rc.composite_tables_fwd_plain(inputs[0], tables, inputs[5], 2, ts)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_probes_match_plain(cuda_device):
+    x = torch.arange(8 * 128, dtype=torch.float32, device=cuda_device).reshape(8, 128) - 300.5
+    assert torch.equal(pk.affine(x), pk.affine_plain(x))
+    src = torch.randn(4096, 128, device=cuda_device)
+    starts = torch.tensor([3, 77, 1001, 0, 3968], dtype=torch.int32, device=cuda_device)
+    assert torch.equal(pk.read_at(src, starts), pk.read_at_plain(src, starts))
+    vals = torch.randn(4, 128, 128, device=cuda_device)
+    starts = torch.tensor([0, 100, 200, 150], dtype=torch.int32, device=cuda_device)
+    before = (pk.affine.launches, pk.read_at.launches, pk.write_at.launches)
+    got = pk.write_at(vals, starts, 512)
+    want = pk.write_at_plain(vals, starts, 512)
+    covered = pk.covered_rows(starts, 512).to(cuda_device)
+    torch.cuda.synchronize()
+    assert torch.equal(got[covered], want[covered])
+    assert (pk.affine.launches, pk.read_at.launches, pk.write_at.launches) == \
+        (before[0], before[1], before[2] + 1)
+
+
+@pytest.mark.gpu
+def test_table_kernels_with_unsupported_channels_raise(cuda_device):
+    one = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    tables = torch.zeros(1, 1, 6 + 5, device=cuda_device)
+    bg = torch.zeros(5, device=cuda_device)
+    with pytest.raises(ValueError, match="built for C"):
+        rc.composite_tables_fwd(one, tables, bg, 1, 32)
+    g = torch.zeros(1, 1024, device=cuda_device)
+    with pytest.raises(ValueError, match="built for C"):
+        rc.composite_tables_bwd(one, tables, bg, torch.zeros(1, 1024, 5, device=cuda_device), g,
+                                g, g, 1, 32)
+    tables7 = torch.zeros(1, 1, 6 + 7, device=cuda_device)
+    with pytest.raises(ValueError, match="built for C"):  # K3 takes C 7, K4 does not
+        rc.composite_tables_bwd(one, tables7, torch.zeros(7, device=cuda_device),
+                                torch.zeros(1, 1024, 7, device=cuda_device), g, g, g, 1, 32)

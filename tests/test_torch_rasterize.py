@@ -37,7 +37,8 @@ BIN_CASES = {
 def _bins_both(scene, jp, tp, cfg):
     jb = j_bin(jp, W, H, JConfig(**cfg), opacities=jnp.asarray(scene["opacities"]),
                build_table=False, keep_pairs=True)
-    tb = bin_gaussians(tp, W, H, RasterizeConfig(**cfg), opacities=T(scene["opacities"]))
+    tb = bin_gaussians(tp, W, H, RasterizeConfig(**cfg), opacities=T(scene["opacities"]),
+                       build_table=False, keep_pairs=True)
     return jb, tb
 
 
