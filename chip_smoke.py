@@ -8,14 +8,17 @@ Phases, one JSON line each:
   device   the card (nvidia-smi name and power limit), torch and CUDA versions
   build    nvcc of every kernel in gaussiangrasper_torch/csrc and g++ of the native
            sampler, all into gaussiangrasper_torch/build (seconds, ptxas report, the
-           sampler's branch, how many two-CTA clusters of K5 / K6 the card holds)
+           sampler's branch, how many clusters of K5 (two CTAs) and K6 (four)
+           the card holds)
   k1       each kernel against its plain PyTorch version on the card, at a mid
            size and at full width (200k Gaussians, 800x800, C = 39): errors,
            kernel and plain times, the roofline bound
   k2       the backward kernel against its plain version on K1's own logt
            and ncomp, random g_out and a nonzero g_alpha, at mid size (C 39
            and C 3) and full width: errors of the per-Gaussian sums,
-           kernel and plain times, the roofline bound
+           kernel and plain times, the roofline bound, and the work in warp
+           x row pairs (warp_rows walked, live_warp_rows with a live lane)
+           with the SM clocks the kernel spends a live warp-row
   k5       the two-tile forward against K1 (all four outputs bit-equal) at
            an odd mid tile count (C 39 and C 3, also against the plain
            version) and at full width (625 tiles); its time beside K1's and
@@ -85,6 +88,9 @@ ROOT = Path(__file__).resolve().parent
 
 N_FULL, WIDTH, HEIGHT, STEP = 200_000, 800, 800, 4000
 F32_PEAK_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+# H100 SXM dense TF32 on the tensor cores is 495e12; an f32-grade product in
+# 3xTF32 (K2's scheme) takes three TF32 products
+TF32X3_PEAK_FLOPS = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12
 K1_ERR_MAX = 1e-4
 K1_NCOMP_SHARE_MAX = 1e-4  # of pixels whose ncomp may differ, by at most 1
@@ -181,12 +187,17 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def roofline(ops: float, nbytes: float, **counts) -> dict:
-    """The least time: the larger of ops at the f32 peak and bytes at the HBM rate."""
-    t_ops, t_bytes = ops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
-    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            **counts, "ops": ops, "bytes": nbytes}
+def roofline(ops: float, nbytes: float, tc_ops: float = 0.0, **counts) -> dict:
+    """The least time: the larger of the operations' time and bytes at the
+    HBM rate. Operations: `ops` at the f32 peak outside the tensor cores
+    plus `tc_ops` (f32-grade products on the tensor cores) at the 3xTF32
+    rate, the two times added."""
+    t_ops = ops / F32_PEAK_FLOPS + tc_ops / TF32X3_PEAK_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    row = {"bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           **counts, "ops": ops, "bytes": nbytes}
+    return {**row, "tensor_core_ops": tc_ops} if tc_ops else row
 
 
 def walk_ops(counts, ncomp, live, c: int):
@@ -310,26 +321,28 @@ def per_gaussian(args, gpairs):
 def k2_bound(args, live) -> dict:
     """Least time for K2's work on these inputs: every pixel tests the rows
     below min(ncomp, count) (~16 operations each) and each composited row
-    with a live alpha adds ~40 + 4C (log1p, exp, <c, g>, dalpha, the conic
-    chain, dcolour and the pixel sums), at the f32 peak; compulsory bytes
+    with a live alpha adds ~40 (log1p, exp, dalpha, the conic chain and the
+    pixel sums) at the f32 peak and 4C (<c, g> and dcolour, the kernel's
+    tensor-core products) at the 3xTF32 rate; compulsory bytes
     (table, walked pair_gidx, g_out, g_alpha, logt, ncomp, gpairs) at the
     HBM rate."""
     gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp, tw, ts = args
     c = attrs.shape[1] - 6
-    visits, n_live, ops = grad_ops(counts, ncomp, live, c)
+    visits, n_live, ops, tc_ops = grad_ops(counts, ncomp, live, c)
     t, p = ncomp.shape
     nbytes = 4.0 * (attrs.numel() + float(counts.sum()) + 2 * t + c + t * p * (c + 3)
                     + gidx.shape[0] * attrs.shape[1])
-    return roofline(ops, nbytes, visits=visits, live_visits=n_live)
+    return roofline(ops, nbytes, tc_ops, visits=visits, live_visits=n_live)
 
 
 def grad_ops(counts, ncomp, live, c: int):
-    """(visits, live visits, operations) of the reverse walk (K2 / K4)."""
+    """(visits, live visits, operations outside the tensor cores, products
+    on them) of the reverse walk (K2 / K4 / K6)."""
     import torch
 
     visits = float(torch.minimum(ncomp.double(), counts.double()[:, None]).sum())
     n_live = float(live.double().sum())
-    return visits, n_live, 16.0 * visits + (40.0 + 4.0 * c) * n_live
+    return visits, n_live, 16.0 * visits + 40.0 * n_live, 4.0 * c * n_live
 
 
 def k4_bound(bargs, live) -> dict:
@@ -338,11 +351,30 @@ def k4_bound(bargs, live) -> dict:
     gradient table written."""
     counts, tables, bg, g_out, g_alpha, logt, ncomp, tw, ts = bargs
     c = tables.shape[2] - 6
-    visits, n_live, ops = grad_ops(counts, ncomp, live, c)
+    visits, n_live, ops, tc_ops = grad_ops(counts, ncomp, live, c)
     t, p = ncomp.shape
     nbytes = 4.0 * (float(counts.sum()) * tables.shape[2] + t + c + t * p * (c + 3)
                     + tables.numel())
-    return roofline(ops, nbytes, visits=visits, live_visits=n_live)
+    return roofline(ops, nbytes, tc_ops, visits=visits, live_visits=n_live)
+
+
+def warp_row_work(args, ms: float) -> dict:
+    """K2's work in warp x row pairs on these inputs (a warp an 8 x 4 pixel
+    block, rc.warp_pixels): walked by some lane, and live (a lane's row
+    passes the validity tests), from the plain version; with the kernel's
+    ms, the SM clocks it spends a live warp-row at the card's maximum SM
+    clock."""
+    import torch
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
+
+    _, warp_rows, live = rc.composite_pairs_bwd_plain(*args, count_warp_rows=True)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"warp_rows": warp_rows, "live_warp_rows": live, "max_sm_mhz": mhz, "sms": sms,
+            "ns_per_live_warp_row": 1e6 * ms / max(live, 1),
+            "sm_clocks_per_live_warp_row": 1e-3 * ms * sms * mhz * 1e6 / max(live, 1)}
 
 
 def grad_errors(got, want, c: int):
@@ -378,6 +410,7 @@ def check_k2(label: str, k1_args, time_it: bool) -> dict:
         row["plain_ms"] = cuda_ms(lambda: rc.composite_pairs_bwd_plain(*args), 1)
         live = rc.composite_pairs_fwd_plain(*k1_args, count_live=True)[4]
         row.update(k2_bound(args, live))
+        row.update(warp_row_work(args, row["ms"]))
     emit(row)
     if not bool(torch.isfinite(got).all()) or max(errs.values()) > K2_ERR_MAX \
             or min(scales.values()) <= 0.0:
@@ -1141,9 +1174,9 @@ def main() -> int:
                 for c in rc.KERNEL_CHANNELS}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas,
           "sampler_branch": sampler, "sampler_library": str(native.LIB_PATH.relative_to(ROOT)),
-          "max_active_two_cta_clusters": clusters})
+          "max_active_clusters": clusters})
     if min(clusters.values()) == 0:
-        raise RuntimeError(f"no two-CTA cluster of K5 / K6 fits on this card: {clusters}")
+        raise RuntimeError(f"no cluster of K5 / K6 fits on this card: {clusters}")
 
     device = torch.device("cuda")
     cfg = GaussianSplatConfig()

@@ -7,10 +7,13 @@
 //   P2 read_at_kernel replaces dma_probe.py:37 `_read_kernel`: block t of the output
 //      (T, 128, 128) is rows [starts[t], starts[t] + 128) of x (rows, 128). The TPU probe proves
 //      `make_async_copy` from HBM at a dynamic, unaligned row offset; the Hopper counterpart is
-//      the bulk copy engine (1-D TMA): one thread issues `cp.async.bulk.shared::cluster.global`
-//      of the whole 64 KB block into shared memory, completion lands on an mbarrier (expect_tx of
-//      the block's bytes, phase 0), and the CTA then stores the block coalesced, 16 bytes a
-//      thread. A row is 512 B, so every row offset meets the copy's 16-byte alignment.
+//      the bulk copy engine (1-D TMA) both ways, with no thread moving data. Each block is cut
+//      into 32 pieces of 4 rows (2 KB), one single-warp CTA a piece, so T blocks run on 32 T
+//      SMs at once. Lane 0 arms an mbarrier with the piece's bytes (expect_tx, phase 0), issues
+//      `cp.async.bulk.shared::cluster.global` from the row offset into shared memory, waits on
+//      the barrier, then writes the piece back with the bulk store
+//      (`cp.async.bulk.global.shared::cta.bulk_group`, commit_group, wait_group 0). A row is
+//      512 B, so every row offset meets the copies' 16-byte alignment.
 //   P3 write_at_kernel replaces dma_probe.py:65 `_write_kernel`: block t of vals
 //      (T, 128, 128) is written to rows [starts[t], starts[t] + 128) of out, and where blocks
 //      overlap the later block wins. The TPU grid runs its steps in order, so the last write
@@ -21,9 +24,12 @@
 //
 // Bound on this card (H100 SXM, 3.35 TB/s): each probe moves a few hundred KB at most (P1 8 KB,
 // P2 and P3 192 KB of blocks each way in the probe's calls), at most 0.12 us by bytes, far below
-// a kernel launch. Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W (CUDA events around
-// one call): 28-43 us each, the host's launch path (the ctypes call and the output's
-// allocation); the card's own share was not measured apart.
+// a kernel launch, so each sits at the launch floor. Measured by chip_smoke.py (profiler device
+// time over 50 calls) on an NVIDIA H100 80GB HBM3 at 700.00 W: P1 0.95-1.06 us; P3 4.30-4.70 us;
+// P2 1.12-1.29 us beside its library call (x.unfold(0, 128, 1).mT[starts]) at 1.20-1.38 us.
+// P2's first design took 2.43-2.56 us on the same card: three CTAs, each one 64 KB bulk copy,
+// a wait, then 256 threads storing the block, so 192 KB went through 3 of 132 SMs with the load
+// and the store in series. Cut into 2 KB pieces, the copies run on 96 SMs at once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,7 +38,9 @@ namespace {
 
 constexpr int kRows = 128;  // rows per block (the TPU probe's KC)
 constexpr int kCols = 128;  // floats per row
-constexpr unsigned kBlockBytes = kRows * kCols * sizeof(float);  // 64 KB
+constexpr int kPieceRows = 4;  // rows per P2 piece, one CTA each
+constexpr int kPieces = kRows / kPieceRows;
+constexpr unsigned kPieceBytes = kPieceRows * kCols * sizeof(float);  // 2 KB
 constexpr int kThreads = 256;
 
 __global__ void affine_kernel(const float* __restrict__ x, int n, float* __restrict__ out) {
@@ -44,27 +52,28 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__global__ void __launch_bounds__(kThreads) read_at_kernel(const float* __restrict__ x,
-                                                           const int32_t* __restrict__ starts,
-                                                           float* __restrict__ out) {
-  extern __shared__ __align__(128) float s_blk[];
+// One CTA of one warp per piece: CTA i copies piece i % kPieces of block i / kPieces.
+__global__ void __launch_bounds__(32) read_at_kernel(const float* __restrict__ x,
+                                                     const int32_t* __restrict__ starts,
+                                                     float* __restrict__ out) {
+  __shared__ __align__(128) float s_piece[kPieceRows * kCols];
   __shared__ __align__(8) uint64_t bar;
+  if (threadIdx.x != 0) return;
+  const int t = blockIdx.x / kPieces;
+  const int row0 = (blockIdx.x % kPieces) * kPieceRows;
+  const float* src = x + ((size_t)starts[t] + row0) * kCols;
+  float* dst = out + ((size_t)t * kRows + row0) * kCols;
   const uint32_t b = smem_addr(&bar);
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const float* src = x + (size_t)starts[blockIdx.x] * kCols;
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
-                 "r"(kBlockBytes)
-                 : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-        ::"r"(smem_addr(s_blk)), "l"(src), "r"(kBlockBytes), "r"(b)
-        : "memory");
-  }
+  const uint32_t s = smem_addr(s_piece);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
+               "r"(kPieceBytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(s), "l"(src), "r"(kPieceBytes), "r"(b)
+      : "memory");
   uint32_t done = 0;
   while (!done) {
     asm volatile(
@@ -74,9 +83,12 @@ __global__ void __launch_bounds__(kThreads) read_at_kernel(const float* __restri
         : "r"(b), "r"(0)
         : "memory");
   }
-  const float4* s = reinterpret_cast<const float4*>(s_blk);
-  float4* dst = reinterpret_cast<float4*>(out + (size_t)blockIdx.x * kRows * kCols);
-  for (int i = threadIdx.x; i < kRows * kCols / 4; i += blockDim.x) dst[i] = s[i];
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst), "r"(s),
+               "r"(kPieceBytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 __global__ void __launch_bounds__(kThreads) write_at_kernel(const float* __restrict__ vals,
@@ -117,11 +129,7 @@ extern "C" int ggt_probe_affine(const void* x, int n, void* out, void* stream) {
 extern "C" int ggt_probe_read_at(const void* x, const void* starts, int num_blocks, void* out,
                                  void* stream) {
   if (num_blocks <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(read_at_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kBlockBytes);
-  if (err != cudaSuccess) return (int)err;
-  read_at_kernel<<<num_blocks, kThreads, kBlockBytes, (cudaStream_t)stream>>>(
+  read_at_kernel<<<num_blocks * kPieces, 32, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const int32_t*)starts, (float*)out);
   return (int)cudaGetLastError();
 }

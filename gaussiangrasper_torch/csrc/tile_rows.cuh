@@ -5,7 +5,7 @@
 // (0 <= k < counts[t]) sits at position start(t) + k of the row source; `stage` copies positions
 // [first, first + n) into shared memory (n x A floats, n <= the caller's batch), with every
 // thread of the CTA taking part. The caller synchronises before and after. The backward kernels
-// write their per-row gradients to the same positions of their output.
+// add their per-row gradients into the same positions of their output (two CTAs a tile).
 //
 //   PairRows  (K1, K2, K5, K6): the tile's segment of the depth-sorted pair stream, positions
 //             [starts[t], starts[t] + counts[t]) of pair_gidx, each naming a row of the

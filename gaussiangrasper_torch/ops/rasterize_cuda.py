@@ -10,7 +10,8 @@ tensors; for a CUDA tensor they launch the kernel or raise, never falling
 back. Every launch adds one to the wrapper's `launches`.
 `composite_pairs_fwd2` (K5) and `composite_pairs_bwd2` (K6) are the
 two-tile kernels, in the same two files: the same per-tile body launched
-in two-CTA clusters, one tile per CTA. They compute K1's and K2's
+in clusters that hold two tiles (K5: two CTAs, one a tile; K6: four, two
+a tile, as K2 runs two CTAs a tile). They compute K1's and K2's
 functions, so on CPU tensors they run the same plain versions; each has
 its own `launches`.
 
@@ -88,6 +89,16 @@ def _pixel_coords(num_tiles: int, tw: int, ts: int, device) -> Tuple[torch.Tenso
     px = ((t % tw) * ts + lin % ts).to(torch.float32)
     py = ((t // tw) * ts + lin // ts).to(torch.float32)
     return px, py
+
+
+def warp_pixels(ts: int, device=None) -> torch.Tensor:
+    """(P,) tile pixel of each thread of K2's tile, as the kernel's
+    `tile_pixel` places them: warp w covers the 8 x 4 pixel block w of the
+    tile (blocks in row-major order), lane l its pixel (l % 8, l // 8).
+    ts is a multiple of 8."""
+    lin = torch.arange(ts * ts, device=device)
+    w, lane, bw = lin // 32, lin % 32, ts // 8
+    return ((w // bw) * 4 + lane // 8) * ts + (w % bw) * 8 + lane % 8
 
 
 def composite_pairs_fwd_plain(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int,
@@ -171,8 +182,9 @@ _clusters: Dict[Tuple[str, int, int], int] = {}
 
 def max_active_clusters(kernel: str, channels: int, ts: int) -> int:
     """cudaOccupancyMaxActiveClusters of the two-tile kernel `kernel`
-    ("fwd2" for K5, "bwd2" for K6) at this C and tile size: how many
-    two-CTA clusters the current card holds at once."""
+    ("fwd2" for K5: two-CTA clusters; "bwd2" for K6: four-CTA clusters,
+    two a tile) at this C and tile size: how many clusters the current
+    card holds at once."""
     key = (kernel, channels, ts)
     if key not in _clusters:
         source = {"fwd2": "composite_pairs_fwd", "bwd2": "composite_pairs_bwd"}[kernel]
@@ -186,7 +198,7 @@ def max_active_clusters(kernel: str, channels: int, ts: int) -> int:
 
 def _require_clusters(kernel: str, channels: int, ts: int) -> None:
     if max_active_clusters(kernel, channels, ts) == 0:
-        raise RuntimeError(f"composite_pairs_{kernel}: no two-CTA cluster of this kernel fits "
+        raise RuntimeError(f"composite_pairs_{kernel}: no cluster of this kernel fits "
                            f"on the card (C {channels}, tile {ts}); run with TP = 1")
 
 
@@ -268,7 +280,7 @@ def stream_bounds(pair_gidx, seg_starts, tile_count, k_cap: int):
 
 
 def composite_pairs_bwd_plain(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
-                              tw: int, ts: int):
+                              tw: int, ts: int, count_warp_rows: bool = False):
     """Plain PyTorch version of K2: the reverse walk, one stream row at a
     time from the last composited row down to 0, vectorized over every
     tile and pixel, in the kernel's operation order.
@@ -278,13 +290,17 @@ def composite_pairs_bwd_plain(pair_gidx, starts, counts, attrs, bg, g_out, g_alp
     rows k < min(ncomp, count): the composite mask is k < ncomp, and K1
     rounds an uncut ncomp up to its 128-row chunk, so the count bounds it
     too. Returns gpairs (B, 6 + C): per stream row, dxy | dconic | dopacity
-    | dcolour summed over the tile's pixels; rows no tile walks are zero."""
+    | dcolour summed over the tile's pixels; rows no tile walks are zero.
+    With `count_warp_rows`, also the kernel's work in warp x row pairs (a
+    warp an 8 x 4 pixel block, `warp_pixels`): those some lane
+    walks, and those with a lane whose row passes the validity tests (the
+    live ones)."""
     T = starts.shape[0]
     C = attrs.shape[1] - 6
     dev = attrs.device
     gpairs = torch.zeros(pair_gidx.shape[0], 6 + C, dtype=torch.float32, device=dev)
     if T == 0:
-        return gpairs
+        return (gpairs, 0, 0) if count_warp_rows else gpairs
     px, py = _pixel_coords(T, tw, ts, dev)
     counts64 = counts.to(torch.int64)
     kstart = torch.minimum(ncomp.to(torch.int64), counts64[:, None])
@@ -292,6 +308,8 @@ def composite_pairs_bwd_plain(pair_gidx, starts, counts, attrs, bg, g_out, g_alp
     suffix_comp = torch.zeros_like(logt)
     suffix_wgc = torch.zeros_like(logt)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    live_warp_rows = torch.zeros((), dtype=torch.int64, device=dev)
+    by_warp = warp_pixels(ts, dev) if count_warp_rows else None
     with full_f32():
         for k in range(int(kstart.max()) - 1, -1, -1):
             walking = counts64 > k
@@ -304,6 +322,8 @@ def composite_pairs_bwd_plain(pair_gidx, starts, counts, attrs, bg, g_out, g_alp
             raw = row[:, 5:6] * esig
             a = torch.clamp(raw, max=ALPHA_CLAMP)
             ok = (kstart > k) & (sigma >= 0.0) & (a >= ALPHA_CUTOFF)
+            if count_warp_rows:
+                live_warp_rows += ok[:, by_warp].view(T, -1, 32).any(-1).sum()
             lt = torch.where(ok, torch.log1p(-a), zero)
             t_before = torch.exp(logt - (suffix_comp + lt))
             w = torch.where(ok, a * t_before, zero)
@@ -325,6 +345,9 @@ def composite_pairs_bwd_plain(pair_gidx, starts, counts, attrs, bg, g_out, g_alp
             gpairs[pos[walking]] = grads[walking]
             suffix_comp = suffix_comp + lt
             suffix_wgc = suffix_wgc + wgc
+    if count_warp_rows:
+        warp_rows = int(kstart[:, by_warp].view(T, -1, 32).amax(-1).sum())
+        return gpairs, warp_rows, int(live_warp_rows)
     return gpairs
 
 
@@ -338,6 +361,14 @@ def _check_bwd_inputs(device, T: int, C: int, g_out, g_alpha, logt, ncomp, ts: i
             raise ValueError(f"{name} {tuple(x.shape)}: want {shape}")
 
 
+def _check_bwd_tile(ts: int) -> None:
+    """K2 / K4 / K6 run two CTAs a tile, each whole 8 x 4 pixel blocks of
+    one thread a pixel."""
+    if ts * ts > 1024 or ts % 8:
+        raise ValueError(f"tile_size {ts}: the backward kernels need ts*ts <= 1024 and ts a "
+                         "multiple of 8")
+
+
 def _launch_bwd_kernel(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
                        tw: int, ts: int, two_tile: bool = False):
     """K2, or K6 with `two_tile`."""
@@ -345,9 +376,7 @@ def _launch_bwd_kernel(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, log
     name = "composite_pairs_bwd2" if two_tile else "composite_pairs_bwd"
     if C not in KERNEL_CHANNELS:
         raise ValueError(f"{name} kernel is built for C in {KERNEL_CHANNELS}, got {C}")
-    if ts * ts > 1024 or (ts * ts) % 32:
-        raise ValueError(f"tile_size {ts}: one thread per pixel in whole warps needs "
-                         "ts*ts <= 1024 and a multiple of 32")
+    _check_bwd_tile(ts)
     lib, fn = _entry("composite_pairs_bwd", f"ggt_{name}",
                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
     if two_tile:
@@ -367,7 +396,7 @@ def _launch_bwd_kernel(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, log
 
 
 def _launch_bwd_kernel2(*args):
-    """K6: K2's arguments and output, two tiles per two-CTA cluster."""
+    """K6: K2's arguments and output, two tiles per four-CTA cluster."""
     return _launch_bwd_kernel(*args, two_tile=True)
 
 
@@ -549,9 +578,7 @@ def _launch_table_bwd(counts, tables, bg, g_out, g_alpha, logt, ncomp, tw: int, 
     if C not in KERNEL_CHANNELS:
         raise ValueError(f"composite_tables_bwd kernel is built for C in {KERNEL_CHANNELS}, "
                          f"got {C}")
-    if ts * ts > 1024 or (ts * ts) % 32:
-        raise ValueError(f"tile_size {ts}: one thread per pixel in whole warps needs "
-                         "ts*ts <= 1024 and a multiple of 32")
+    _check_bwd_tile(ts)
     lib, fn = _entry("composite_pairs_bwd", "ggt_composite_tables_bwd",
                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
     gattr = torch.zeros_like(tables)

@@ -107,6 +107,104 @@ def test_k2_kernel_matches_plain(cuda_device, channels, opacity):
     _assert_grads_close(_per_gaussian(args, got), _per_gaussian(args, want), channels)
 
 
+# counts around K2's 8-row sub-chunks and 32-row batches, one tile each (13 tiles of 32 px,
+# 3 a row of the image: an odd count)
+STRADDLE_COUNTS = (0, 1, 7, 8, 9, 31, 32, 33, 63, 64, 65, 129, 200)
+
+
+def _straddle_args(device, channels, opaque):
+    """A synthetic stream, one row per Gaussian, centred in its tile. With
+    `opaque`, splats far wider than a tile at opacity 0.999: every pixel of
+    a tile with two rows or more composites its first row and is cut at the
+    second."""
+    rng = np.random.default_rng(3)
+    tw, ts = 3, 32
+    rows = []
+    for t, n in enumerate(STRADDLE_COUNTS):
+        xy = rng.uniform(0, ts, (n, 2)) + ((t % tw) * ts, (t // tw) * ts)
+        inv = 1.0 / rng.uniform(*((600.0, 900.0) if opaque else (2.0, 10.0)), (n, 1)) ** 2
+        conic = np.concatenate([inv, rng.uniform(-0.2, 0.2, (n, 1)) * inv, inv], 1)
+        opac = np.full((n, 1), 0.999) if opaque else rng.uniform(0.02, 0.3, (n, 1))
+        rows.append(np.concatenate([xy, conic, opac, rng.uniform(-1, 1, (n, channels))], 1))
+    attrs = torch.as_tensor(np.concatenate(rows).astype(np.float32), device=device)
+    counts = torch.tensor(STRADDLE_COUNTS, dtype=torch.int32, device=device)
+    starts = (torch.cumsum(counts, 0) - counts).int().contiguous()
+    gidx = torch.arange(attrs.shape[0], dtype=torch.int32, device=device)
+    bg = torch.linspace(0.1, 0.9, channels, device=device)
+    return gidx, starts, counts, attrs, bg, tw, ts
+
+
+def _bwd_args(args, seed):
+    """K2's arguments: K1's logt and ncomp on `args`, seeded g_out and g_alpha."""
+    _, alpha, logt, ncomp = rc.composite_pairs_fwd(*args)
+    gen = torch.Generator(device=alpha.device).manual_seed(seed)
+    g_out = torch.randn(*alpha.shape, args[3].shape[1] - 6, generator=gen, device=alpha.device)
+    g_alpha = torch.randn(alpha.shape, generator=gen, device=alpha.device)
+    return args[:5] + (g_out, g_alpha, logt, ncomp) + args[5:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opaque", [False, True])
+@pytest.mark.parametrize("channels", rc.KERNEL_CHANNELS)
+def test_k2_and_k6_on_counts_around_sub_chunks_and_batches(cuda_device, channels, opaque):
+    """K2 and K6 (13 tiles: an odd count) against the plain version, K2's
+    criterion, on tiles of 0 to 200 rows; opaque: every walk is one row."""
+    bargs = _bwd_args(_straddle_args(cuda_device, channels, opaque), seed=4)
+    counts, ncomp = bargs[2], bargs[8]
+    if opaque:
+        assert bool((ncomp[counts >= 2] == 1).all())
+    else:  # some pixel of each tile walks all its rows
+        walked = torch.minimum(ncomp, counts[:, None].float()).amax(1)
+        assert torch.equal(walked, counts.float())
+    before = (rc.composite_pairs_bwd.launches, rc.composite_pairs_bwd2.launches)
+    got = rc.composite_pairs_bwd(*bargs)
+    got2 = rc.composite_pairs_bwd2(*bargs)
+    want = rc.composite_pairs_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    assert (rc.composite_pairs_bwd.launches, rc.composite_pairs_bwd2.launches) == \
+        (before[0] + 1, before[1] + 1)
+    _assert_grads_close(got, want, channels)  # one row per Gaussian: rows are the sums
+    _assert_grads_close(got2, want, channels)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels", rc.KERNEL_CHANNELS)
+def test_k4_on_a_table_whose_k_is_not_a_multiple_of_the_sub_chunk(cuda_device, channels):
+    """K4 on the straddle tiles packed into a (13, 203, 6 + C) table."""
+    gidx, starts, counts, attrs, bg, tw, ts = _straddle_args(cuda_device, channels, False)
+    kt = 203
+    tables = torch.zeros(counts.shape[0], kt, attrs.shape[1], device=cuda_device)
+    for t, (s, n) in enumerate(zip(starts.tolist(), counts.tolist())):
+        tables[t, :n] = attrs[s: s + n]
+    _, alpha, logt, ncomp = rc.composite_tables_fwd(counts, tables, bg, tw, ts)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    g_out = torch.randn(*alpha.shape, channels, generator=gen, device=cuda_device)
+    g_alpha = torch.randn(alpha.shape, generator=gen, device=cuda_device)
+    bargs = (counts, tables, bg, g_out, g_alpha, logt, ncomp, tw, ts)
+    before = rc.composite_tables_bwd.launches
+    got = rc.composite_tables_bwd(*bargs)
+    want = rc.composite_tables_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    assert rc.composite_tables_bwd.launches == before + 1
+    _assert_grads_close(got.reshape(-1, attrs.shape[1]), want.reshape(-1, attrs.shape[1]),
+                        channels)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("starts", [[13], [0, 3, 77, 1001, 4096 - 128]])
+def test_p2_bit_equal_to_plain(cuda_device, starts):
+    """P2's pieces at row 0, at offsets not a multiple of 8, at rows - 128."""
+    src = torch.randn(4096, 128, generator=torch.Generator(device=cuda_device).manual_seed(8),
+                      device=cuda_device)
+    s = torch.tensor(starts, dtype=torch.int32, device=cuda_device)
+    before = pk.read_at.launches
+    got = pk.read_at(src, s)
+    torch.cuda.synchronize()
+    assert pk.read_at.launches == before + 1
+    assert got.shape == (len(starts), 128, 128)
+    assert torch.equal(got, pk.read_at_plain(src, s))
+
+
 # an odd tile count (5 x 3 at tile 32): the last cluster's second CTA has no tile
 ODD_W, ODD_H = 160, 96
 

@@ -9,7 +9,14 @@ rasterizer.
   order), ncomp exactly equal.
 - rasterize_projected vs the port's and JAX's brute-force oracles at
   atol 2e-5 (the tolerance tests/test_pallas.py uses).
+- K2's precision scheme: the plain version with its two 39-wide products
+  (gc and dcolour) taken in 3xTF32, as the CUDA kernel takes them on the
+  tensor cores, vs `_call_bwd_pairs` in interpret mode: per-Gaussian sums
+  within 1e-4 of each column group's max (the kernel's criterion on the
+  card); with one or two TF32 passes some group misses it.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -192,3 +199,163 @@ def test_kernel_wrapper_checks_inputs():
             rc.composite_pairs_fwd(torch.tensor(gidx, dtype=i32), torch.zeros(1, dtype=i32),
                                    torch.tensor([count], dtype=i32), torch.zeros(2, 9),
                                    torch.zeros(3), 1, 32)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as `cvt.rna.tf32.f32` rounds it: the 13 low
+    mantissa bits dropped, to the nearest, ties away from zero (an add on
+    the bit pattern carries into the exponent where it must)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_truncated(x: torch.Tensor) -> torch.Tensor:
+    """float32 as the tensor core reads an f32 bit pattern for a TF32
+    operand: the 13 low mantissa bits dropped (toward zero)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def einsum_3xtf32(equation, a, b):
+    """The product as K2 takes it on the tensor cores: each operand split
+    into hi = tf32(x) and lo = x - hi, which the tensor core truncates to
+    TF32, then lo hi + hi lo + hi hi (lo lo dropped), summed in float32."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32_truncated(a - ah), tf32_truncated(b - bh)
+    return (_einsum(equation, al, bh) + _einsum(equation, ah, bl)) + _einsum(equation, ah, bh)
+
+
+def einsum_1xtf32(equation, a, b):
+    """A single-pass TF32 product: hi hi only."""
+    return _einsum(equation, tf32(a), tf32(b))
+
+
+def einsum_2xtf32(equation, a, b):
+    """Two passes: lo hi + hi hi (the operand b's low part dropped)."""
+    ah, bh = tf32(a), tf32(b)
+    return _einsum(equation, tf32_truncated(a - ah), bh) + _einsum(equation, ah, bh)
+
+
+_einsum = torch.einsum
+K2_PRODUCTS = ("tc,tpc->tp", "tp,tpc->tc")  # gc and dcolour in composite_pairs_bwd_plain
+K2_GROUPS = (("dxy", 0, 2), ("dconic", 2, 5), ("dopacity", 5, 6), ("dcolor", 6, 45))
+
+
+def test_tf32_rounding_helper():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -12, 3.0e-5], dtype=torch.float32)
+    want = [1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9, -(1.0 + 2.0 ** -10), 1.0]
+    assert tf32(x)[:5].tolist() == want  # ties away from zero, both signs
+    y = tf32(x[5:])
+    assert (y.view(torch.int32) & 0x1FFF).item() == 0 and abs(float(y - x[5:])) <= 2.0 ** -11 * 3.0e-5
+    z = torch.tensor([1.0 + 2.0 ** -10 + 2.0 ** -11, -(1.0 + 2.0 ** -11)], dtype=torch.float32)
+    assert tf32_truncated(z).tolist() == [1.0 + 2.0 ** -10, -1.0]  # toward zero
+
+
+@functools.lru_cache(maxsize=None)
+def k2_precision_case(scene_name):
+    """K2's inputs at C 39 for one scene, and the per-Gaussian sums of
+    `_call_bwd_pairs` in interpret mode on them (float64, (N, 45))."""
+    scene = saturated_scene() if scene_name == "saturated" else make_scene(10, 300)
+    jp, gidx, starts, counts, attrs, bg = k1_inputs(scene, 39)
+    tw = -(-W // 32)
+    kr = -(-attrs.shape[0] // rp.KC) * rp.KC
+    pair_attrs = rp._gather_pairs(jnp.asarray(gidx), jp.xys, jp.conics, jnp.asarray(attrs[:, 5]),
+                                  jnp.asarray(attrs[:, 6:]), kr)
+    _, alpha, logt, ncomp = rp._call_fwd_pairs(jnp.asarray(starts), jnp.asarray(counts), pair_attrs,
+                                               jnp.asarray(bg)[None], tw, 32, starts.shape[0], 39,
+                                               kr, interpret=True)
+    rng = np.random.default_rng(5)
+    g_out = rng.normal(size=alpha.shape + (39,)).astype(np.float32)
+    g_alpha = rng.normal(size=alpha.shape).astype(np.float32)
+    ref = rp._call_bwd_pairs(jnp.asarray(starts), jnp.asarray(counts), pair_attrs, jnp.asarray(bg),
+                             jnp.asarray(g_out), jnp.asarray(g_alpha), logt, ncomp, tw, 32, kr,
+                             interpret=True)
+    args = (T(gidx), T(starts), T(counts), T(attrs), T(bg), T(g_out), T(g_alpha), T(logt),
+            T(ncomp), tw, 32)
+    return args, k2_per_gaussian(gidx, attrs.shape[0], np.asarray(ref)[: gidx.shape[0], :45])
+
+
+def k2_per_gaussian(gidx, n, rows):
+    acc = np.zeros((n, 45), np.float64)
+    np.add.at(acc, gidx, rows)
+    return acc
+
+
+def k2_emulated_errors(scene_name, product, monkeypatch):
+    """The plain version with gc and dcolour taken by `product`: per column
+    group, max |error| of the per-Gaussian sums against the JAX kernel's
+    over the group's max |value|."""
+    args, ref_g = k2_precision_case(scene_name)
+    exact = rc.composite_pairs_bwd_plain(*args)
+    products = []
+
+    def patched(equation, *operands):
+        if equation in K2_PRODUCTS:
+            products.append(equation)
+            return product(equation, *operands)
+        return _einsum(equation, *operands)
+
+    monkeypatch.setattr(torch, "einsum", patched)
+    got = rc.composite_pairs_bwd_plain(*args)
+    monkeypatch.undo()
+    assert set(products) == set(K2_PRODUCTS)
+    assert not torch.equal(got, exact)  # the scheme rounds: the emulation took effect
+    got_g = k2_per_gaussian(args[0].numpy(), args[3].shape[0], got.numpy())
+    errs = {}
+    for name, lo, hi in K2_GROUPS:
+        scale = float(np.abs(ref_g[:, lo:hi]).max())
+        assert scale > 0, name
+        errs[name] = float(np.abs(got_g[:, lo:hi] - ref_g[:, lo:hi]).max()) / scale
+    return errs
+
+
+@pytest.mark.parametrize("scene_name", ["random", "saturated"])
+def test_k2_tensor_core_precision_meets_criterion(scene_name, monkeypatch):
+    errs = k2_emulated_errors(scene_name, einsum_3xtf32, monkeypatch)
+    for name, err in errs.items():
+        assert err <= 1e-4, name
+
+
+@pytest.mark.parametrize("scene_name", ["random", "saturated"])
+@pytest.mark.parametrize("scheme", ["1xtf32", "2xtf32"])
+def test_k2_fewer_tf32_passes_break_criterion(scene_name, scheme, monkeypatch):
+    """The criterion is tight enough to tell K2's scheme from a cheaper
+    one: with one TF32 pass, or two (one operand's low part dropped), the
+    per-Gaussian sums miss 1e-4 in some column group, so a kernel that
+    dropped to either fails the card's check."""
+    product = {"1xtf32": einsum_1xtf32, "2xtf32": einsum_2xtf32}[scheme]
+    errs = k2_emulated_errors(scene_name, product, monkeypatch)
+    assert max(errs.values()) > 1e-4, errs
+
+
+def test_k2_warp_row_counts():
+    """count_warp_rows against a count written out tile by tile and warp by
+    warp: walked (row k below some lane's min(ncomp, count)) and live (a
+    lane's row also passes sigma >= 0 and alpha >= 1/255)."""
+    jp, gidx, starts, counts, attrs, bg = k1_inputs(make_scene(10, 300), 3)
+    tw = -(-W // 32)
+    args = (T(gidx), T(starts), T(counts), T(attrs), T(bg))
+    _, _, logt, ncomp = rc.composite_pairs_fwd_plain(*args, tw, 32)
+    zeros = torch.zeros(ncomp.shape + (3,))
+    _, rows, live = rc.composite_pairs_bwd_plain(*args, zeros, zeros[..., 0], logt, ncomp, tw, 32,
+                                                 count_warp_rows=True)
+    warps = rc.warp_pixels(32)
+    assert sorted(warps.tolist()) == list(range(32 * 32))
+    first = warps.view(-1, 32)[:, 0]  # each warp's 8 x 4 block starts on the block grid
+    assert bool((first % 32 % 8 == 0).all() and (first // 32 % 4 == 0).all())
+    kstart = torch.minimum(ncomp.long(), T(counts).long()[:, None])
+    want_rows = want_live = 0
+    for t in range(starts.shape[0]):
+        px = float((t % tw) * 32) + (warps % 32).float()
+        py = float((t // tw) * 32) + (warps // 32).float()
+        ks = kstart[t, warps].view(-1, 32)
+        want_rows += int(ks.amax(1).sum())
+        for k in range(int(ks.max())):
+            row = T(attrs[gidx[starts[t] + k]])
+            dx, dy = px - row[0], py - row[1]
+            sigma = 0.5 * (row[2] * dx * dx + row[4] * dy * dy) + row[3] * dx * dy
+            alpha = torch.clamp(row[5] * torch.exp(-sigma), max=0.999)
+            ok = (kstart[t, warps] > k) & (sigma >= 0) & (alpha >= 1.0 / 255.0)
+            want_live += int(ok.view(-1, 32).any(1).sum())
+    assert (rows, live) == (want_rows, want_live)
+    assert 0 < live < rows
