@@ -8,14 +8,17 @@ Phases, one JSON line each:
   device   the card (nvidia-smi name and power limit), torch and CUDA versions
   build    nvcc of every kernel in gaussiangrasper_torch/csrc and g++ of the native
            sampler, all into gaussiangrasper_torch/build (seconds, ptxas report, the
-           sampler's branch, how many clusters of K5 (two CTAs) and K6 (four)
-           the card holds)
-  k1       each kernel against its plain PyTorch version on the card, at a mid
-           size and at full width (200k Gaussians, 800x800, C = 39): errors,
-           kernel and plain times, the roofline bound
+           sampler's branch, how many clusters of K5 and K6 the card holds, the
+           forward body's dynamic shared memory a CTA)
+  k1       the forward kernel against its plain PyTorch version on the card, at
+           a mid size (C 39, C 3, and C 23 through the wrapper's zero padding)
+           and at full width (200k Gaussians, 800x800, C = 39): errors, kernel
+           and plain times, the roofline bound, and the work in warp x row pairs
+           (warp_rows walked, live_warp_rows with a lane that composites,
+           live_sub_chunks) with the SM clocks the kernel spends a live warp-row
   k2       the backward kernel against its plain version on K1's own logt
-           and ncomp, random g_out and a nonzero g_alpha, at mid size (C 39
-           and C 3) and full width: errors of the per-Gaussian sums,
+           and ncomp, random g_out and a nonzero g_alpha, at mid size (C 39,
+           C 3 and C 23) and full width: errors of the per-Gaussian sums,
            kernel and plain times, the roofline bound, and the work in warp
            x row pairs (warp_rows walked, live_warp_rows with a live lane)
            with the SM clocks the kernel spends a live warp-row
@@ -201,27 +204,31 @@ def roofline(ops: float, nbytes: float, tc_ops: float = 0.0, **counts) -> dict:
 
 
 def walk_ops(counts, ncomp, live, c: int):
-    """(visits, operations) of the forward walk on these inputs: a pixel
-    walks until its cut entry, inclusive."""
+    """(visits, live visits, operations outside the tensor cores, colour
+    products on them) of the forward walk on these inputs: a pixel walks
+    until its cut entry, inclusive."""
     import torch
 
     cnt = counts.double()[:, None].expand_as(ncomp)
     visits = float(torch.where(ncomp < cnt, ncomp.double() + 1.0, cnt).sum())
+    n_live = float(live.double().sum())
     # per visit: dx, dy, sigma (9), exp, o*exp, min, two tests = 16
-    # per composited live visit: log1p, cum add, test, exp, w, logt add + 2C FMA flops
-    return visits, 16.0 * visits + (6.0 + 2.0 * c) * float(live.double().sum())
+    # per composited live visit: log1p, cum add, test, exp, w, logt add = 6, and the 2C flops of
+    # its colour terms, which the kernels take on the tensor cores
+    return visits, n_live, 16.0 * visits + 6.0 * n_live, 2.0 * c * n_live
 
 
 def k1_bound(args, ncomp, live) -> dict:
     """Least time for K1's work on these inputs: operations from the
-    walk's own visit counts at the f32 peak, and compulsory bytes (the
-    (N, 6 + C) table, the walked pair_gidx, outputs) at the HBM rate."""
+    walk's own visit counts, the colour products at the 3xTF32 rate and
+    the rest at the f32 peak, and compulsory bytes (the (N, 6 + C) table,
+    the walked pair_gidx, outputs) at the HBM rate."""
     gidx, starts, counts, attrs, bg, tw, ts = args
     c = attrs.shape[1] - 6
-    visits, ops = walk_ops(counts, ncomp, live, c)
+    visits, n_live, ops, tc_ops = walk_ops(counts, ncomp, live, c)
     t, p = ncomp.shape
     nbytes = 4.0 * (attrs.numel() + float(counts.sum()) + 2 * t + c + t * p * (c + 3))
-    return roofline(ops, nbytes, visits=visits)
+    return roofline(ops, nbytes, tc_ops, visits=visits, live_visits=n_live)
 
 
 def k3_bound(targs, ncomp, live) -> dict:
@@ -229,10 +236,10 @@ def k3_bound(targs, ncomp, live) -> dict:
     counts, bg and the outputs."""
     counts, tables, bg, tw, ts = targs
     c = tables.shape[2] - 6
-    visits, ops = walk_ops(counts, ncomp, live, c)
+    visits, n_live, ops, tc_ops = walk_ops(counts, ncomp, live, c)
     t, p = ncomp.shape
     nbytes = 4.0 * (float(counts.sum()) * tables.shape[2] + t + c + t * p * (c + 3))
-    return roofline(ops, nbytes, visits=visits)
+    return roofline(ops, nbytes, tc_ops, visits=visits, live_visits=n_live)
 
 
 def check_k1(label: str, args, time_it: bool) -> dict:
@@ -257,6 +264,8 @@ def check_k1(label: str, args, time_it: bool) -> dict:
         row["wrapper_ms"] = cuda_ms(lambda: rc.composite_pairs_fwd(*args), 20)
         row["plain_ms"] = cuda_ms(lambda: rc.composite_pairs_fwd_plain(*args), 3)
         row.update(k1_bound(args, want[3], want[4]))
+        *_, rows, live, subs = rc.composite_pairs_fwd_plain(*args, count_warp_rows=True)
+        row.update(warp_row_work(rows, live, row["ms"]), live_sub_chunks=subs)
     emit(row)
     if not finite or err > K1_ERR_MAX or dn_max > 1 or share > K1_NCOMP_SHARE_MAX:
         raise RuntimeError(f"k1 {label}: kernel disagrees with its plain version: {row}")
@@ -358,16 +367,14 @@ def k4_bound(bargs, live) -> dict:
     return roofline(ops, nbytes, tc_ops, visits=visits, live_visits=n_live)
 
 
-def warp_row_work(args, ms: float) -> dict:
-    """K2's work in warp x row pairs on these inputs (a warp an 8 x 4 pixel
-    block, rc.warp_pixels): walked by some lane, and live (a lane's row
-    passes the validity tests), from the plain version; with the kernel's
-    ms, the SM clocks it spends a live warp-row at the card's maximum SM
-    clock."""
+def warp_row_work(warp_rows: int, live: int, ms: float) -> dict:
+    """A compositor kernel's work in warp x row pairs on its inputs (a warp
+    an 8 x 4 pixel block, rc.warp_pixels), counted by the plain version
+    (`count_warp_rows`): walked by some lane, and live (a lane composites
+    the row); with the kernel's ms, the SM clocks it spends a live
+    warp-row at the card's maximum SM clock."""
     import torch
-    from gaussiangrasper_torch.ops import rasterize_cuda as rc
 
-    _, warp_rows, live = rc.composite_pairs_bwd_plain(*args, count_warp_rows=True)
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         check=True, capture_output=True, text=True).stdout.split()[0])
@@ -410,7 +417,8 @@ def check_k2(label: str, k1_args, time_it: bool) -> dict:
         row["plain_ms"] = cuda_ms(lambda: rc.composite_pairs_bwd_plain(*args), 1)
         live = rc.composite_pairs_fwd_plain(*k1_args, count_live=True)[4]
         row.update(k2_bound(args, live))
-        row.update(warp_row_work(args, row["ms"]))
+        _, rows, live_rows = rc.composite_pairs_bwd_plain(*args, count_warp_rows=True)
+        row.update(warp_row_work(rows, live_rows, row["ms"]))
     emit(row)
     if not bool(torch.isfinite(got).all()) or max(errs.values()) > K2_ERR_MAX \
             or min(scales.values()) <= 0.0:
@@ -514,7 +522,7 @@ def table_c3(inp: dict) -> dict:
     """The same table with only the rgb channels (C = 3)."""
     counts, tables, bg, tw, ts = inp["t"]
     return {**inp, "t": (counts, tables[..., :9].contiguous(), bg[:3].contiguous(), tw, ts),
-            "k1": c3_inputs(inp["k1"])}
+            "k1": narrow_inputs(inp["k1"], 3)}
 
 
 def no_clip(bins) -> None:
@@ -1172,9 +1180,11 @@ def main() -> int:
     sampler = native.branch()
     clusters = {f"{k}_c{c}": rc.max_active_clusters(k, c, 32) for k in ("fwd2", "bwd2")
                 for c in rc.KERNEL_CHANNELS}
+    fwd = _build.load_library("composite_pairs_fwd")
+    fwd_smem = {f"c{c}": fwd.ggt_composite_fwd_smem_bytes(c, 32) for c in rc.TABLE_FWD_CHANNELS}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas,
           "sampler_branch": sampler, "sampler_library": str(native.LIB_PATH.relative_to(ROOT)),
-          "max_active_clusters": clusters})
+          "max_active_clusters": clusters, "fwd_dynamic_smem_bytes_per_cta": fwd_smem})
     if min(clusters.values()) == 0:
         raise RuntimeError(f"no cluster of K5 / K6 fits on this card: {clusters}")
 
@@ -1185,22 +1195,25 @@ def main() -> int:
         cam_mid = bench_camera(400, 300, device)
         mid39 = k1_inputs(field, alive, cam_mid, cfg)
         check_k1("mid_c39", mid39, time_it=False)
-        mid3 = c3_inputs(mid39)
+        mid3 = narrow_inputs(mid39, 3)
         check_k1("mid_c3", mid3, time_it=False)
+        mid23 = narrow_inputs(mid39, 23)  # F = 16: padded to the C = 39 kernel by the wrapper
+        check_k1("mid_c23", mid23, time_it=False)
         full_args = k1_inputs(field, alive, bench_camera(WIDTH, HEIGHT, device), cfg)
         full = check_k1("full_width_c39", full_args, time_it=True)
         check_k2("mid_c39", mid39, time_it=False)
         check_k2("mid_c3", mid3, time_it=False)
+        check_k2("mid_c23", mid23, time_it=False)
         full2 = check_k2("full_width_c39", full_args, time_it=True)
         odd39 = k1_inputs(field, alive, bench_camera(400, 288, device), cfg)  # 13 x 9 tiles
-        odd3 = c3_inputs(odd39)
+        odd3 = narrow_inputs(odd39, 3)
         check_k5("mid_odd_c39", odd39, time_it=False, plain=True)
         check_k5("mid_odd_c3", odd3, time_it=False, plain=True)
         full5 = check_k5("full_width_c39", full_args, time_it=True, plain=False)
         check_k6("mid_odd_c39", odd39, time_it=False)
         check_k6("mid_odd_c3", odd3, time_it=False)
         full6 = check_k6("full_width_c39", full_args, time_it=True)
-        del mid39, mid3, full_args, odd39, odd3
+        del mid39, mid3, mid23, full_args, odd39, odd3
         tmid39 = table_inputs(field, alive, cam_mid, cfg)
         tmid3 = table_c3(tmid39)
         tfull = table_inputs(field, alive, bench_camera(WIDTH, HEIGHT, device), cfg)
@@ -1282,14 +1295,15 @@ def main() -> int:
     return 0
 
 
-def c3_inputs(args):
-    """The same stream with only the rgb channels (C = 3)."""
+def narrow_inputs(args, c: int):
+    """The same stream with only the first c colour channels (3: rgb; 23:
+    the channels of a 16-d feature)."""
     import torch
 
-    c3 = list(args)
-    c3[3] = torch.cat([c3[3][:, :6], c3[3][:, 6:9]], 1).contiguous()
-    c3[4] = c3[4][:3].contiguous()
-    return tuple(c3)
+    narrow = list(args)
+    narrow[3] = torch.cat([narrow[3][:, :6], narrow[3][:, 6:6 + c]], 1).contiguous()
+    narrow[4] = narrow[4][:c].contiguous()
+    return tuple(narrow)
 
 
 def bench_camera(width: int, height: int, device):

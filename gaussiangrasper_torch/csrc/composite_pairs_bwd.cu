@@ -113,6 +113,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
 #include "tile_rows.cuh"
 
 namespace {
@@ -140,56 +141,6 @@ __device__ __forceinline__ float reduce_scatter8(float (&x)[8], int lane) {
   }
   const float s = x[0] + __shfl_xor_sync(kFull, x[0], 8);
   return s + __shfl_xor_sync(kFull, s, 16);
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// d += a b on the tensor cores: m16n8k8, TF32 operands, f32 accumulation.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b in 3xTF32: each f32 operand x = hi + lo, hi = tf32(x) and lo = x - hi (exact in f32;
-// the tensor core reads it as TF32 by dropping its 13 low bits), and lo hi + hi lo + hi hi (lo lo
-// dropped) carry ~21 mantissa bits, f32-grade.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const float (&a)[4],
-                                           const float (&b)[2]) {
-  uint32_t ah[4], al[4], bh[2], bl[2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    ah[i] = to_tf32(a[i]);
-    al[i] = __float_as_uint(a[i] - __uint_as_float(ah[i]));
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    bh[i] = to_tf32(b[i]);
-    bl[i] = __float_as_uint(b[i] - __uint_as_float(bh[i]));
-  }
-  mma_tf32(d, al, bh);
-  mma_tf32(d, ah, bl);
-  mma_tf32(d, ah, bh);
-}
-
-// The tile pixel of thread lin: warp w covers the 8 x 4 pixel block w of the tile (blocks in
-// row-major order), lane l its pixel (l % 8, l / 8); ts is a multiple of 8.
-__device__ __forceinline__ int tile_pixel(int lin, int ts) {
-  const int w = lin >> 5, l = lin & 31, bw = ts >> 3;
-  return ((w / bw) * 4 + (l >> 3)) * ts + (w % bw) * 8 + (l & 7);
-}
-
-// The thread of tile pixel p: tile_pixel's inverse.
-__device__ __forceinline__ int pixel_thread(int p, int ts) {
-  const int x = p % ts, y = p / ts;
-  return (((y >> 2) * (ts >> 3) + (x >> 3)) << 5) + ((y & 3) << 3) + (x & 7);
 }
 
 // Dynamic shared memory of the body for a CTA of p pixels: g_out (C x (p + 8)), the batch's rows

@@ -16,64 +16,114 @@
 //                     rounded up to K1's 128-row chunk (K1 counts the zero-alpha pad rows of its
 //                     last chunk as composited; the port keeps that count so K2 can read it).
 // alpha_k = min(0.999, o exp(-sigma)), zeroed when sigma < 0 or alpha_k < 1/255; sigma =
-// 0.5 (a dx^2 + c dy^2) + b dx dy at integer pixel centres px = (t % tw) ts + lin % ts.
-//
-// Design. One CTA per tile, one thread per pixel (ts 32 -> 1024 threads). The tile's segment
-// [start, start + count) is walked in batches of kBatch rows that the block gathers itself
-// through pair_gidx from the per-Gaussian attribute table (N, 6 + C) into shared memory
-// (xy | conic | opacity | colour), so no (B, 6 + C) pair stream is materialised. Each pixel
-// walks front to back and stops at its cut; the block stops when every pixel has stopped
-// (__syncthreads_count). C is a template parameter (3 and 39, the channel counts the port
-// renders) so the C accumulators live in registers; the wrapper raises for any other C.
-// The walk is bounded by count, never by a padded window, so it never reads past B.
-//
-// The table path (K3). composite_tile takes its rows from a row source (tile_rows.cuh): K1 / K5
-// gather each batch through pair_gidx, K3 copies it from rows [t K, t K + count) of the packed
-// table. Everything after the staging is the same code, so K3 is bit-equal to K1 wherever the
-// table and the stream hold the same rows (no K clip and no pair-budget clip). The TPU kernel
-// walks padded 128-row chunks with triangular-matmul prefix sums; the walk here is bounded by
-// the count, so the table needs no padding. K3 is instantiated for C = 3, 7 (the kernel probe's
-// width) and 39.
-//
-// Two tiles per instance (K5). On the TPU the two tiles of one instance interleave their
-// walks chunk by chunk so the scheduler has two independent dependency chains. On Hopper the
-// SM's warp scheduler already interleaves 32 independent warps, so K5 maps "one instance, two
-// tiles" onto a thread-block cluster of two CTAs, one tile each: a grid of 2 ceil(T/2) CTAs in
-// clusters of {2, 1, 1}, tile = 2 clusterid + cluster_ctarank. The two CTAs of a cluster run at
-// once on two SMs of one GPC. Both kernels call the one per-tile body (composite_tile), so K5
-// computes exactly K1's arithmetic and its outputs are bit-equal. For an odd T the second CTA
-// of the last cluster has no tile: it returns before any barrier and writes nothing, and the
-// outputs are exactly (T, P, C) / (T, P) (no pad-and-crop as in _call_fwd_pairs2).
+// 0.5 (a dx^2 + c dy^2) + b dx dy at integer pixel centres of the tile.
 //
 // Cut semantics are the JAX package's log form, not gsplat's product form: composite iff
-// cum_all + log1pf(-alpha) > log(1e-4), with t_before = expf(logt_comp). The alpha chain and
-// the cut test use explicitly rounded operations (__fmul_rn / __fadd_rn, no FMA contraction)
-// in the plain version's order, and expf / log1pf without fast math, so every cut decision
-// equals the plain PyTorch version's on the same card; only the colour sums use fmaf.
+// cum_all + log1pf(-alpha) > log(1e-4), with w = alpha expf(logt_comp). The alpha chain and the
+// cut test use explicitly rounded operations (__fmul_rn / __fadd_rn, no FMA contraction) in the
+// plain version's order, and expf / log1pf without fast math, so alpha, logt and ncomp equal
+// the plain PyTorch version's on the same card; only `out` differs from it, by the rounding of
+// the colour sums.
 //
-// Bound on this card (H100 SXM: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s). At the
-// full-width serving point (200k Gaussians, 800x800, T 625, P 1024, C 39; 0.81 M pairs walked)
-// the pixels make 0.63 G pair-pixel visits up to their cuts. Each visit costs ~16 f32
-// operations with one expf for sigma and alpha; each composited visit adds log1pf, expf and 2C
-// FMA flops: 22.9 GFLOP, 0.34 ms at the f32 peak, against 0.15 GB of compulsory traffic (the
-// (N, 45) table, pair_gidx, the (T, P, 42) outputs), 0.04 ms at 3.35 TB/s. The kernel is bound
-// by operations. The design spends them only where needed: a rejected visit (alpha < 1/255,
-// most of them) skips log1pf, the second expf and the 2C FMAs, and a pixel or a whole tile
-// stops walking at its cut. K5 does the same work, so it has K1's bound. Measured by
-// chip_smoke.py on an H100 80GB HBM3 at 700 W: K1 2.93 ms, 8.6x the bound; K5 2.95 ms beside
-// K1's 2.92 ms in the same run. ptxas: C = 39 uses 64 registers (the cap at 1024 threads), 0
-// spills, 23.5 KB static shared memory (K5 the same); C = 3 uses 28 registers (K5 30). The
-// card holds 66 two-CTA clusters of K5 at C = 39 (132 at C = 3). K3 does K1's work on the same
-// rows and reads the walked table rows (compulsory: counts x (6 + C) floats) where K1 reads
-// pair_gidx and the (N, 6 + C) table, so it has K1's operations bound. Measured by chip_smoke.py
-// on an H100 80GB HBM3 at 700 W: K3 2.97 ms beside K1's 2.89 ms in the same run, all four
-// outputs bit-equal to K1's. ptxas: K3 at C = 39 uses 64 registers, 0 spills, 22.5 KB static
-// shared memory; C = 7 38 registers, C = 3 27.
+// What bounded the first design on this card (one 1024-thread CTA a tile, a warp a 32 x 1 pixel
+// row, 64 registers): the 39 colour terms of each composited visit, 39 shared-memory loads and
+// 39 FMAs a live warp-row, on rows of 45 floats that no vector load reads. The TPU kernel takes
+// the same sum as a matrix product (_fwd_pairs_kernel's `mm`, rasterize_pallas.py:490); here it
+// goes to the tensor cores.
+//
+// Design. One thread a pixel; the pixels of a tile are covered by GGT_FWD_PARTS CTAs (2: two CTAs
+// of up to 512 threads, two an SM; 1: one CTA of up to 1024), each rounded up to whole warps, the
+// lanes past the tile's pixels idle. A warp covers an 8 x 4 pixel block (tile_pixel) where ts is
+// a multiple of 8, so a splat's footprint meets fewer warps than with pixel rows; for other tile
+// sizes it covers 32 pixels in row-major order. The tile's segment [start, start + count) is
+// walked in batches of kBatch rows that the CTA stages itself through the row source
+// (tile_rows.cuh); with GGT_FWD_PREFETCH the raw rows of batch i + 1 are copied by cp.async while
+// batch i is walked. Staging lays out the geometry (x, y, conic, opacity and the row's cull box)
+// in 8-float rows that two broadcast vector loads read, and the colours, split once into TF32 hi
+// and lo parts, zero past the count and past C. Within a batch each warp works alone, 8 rows at
+// a time:
+//   1. the cull: a row whose box (the extent outside which alpha < 1/255, with a margin; see
+//      cull_box) misses the warp's pixels is skipped by the whole warp, since no lane could
+//      composite it or be cut by it (GGT_FWD_CULL);
+//   2. the walk on the CUDA cores, one lane a pixel: sigma, alpha, the cut test and the weight
+//      w = alpha T_before; a stopped or idle lane takes w = 0 and keeps stepping with the warp;
+//   3. compaction (GGT_FWD_COMPACT): a row in which some lane composites takes the next slot of
+//      the warp's 16-slot weight ring (its 32 weights, its batch row); whenever 8 slots wait,
+//      acc[32 px x 8 NT ch] += W[32 px x 8 rows] . Colour[8 rows x 8 NT ch] by mma.sync m16n8k8 in
+//      3xTF32 (mma_tf32.cuh), two m tiles of 16 pixels and NT n tiles of 8 channels, each lane's
+//      B fragments read from its rows' colours, the accumulators in the D fragments (40 floats a
+//      lane at C = 39). The batch's last rows go in one product padded with zero weights. Without
+//      compaction every 8-row sub-chunk in which a lane composites takes one product.
+// A warp whose pixels have all stopped skips the rest of the batch; the CTA stops when all have.
+// At the end each lane writes its pixel's alpha, logt and ncomp, and the D fragments go out with
+// T_final bg, T_final taken from the owning lane by a shuffle. None of this changes a cut
+// decision: culled rows and zero weights change no lane's state.
+//
+// Two tiles per instance (K5). On the TPU the two tiles of one instance interleave their walks
+// chunk by chunk so the scheduler has two independent dependency chains. On Hopper the SM's warp
+// scheduler already interleaves independent warps, so K5 maps "one instance, two tiles" onto a
+// thread-block cluster holding both tiles' CTAs: CTA rank r of cluster j takes part r % parts of
+// tile 2j + r / parts. The phantom CTAs of an odd T return before any barrier and write nothing.
+// All three kernels call the one per-tile body (composite_tile), so K3 and K5 compute exactly
+// K1's arithmetic and their outputs are bit-equal to K1's on the same rows.
+//
+// The table path (K3). composite_tile takes its rows from a row source (tile_rows.cuh): K1 / K5
+// gather each batch through pair_gidx, K3 reads rows [t K, t K + count) of the packed table. The
+// TPU kernel walks padded 128-row chunks with triangular-matmul prefix sums; the walk here is
+// bounded by the count, so the table needs no padding. K3 is instantiated for C = 3, 7 (the
+// kernel probe's width) and 39, K1 / K5 for 3 and 39; the wrapper zero-pads other widths.
+//
+// Bound on this card (H100 SXM: 67 TFLOP/s f32 outside the tensor cores, 495 TFLOP/s dense TF32
+// on them, so 165 for an f32-grade 3xTF32 product; 3.35 TB/s). Each walked pair-pixel visit
+// costs ~16 f32 operations with one expf for sigma and alpha; each composited visit adds log1pf,
+// expf and the weight (6) on the CUDA cores and the 2C flops of its colour terms on the tensor
+// cores. chip_smoke.py computes the bound from the run's own visit counts, the two units' times
+// added, and the compulsory bytes (the (N, 6 + C) table, pair_gidx, the (T, P, 3 + C) outputs);
+// the kernel is bound by operations. Measured times: PERF.md.
 
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
 #include "tile_rows.cuh"
+
+#ifndef GGT_FWD_PARTS
+#define GGT_FWD_PARTS 4
+#endif
+#ifndef GGT_FWD_CTAS_PER_SM
+#define GGT_FWD_CTAS_PER_SM 3
+#endif
+#ifndef GGT_FWD_BATCH
+#define GGT_FWD_BATCH 128
+#endif
+#ifndef GGT_FWD_PREFETCH
+#define GGT_FWD_PREFETCH 0
+#endif
+#ifndef GGT_FWD_COMPACT
+#define GGT_FWD_COMPACT 1
+#endif
+#ifndef GGT_FWD_CULL
+#define GGT_FWD_CULL 1
+#endif
+#ifndef GGT_FWD_ACC_SMEM
+#define GGT_FWD_ACC_SMEM 0
+#endif
+#ifndef GGT_FWD_MTILE_SKIP
+#define GGT_FWD_MTILE_SKIP 1
+#endif
+// timing-only variants (probes/composite_variants.py): 32 x 1 pixel-row warps; no product (the
+// colour sums left out, so `out` is wrong); each CTA's start and end time and SM recorded
+#ifndef GGT_FWD_TIMES
+#define GGT_FWD_TIMES 0
+#endif
+#ifndef GGT_FWD_ROW_WARPS
+#define GGT_FWD_ROW_WARPS 0
+#endif
+#ifndef GGT_FWD_SKIP_PRODUCT
+#define GGT_FWD_SKIP_PRODUCT 0
+#endif
 
 namespace {
 
@@ -81,129 +131,473 @@ constexpr float kAlphaClamp = 0.999f;
 constexpr float kAlphaCutoff = (float)(1.0 / 255.0);
 constexpr float kLogEps = -9.2103403719761836f;  // log(1e-4)
 constexpr int kWalkChunk = 128;                  // K1's KC: the rounding of an uncut ncomp
-constexpr int kBatch = 128;                      // rows staged in shared memory per batch
+constexpr int kBatch = GGT_FWD_BATCH;  // rows staged in shared memory per batch
+constexpr int kSub = 8;         // rows a group of the walk and a product: the k of m16n8k8
+constexpr int kBufStride = 40;  // row stride of a warp's weight buffer: the A fragments' loads
+                                // (row tq, pixel gq) hit 32 banks
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kParts = GGT_FWD_PARTS;
+constexpr int kCtasPerSm = GGT_FWD_CTAS_PER_SM;  // the launch bound: at most 65536 / (kCtasPerSm
+                                                 // 1024 / kParts) registers a thread
+constexpr bool kPrefetch = GGT_FWD_PREFETCH != 0;
+constexpr bool kCompact = GGT_FWD_COMPACT != 0;
+constexpr bool kCull = GGT_FWD_CULL != 0;
+constexpr bool kAccSmem = GGT_FWD_ACC_SMEM != 0;
+constexpr bool kMtileSkip = GGT_FWD_MTILE_SKIP != 0;
+constexpr bool kTimes = GGT_FWD_TIMES != 0;
+constexpr int kTimedCtas = 8192;
+constexpr bool kRowWarps = GGT_FWD_ROW_WARPS != 0;
+constexpr bool kSkipProduct = GGT_FWD_SKIP_PRODUCT != 0;
+constexpr int kSlots = kCompact ? 2 * kSub : kSub;  // weight rows a warp's buffer holds
+static_assert(kParts == 1 || kParts == 2 || kParts == 4, "GGT_FWD_PARTS is 1, 2 or 4");
+static_assert(kBatch % kSub == 0, "GGT_FWD_BATCH is a multiple of 8");
 
-// The whole per-tile forward of tile t, run by its CTA (one thread per pixel), over the rows
-// that `rows` (PairRows or TableRows) gives.
+// Shared memory of the body, in 4-byte words: the batch's geometry (kBatch x 8), its colours split
+// (kBatch x 8 NT x 2), then for each warp its accumulators (2 NT D fragments of 32 lanes x 4, with
+// GGT_FWD_ACC_SMEM), its weight buffer (kSlots x kBufStride) and the batch rows of its slots
+// (kSlots), then the batch's indices (with the prefetch: two index buffers and two kBatch x
+// (6 + C) raw row buffers). Every region starts on 16 bytes.
+template <int C>
+struct FwdSmem {
+  static constexpr int NT = (C + 7) / 8;  // 8-channel n tiles
+  static constexpr int kGeo = kBatch * 8;
+  static constexpr int kCol = kBatch * NT * 8 * 2;
+  static constexpr int kAcc = kAccSmem ? 2 * NT * 32 * 4 : 0;
+  static constexpr int kWarp = kAcc + kSlots * kBufStride + kSlots;
+  static constexpr int kRaw = kBatch * (6 + C);
+
+  static size_t bytes(int threads) {
+    const size_t words = kGeo + kCol + (size_t)(threads / 32) * kWarp +
+                         (kPrefetch ? 2 * (size_t)kRaw + 2 * kBatch : kBatch);
+    return 4 * words;
+  }
+};
+
+// Threads of each CTA and CTAs of each tile: whole warps, at most 1024 / kParts threads a CTA.
+__host__ __device__ __forceinline__ int cta_threads(int p) {
+  const int t = (p + 31) / 32 * 32;
+  return t < 1024 / kParts ? t : 1024 / kParts;
+}
+__host__ __device__ __forceinline__ int tile_ctas(int p) {
+  return (p + cta_threads(p) - 1) / cta_threads(p);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src) : "memory");
+}
+
+// Half-extents (rx, ry) of the box around a row's centre outside which no pixel passes the alpha
+// test: alpha >= 1/255 needs sigma = 0.5 d^T [[a, b], [b, c]] d <= L = log(255 o), an ellipse
+// with |dx| <= sqrt(2 L c / det), |dy| <= sqrt(2 L a / det). L takes 0.05 more and the extents
+// 0.1% more, far beyond the rounding of the walk's sigma and alpha wherever the form is
+// positive definite with det > 1e-4 a c; elsewhere the box is unbounded. Opacity below 1/255:
+// no pixel passes, an empty box.
+__device__ __forceinline__ float2 cull_box(float a, float b, float c, float o) {
+  if (!(o >= kAlphaCutoff)) return make_float2(-1.f, -1.f);
+  const float det = a * c - b * b;
+  if (!(a > 0.f && c > 0.f && det > 1e-4f * a * c)) return make_float2(INFINITY, INFINITY);
+  const float l2 = 2.f * (logf(255.f * o) + 0.05f);
+  return make_float2(sqrtf(l2 * c / det) * 1.001f + 1e-3f, sqrtf(l2 * a / det) * 1.001f + 1e-3f);
+}
+
+// Lays out rows [0, n) of a batch, row r at row(r) (global or shared memory), for the walk and
+// the product: geometry in 8-float rows (x, y, conic a, b | conic c, opacity, the cull box's
+// half-extents); colours of rows [0, n) x channels [0, 8 NT) split into TF32 {hi, lo} at
+// s_col[r 8 NT + c], zero past C.
+template <int C, class RowOf>
+__device__ __forceinline__ void split_batch(int n, const RowOf& row, float4* s_geo, float2* s_col) {
+  constexpr int CP = FwdSmem<C>::NT * 8;
+  for (int r = threadIdx.x; r < n; r += blockDim.x) {
+    const float* src = row(r);
+    const float2 box = cull_box(src[2], src[3], src[4], src[5]);
+    s_geo[2 * r] = make_float4(src[0], src[1], src[2], src[3]);
+    s_geo[2 * r + 1] = make_float4(src[4], src[5], box.x, box.y);
+  }
+  for (int i = threadIdx.x; i < n * CP; i += blockDim.x) {
+    const int r = i / CP, c = i - r * CP;
+    uint32_t hi, lo;
+    split_tf32(c < C ? row(r)[6 + c] : 0.f, hi, lo);
+    s_col[i] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
+  }
+}
+
+// acc[pixel][channel] += sum_k w[k][pixel] colour[row k][channel] on the tensor cores, 3xTF32:
+// M the warp's 32 pixels (two m tiles), N the channels (NT n tiles), K the 8 weight rows at
+// w (kBufStride apart); the lane's B rows are lo (fragment row tq) and hi (tq + 4). The
+// accumulators are the D fragments, in registers (racc) or in the lane's shared slots (sacc).
+// Bit m of `mtiles` (warp-uniform) says that m tile m (the warp's pixels 16 m .. 16 m + 15) has a
+// nonzero weight; the other takes no product.
+template <int NT>
+__device__ __forceinline__ void colour_product(float (&racc)[2][NT][4], float4* sacc,
+                                               const float* w, const float2* s_col, int lo,
+                                               int hi, int lane, unsigned mtiles) {
+  const int gq = lane >> 2, tq = lane & 3;
+  const float2* c0 = s_col + lo * NT * 8 + gq;
+  const float2* c1 = s_col + hi * NT * 8 + gq;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    if (!(mtiles >> mt & 1u)) continue;  // no weight of the m tile's 16 pixels is nonzero
+    const float* wr = w + tq * kBufStride + mt * 16 + gq;
+    uint32_t ah[4], al[4];
+    split_tf32(wr[0], ah[0], al[0]);
+    split_tf32(wr[8], ah[1], al[1]);
+    split_tf32(wr[4 * kBufStride], ah[2], al[2]);
+    split_tf32(wr[4 * kBufStride + 8], ah[3], al[3]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float2 b0 = c0[nt * 8], b1 = c1[nt * 8];
+      const uint32_t bh[2] = {__float_as_uint(b0.x), __float_as_uint(b1.x)};
+      const uint32_t bl[2] = {__float_as_uint(b0.y), __float_as_uint(b1.y)};
+      if constexpr (kAccSmem) {
+        float4* slot = sacc + (mt * NT + nt) * 32 + lane;
+        const float4 v = *slot;
+        float d[4] = {v.x, v.y, v.z, v.w};
+        mma_3xtf32_split(d, ah, al, bh, bl);
+        *slot = make_float4(d[0], d[1], d[2], d[3]);
+      } else {
+        mma_3xtf32_split(racc[mt][nt], ah, al, bh, bl);
+      }
+    }
+  }
+}
+
+// The whole per-tile forward of part `part` of tile t's pixels, run by one CTA (one thread a
+// pixel), over the rows that `rows` (PairRows or TableRows) gives.
 template <int C, class Rows>
 __device__ __forceinline__ void composite_tile(
-    int t, const Rows& rows, const int32_t* __restrict__ counts,
+    int t, int part, const Rows& rows, const int32_t* __restrict__ counts,
     const float* __restrict__ bg, int tw, int ts, float* __restrict__ out,
     float* __restrict__ alpha_out, float* __restrict__ logt_out,
     float* __restrict__ ncomp_out) {
   constexpr int A = 6 + C;
-  __shared__ float s_attr[kBatch * A];
-  __shared__ int32_t s_gid[kBatch];
-
-  const int lin = threadIdx.x;
+  constexpr int NT = FwdSmem<C>::NT;
+  extern __shared__ float4 smem4[];
+  float4* s_geo = smem4;  // kBatch x 2
+  float2* s_col = reinterpret_cast<float2*>(smem4 + FwdSmem<C>::kGeo / 4);
+  float* s_warps = reinterpret_cast<float*>(smem4) + FwdSmem<C>::kGeo + FwdSmem<C>::kCol;
   const int nthreads = blockDim.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* s_mine = s_warps + warp * FwdSmem<C>::kWarp;
+  float4* sacc = reinterpret_cast<float4*>(s_mine);                     // 2 NT x 32 float4
+  float* s_buf = s_mine + FwdSmem<C>::kAcc;                              // kSlots x kBufStride
+  int32_t* s_rows = reinterpret_cast<int32_t*>(s_buf + kSlots * kBufStride);  // kSlots
+  float* s_raw = s_warps + (nthreads / 32) * FwdSmem<C>::kWarp;  // prefetch only: 2 x kRaw
+  int32_t* s_gid = reinterpret_cast<int32_t*>(s_raw + (kPrefetch ? 2 * FwdSmem<C>::kRaw : 0));
+  const int tq = lane & 3;
+
+  const int P = ts * ts;
+  const bool blocks = ts % 8 == 0 && !kRowWarps;  // 8 x 4 pixel warps, else 32 pixels in a row
+  const int lin = part * nthreads + threadIdx.x;
+  const int pl = blocks ? tile_pixel(lin, ts) : lin;
+  const int ix = (t % tw) * ts + pl % ts, iy = (t / tw) * ts + pl / ts;
+  const float px = (float)ix, py = (float)iy;
   const size_t start = rows.start(t);
   const int count = counts[t];
-  const float px = (float)((t % tw) * ts + lin % ts);
-  const float py = (float)((t / tw) * ts + lin / ts);
+  // the warp's pixel bounds, for the cull test (an idle lane counts for none)
+  const bool active = lin < P;
+  const float xlo = (float)__reduce_min_sync(kFull, active ? ix : INT_MAX);
+  const float xhi = (float)__reduce_max_sync(kFull, active ? ix : INT_MIN);
+  const float ylo = (float)__reduce_min_sync(kFull, active ? iy : INT_MAX);
+  const float yhi = (float)__reduce_max_sync(kFull, active ? iy : INT_MIN);
 
-  float acc[C];
+  float racc[2][NT][4];
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.f;
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) racc[mt][nt][e] = 0.f;
+      if (kAccSmem) sacc[(mt * NT + nt) * 32 + lane] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   float cum_all = 0.f;    // sum of log(1 - alpha) over every walked entry
   float logt_comp = 0.f;  // the same over composited entries
-  int cut = -1;
+  int cut = active ? -1 : 0;  // an idle lane (past the tile's pixels) is stopped from the start
+  int head = 0, fill = 0;  // compaction: weight rows waiting in slots [head, head + fill) mod kSlots
+  unsigned mine = 0u;      // the slots in which this lane's weight is nonzero
+  // the m tiles of the slots [first, first + 8) with a nonzero weight (warp-uniform)
+  auto mtiles_of = [&](int first) {
+    const unsigned any = __ballot_sync(kFull, (mine >> first & 0xFFu) != 0u);
+    return kMtileSkip ? (unsigned)((any & 0xFFFFu) != 0u) | (unsigned)(any >> 16 != 0u) << 1 : 3u;
+  };
 
-  for (int base = 0; base < count; base += kBatch) {
-    const int n = min(kBatch, count - base);
-    __syncthreads();  // every pixel is done with the previous batch
-    rows.template stage<A>(start + base, n, s_attr, s_gid);
+  const int nbatch = (count + kBatch - 1) / kBatch;
+  auto batch_rows = [&](int b) { return min(kBatch, count - b * kBatch); };
+  // prefetch: the raw rows of batch b into buffer `slot`, through the indices in s_gid[slot]
+  auto issue = [&](int b, int slot) {
+    const size_t first = start + (size_t)b * kBatch;
+    const int n = batch_rows(b);
+    float* dst = s_raw + slot * FwdSmem<C>::kRaw;
+    const int32_t* gid = s_gid + slot * kBatch;
+    for (int i = threadIdx.x; i < n * A; i += nthreads) {
+      const int r = i / A;
+      cp_async4(dst + i, rows.template row<A>(first, r, gid) + (i - r * A));
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  if (kPrefetch && nbatch > 0) {
+    rows.load_index(start, batch_rows(0), s_gid);
     __syncthreads();
-    if (cut < 0) {
-      for (int j = 0; j < n; ++j) {
-        const float* row = s_attr + j * A;
-        const float dx = __fsub_rn(px, row[0]);
-        const float dy = __fsub_rn(py, row[1]);
-        const float sa = __fmul_rn(__fmul_rn(row[2], dx), dx);
-        const float sc = __fmul_rn(__fmul_rn(row[4], dy), dy);
-        const float sb = __fmul_rn(__fmul_rn(row[3], dx), dy);
-        const float sigma = __fadd_rn(__fmul_rn(0.5f, __fadd_rn(sa, sc)), sb);
-        const float a = fminf(kAlphaClamp, __fmul_rn(row[5], expf(-sigma)));
-        if (!(sigma >= 0.f && a >= kAlphaCutoff)) continue;  // alpha 0: log term 0
-        const float lt = log1pf(-a);
-        const float cum = __fadd_rn(cum_all, lt);
-        if (!(cum > kLogEps)) {
-          cut = base + j;
-          break;
-        }
-        const float w = __fmul_rn(a, expf(logt_comp));
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[c] = fmaf(w, row[6 + c], acc[c]);
-        logt_comp = __fadd_rn(logt_comp, lt);
-        cum_all = cum;
+    issue(0, 0);
+    if (nbatch > 1) rows.load_index(start + kBatch, batch_rows(1), s_gid + kBatch);
+  }
+
+  for (int b = 0; b < nbatch; ++b) {
+    const int base = b * kBatch;
+    const int n = batch_rows(b);
+    const size_t first = start + base;
+    if (kPrefetch) {
+      asm volatile("cp.async.wait_all;" ::: "memory");
+      __syncthreads();  // batch b's rows have landed; every warp is done with batch b - 1
+      const int slot = b & 1;
+      if (b + 1 < nbatch) issue(b + 1, slot ^ 1);
+      const float* raw = s_raw + slot * FwdSmem<C>::kRaw;
+      split_batch<C>(n, [&](int r) { return raw + r * A; }, s_geo, s_col);
+      if (b + 2 < nbatch) {
+        rows.load_index(first + 2 * kBatch, batch_rows(b + 2), s_gid + slot * kBatch);
       }
+    } else {  // the barrier that ended batch b - 1 is behind every warp
+      rows.load_index(first, n, s_gid);
+      __syncthreads();
+      split_batch<C>(n, [&](int r) { return rows.template row<A>(first, r, s_gid); }, s_geo,
+                     s_col);
+    }
+    __syncthreads();
+
+    // each warp on its own, windows of 32 rows
+    for (int w0 = 0; w0 < n; w0 += 32) {
+      // the cull: lane l tests row w0 + l against the warp's pixels (GGT_FWD_CULL)
+      unsigned todo;
+      {
+        const int rl = w0 + lane;
+        bool keep = rl < n;
+        if (kCull && keep) {
+          const float4 g0 = s_geo[2 * rl], g1 = s_geo[2 * rl + 1];
+          keep = !(g0.x + g1.z < xlo || g0.x - g1.z > xhi || g0.y + g1.w < ylo ||
+                   g0.y - g1.w > yhi);
+        }
+        todo = __ballot_sync(kFull, keep);
+      }
+      // the kept rows in order, kSub at a time
+      while (todo != 0u && !__all_sync(kFull, cut >= 0)) {
+        // 1. sigma and alpha of the group's rows, independent of one another
+        float av[kSub];
+        int rj[kSub];
+        unsigned ok = 0u;
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) {
+          const bool has = todo != 0u;
+          const int r = has ? w0 + __ffs(todo) - 1 : w0;
+          todo &= todo - 1u;
+          rj[j] = r;
+          const float4 g0 = s_geo[2 * r];      // x, y, conic a, conic b
+          const float4 g1 = s_geo[2 * r + 1];  // conic c, opacity, cull box
+          const float dx = __fsub_rn(px, g0.x);
+          const float dy = __fsub_rn(py, g0.y);
+          const float sa = __fmul_rn(__fmul_rn(g0.z, dx), dx);
+          const float sc = __fmul_rn(__fmul_rn(g1.x, dy), dy);
+          const float sb = __fmul_rn(__fmul_rn(g0.w, dx), dy);
+          const float sigma = __fadd_rn(__fmul_rn(0.5f, __fadd_rn(sa, sc)), sb);
+          av[j] = fminf(kAlphaClamp, __fmul_rn(g1.y, expf(-sigma)));
+          if (has && sigma >= 0.f && av[j] >= kAlphaCutoff) ok |= 1u << j;  // else alpha 0
+        }
+        // 2. the cut test and the weight w = alpha T_before of each row, in order
+        bool live = false;
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) {
+          float w = 0.f;
+          if ((ok >> j & 1u) && cut < 0) {
+            const float lt = log1pf(-av[j]);
+            const float cum = __fadd_rn(cum_all, lt);
+            if (!(cum > kLogEps)) {
+              cut = base + rj[j];
+            } else {
+              w = __fmul_rn(av[j], expf(logt_comp));
+              logt_comp = __fadd_rn(logt_comp, lt);
+              cum_all = cum;
+              live = true;
+            }
+          }
+          if (kCompact) {  // a row in which some lane composites takes the next slot
+            if (__any_sync(kFull, w != 0.f)) {
+              const int s = (head + fill) & (kSlots - 1);
+              s_buf[s * kBufStride + lane] = w;
+              if (lane == 0) s_rows[s] = rj[j];
+              mine |= (unsigned)(w != 0.f) << s;
+              ++fill;
+            }
+          } else {
+            s_buf[j * kBufStride + lane] = w;
+            if (lane == 0) s_rows[j] = rj[j];
+            mine |= (unsigned)(w != 0.f) << j;
+          }
+        }
+        // 3. the colour product of 8 weight rows
+        if (kSkipProduct) {
+          fill = 0;
+          mine = 0u;
+        } else if (kCompact) {
+          if (fill >= kSub) {
+            __syncwarp();
+            colour_product<NT>(racc, sacc, s_buf + head * kBufStride, s_col, s_rows[head + tq],
+                               s_rows[head + tq + 4], lane, mtiles_of(head));
+            __syncwarp();  // the slots are read before they are written again
+            mine &= ~(0xFFu << head);
+            head ^= kSub;
+            fill -= kSub;
+          }
+        } else if (__any_sync(kFull, live)) {
+          __syncwarp();
+          colour_product<NT>(racc, sacc, s_buf, s_col, s_rows[tq], s_rows[tq + 4], lane,
+                             mtiles_of(0));
+          __syncwarp();
+          mine = 0u;
+        } else {
+          mine = 0u;
+        }
+      }
+    }
+    if (kCompact && fill > 0) {  // the batch's last rows, padded with zero weights, before the
+                                 // next batch replaces the colours
+      for (int k = fill; k < kSub; ++k) {
+        const int s = (head + k) & (kSlots - 1);
+        s_buf[s * kBufStride + lane] = 0.f;
+        if (lane == 0) s_rows[s] = 0;
+      }
+      __syncwarp();
+      colour_product<NT>(racc, sacc, s_buf + head * kBufStride, s_col, s_rows[head + tq],
+                         s_rows[head + tq + 4], lane, mtiles_of(head));
+      __syncwarp();
+      mine = 0u;
+      head ^= kSub;
+      fill = 0;
     }
     if (__syncthreads_count(cut >= 0) == nthreads) break;
   }
+  if (kPrefetch) asm volatile("cp.async.wait_all;" ::: "memory");
 
   const float t_final = expf(logt_comp);
-  const size_t pix = (size_t)t * nthreads + lin;
-  float* o = out + pix * C;
+  if (active) {
+    const size_t pix = (size_t)t * P + pl;
+    alpha_out[pix] = 1.0f - t_final;
+    logt_out[pix] = logt_comp;
+    ncomp_out[pix] =
+        (float)(cut >= 0 ? cut : (count + kWalkChunk - 1) / kWalkChunk * kWalkChunk);
+  }
+  // the D fragments: rows gq and gq + 8 of each m tile are the warp's pixels (lanes) q, columns
+  // 2 tq and 2 tq + 1 of each n tile the channels
+  const int lin0 = part * nthreads + warp * 32;
 #pragma unroll
-  for (int c = 0; c < C; ++c) o[c] = __fadd_rn(acc[c], __fmul_rn(t_final, bg[c]));
-  alpha_out[pix] = 1.0f - t_final;
-  logt_out[pix] = logt_comp;
-  ncomp_out[pix] = (float)(cut >= 0 ? cut : (count + kWalkChunk - 1) / kWalkChunk * kWalkChunk);
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (kAccSmem) {
+        const float4 v = sacc[(mt * NT + nt) * 32 + lane];
+        racc[mt][nt][0] = v.x, racc[mt][nt][1] = v.y, racc[mt][nt][2] = v.z, racc[mt][nt][3] = v.w;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = mt * 16 + h * 8 + (lane >> 2);
+      const float tf = __shfl_sync(kFull, t_final, q);
+      if (lin0 + q < P) {
+        float* o = out + ((size_t)t * P + (blocks ? tile_pixel(lin0 + q, ts) : lin0 + q)) * C;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = nt * 8 + 2 * tq + e;
+            if (c < C) o[c] = __fadd_rn(racc[mt][nt][2 * h + e], __fmul_rn(tf, bg[c]));
+          }
+        }
+      }
+    }
+  }
 }
 
-// K1: one CTA per tile.
+#if GGT_FWD_TIMES
+__device__ unsigned long long g_cta_times[3 * kTimedCtas];  // start ns, end ns, SM of each CTA
+#endif
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// K1: tile_ctas CTAs per tile.
 template <int C>
-__global__ void __launch_bounds__(1024, 1) composite_pairs_fwd_kernel(
+__global__ void __launch_bounds__(1024 / kParts, kCtasPerSm) composite_pairs_fwd_kernel(
     const int32_t* __restrict__ pair_gidx, const int32_t* __restrict__ starts,
     const int32_t* __restrict__ counts, const float* __restrict__ attrs,
-    const float* __restrict__ bg, int tw, int ts, float* __restrict__ out,
+    const float* __restrict__ bg, int parts, int tw, int ts, float* __restrict__ out,
     float* __restrict__ alpha_out, float* __restrict__ logt_out,
     float* __restrict__ ncomp_out) {
-  composite_tile<C>(blockIdx.x, PairRows{pair_gidx, starts, attrs}, counts, bg, tw, ts, out,
-                    alpha_out, logt_out, ncomp_out);
+  const unsigned long long t0 = kTimes ? global_ns() : 0ull;
+  composite_tile<C>(blockIdx.x / parts, blockIdx.x % parts, PairRows{pair_gidx, starts, attrs},
+                    counts, bg, tw, ts, out, alpha_out, logt_out, ncomp_out);
+#if GGT_FWD_TIMES
+  __syncthreads();
+  if (threadIdx.x == 0 && blockIdx.x < kTimedCtas) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    g_cta_times[3 * blockIdx.x] = t0;
+    g_cta_times[3 * blockIdx.x + 1] = global_ns();
+    g_cta_times[3 * blockIdx.x + 2] = sm;
+  }
+#endif
 }
 
-// K3: one CTA per tile, rows from the packed (T, kt, 6 + C) table.
+// K3: as K1, rows from the packed (T, kt, 6 + C) table.
 template <int C>
-__global__ void __launch_bounds__(1024, 1) composite_tables_fwd_kernel(
+__global__ void __launch_bounds__(1024 / kParts, kCtasPerSm) composite_tables_fwd_kernel(
     const int32_t* __restrict__ counts, const float* __restrict__ tables, int kt,
-    const float* __restrict__ bg, int tw, int ts, float* __restrict__ out,
+    const float* __restrict__ bg, int parts, int tw, int ts, float* __restrict__ out,
     float* __restrict__ alpha_out, float* __restrict__ logt_out,
     float* __restrict__ ncomp_out) {
-  composite_tile<C>(blockIdx.x, TableRows{tables, kt}, counts, bg, tw, ts, out, alpha_out,
-                    logt_out, ncomp_out);
+  composite_tile<C>(blockIdx.x / parts, blockIdx.x % parts, TableRows{tables, kt}, counts, bg, tw,
+                    ts, out, alpha_out, logt_out, ncomp_out);
 }
 
-// Tile of this CTA in a grid of two-CTA clusters: 2 clusterid.x + cluster_ctarank.
-__device__ __forceinline__ int cluster_pair_tile() {
+// K5: tiles 2j and 2j + 1 per cluster j of 2 parts CTAs, cluster_ctarank r taking part r % parts
+// of tile 2j + r / parts.
+template <int C>
+__global__ void __launch_bounds__(1024 / kParts, kCtasPerSm) composite_pairs_fwd2_kernel(
+    const int32_t* __restrict__ pair_gidx, const int32_t* __restrict__ starts,
+    const int32_t* __restrict__ counts, const float* __restrict__ attrs,
+    const float* __restrict__ bg, int parts, int num_tiles, int tw, int ts,
+    float* __restrict__ out, float* __restrict__ alpha_out, float* __restrict__ logt_out,
+    float* __restrict__ ncomp_out) {
   unsigned cluster, rank;
   asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(cluster));
   asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
-  return 2 * (int)cluster + (int)rank;
+  const int t = 2 * (int)cluster + (int)rank / parts;
+  if (t >= num_tiles) return;  // the phantom tile of an odd tile count: before any barrier
+  composite_tile<C>(t, (int)rank % parts, PairRows{pair_gidx, starts, attrs}, counts, bg, tw, ts,
+                    out, alpha_out, logt_out, ncomp_out);
 }
 
-// K5: two tiles per two-CTA cluster.
-template <int C>
-__global__ void __launch_bounds__(1024, 1) composite_pairs_fwd2_kernel(
-    const int32_t* __restrict__ pair_gidx, const int32_t* __restrict__ starts,
-    const int32_t* __restrict__ counts, const float* __restrict__ attrs,
-    const float* __restrict__ bg, int num_tiles, int tw, int ts, float* __restrict__ out,
-    float* __restrict__ alpha_out, float* __restrict__ logt_out,
-    float* __restrict__ ncomp_out) {
-  const int t = cluster_pair_tile();
-  if (t >= num_tiles) return;  // the phantom CTA of an odd tile count: before any barrier
-  composite_tile<C>(t, PairRows{pair_gidx, starts, attrs}, counts, bg, tw, ts, out, alpha_out,
-                    logt_out, ncomp_out);
+// Lets `kernel` take `bytes` of dynamic shared memory, with the SM's carveout at its most shared
+// memory so that kCtasPerSm CTAs fit an SM.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
 }
 
-cudaLaunchConfig_t pair_config(int num_tiles, int p, cudaStream_t s, cudaLaunchAttribute* attr) {
+cudaLaunchConfig_t pair_config(int num_tiles, int p, size_t bytes, cudaStream_t s,
+                               cudaLaunchAttribute* attr) {
+  const int parts = tile_ctas(p);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2 * ((num_tiles + 1) / 2));
-  cfg.blockDim = dim3(p);
-  cfg.dynamicSmemBytes = 0;
+  cfg.gridDim = dim3(2 * parts * ((num_tiles + 1) / 2));
+  cfg.blockDim = dim3(cta_threads(p));
+  cfg.dynamicSmemBytes = bytes;
   cfg.stream = s;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = 2;
+  attr->val.clusterDim.x = 2 * parts;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -215,26 +609,63 @@ template <int C>
 int launch_fwd2(const void* pair_gidx, const void* starts, const void* counts, const void* attrs,
                 const void* bg, int num_tiles, int tw, int ts, void* out, void* alpha, void* logt,
                 void* ncomp, cudaStream_t s) {
+  const int p = ts * ts;
+  const size_t bytes = FwdSmem<C>::bytes(cta_threads(p));
+  cudaError_t err = allow_smem(composite_pairs_fwd2_kernel<C>, bytes);
+  if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = pair_config(num_tiles, ts * ts, s, &attr);
-  cudaError_t err = cudaLaunchKernelEx(
+  const cudaLaunchConfig_t cfg = pair_config(num_tiles, p, bytes, s, &attr);
+  err = cudaLaunchKernelEx(
       &cfg, composite_pairs_fwd2_kernel<C>, (const int32_t*)pair_gidx, (const int32_t*)starts,
-      (const int32_t*)counts, (const float*)attrs, (const float*)bg, num_tiles, tw, ts,
-      (float*)out, (float*)alpha, (float*)logt, (float*)ncomp);
+      (const int32_t*)counts, (const float*)attrs, (const float*)bg, tile_ctas(p), num_tiles, tw,
+      ts, (float*)out, (float*)alpha, (float*)logt, (float*)ncomp);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <int C>
 int max_clusters_fwd2(int ts, int* n) {
+  const int p = ts * ts;
+  const size_t bytes = FwdSmem<C>::bytes(cta_threads(p));
+  cudaError_t err = allow_smem(composite_pairs_fwd2_kernel<C>, bytes);
+  if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = pair_config(2, ts * ts, 0, &attr);
+  const cudaLaunchConfig_t cfg = pair_config(2, p, bytes, 0, &attr);
   return (int)cudaOccupancyMaxActiveClusters(n, composite_pairs_fwd2_kernel<C>, &cfg);
+}
+
+template <int C>
+int launch_fwd(const void* pair_gidx, const void* starts, const void* counts, const void* attrs,
+               const void* bg, int num_tiles, int tw, int ts, void* out, void* alpha, void* logt,
+               void* ncomp, cudaStream_t s) {
+  const int p = ts * ts, threads = cta_threads(p), parts = tile_ctas(p);
+  const size_t bytes = FwdSmem<C>::bytes(threads);
+  cudaError_t err = allow_smem(composite_pairs_fwd_kernel<C>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  composite_pairs_fwd_kernel<C><<<parts * num_tiles, threads, bytes, s>>>(
+      (const int32_t*)pair_gidx, (const int32_t*)starts, (const int32_t*)counts,
+      (const float*)attrs, (const float*)bg, parts, tw, ts, (float*)out, (float*)alpha,
+      (float*)logt, (float*)ncomp);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int launch_tables(const void* counts, const void* tables, int kt, const void* bg, int num_tiles,
+                  int tw, int ts, void* out, void* alpha, void* logt, void* ncomp,
+                  cudaStream_t s) {
+  const int p = ts * ts, threads = cta_threads(p), parts = tile_ctas(p);
+  const size_t bytes = FwdSmem<C>::bytes(threads);
+  cudaError_t err = allow_smem(composite_tables_fwd_kernel<C>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  composite_tables_fwd_kernel<C><<<parts * num_tiles, threads, bytes, s>>>(
+      (const int32_t*)counts, (const float*)tables, kt, (const float*)bg, parts, tw, ts,
+      (float*)out, (float*)alpha, (float*)logt, (float*)ncomp);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches K1 on `stream` (a cudaStream_t) and returns cudaGetLastError(); 0 is success.
+// Launches K1 on `stream` (a cudaStream_t) and returns the CUDA error code; 0 is success.
 // Pointers are device pointers: pair_gidx (B,), starts (T,), counts (T,) int32 with
 // counts[t] <= B - starts[t]; attrs (N, 6 + C), bg (C,) float32; outputs out (T, ts*ts, C),
 // alpha / logt / ncomp (T, ts*ts) float32.
@@ -244,23 +675,20 @@ extern "C" int ggt_composite_pairs_fwd(const void* pair_gidx, const void* starts
                                        void* alpha, void* logt, void* ncomp, void* stream) {
   const int p = ts * ts;
   if (num_tiles <= 0 || p < 1 || p > 1024) return (int)cudaErrorInvalidValue;
-  const dim3 grid(num_tiles), block(p);
   cudaStream_t s = (cudaStream_t)stream;
-#define GGT_LAUNCH(CH)                                                                   \
-  composite_pairs_fwd_kernel<CH><<<grid, block, 0, s>>>(                                \
-      (const int32_t*)pair_gidx, (const int32_t*)starts, (const int32_t*)counts,         \
-      (const float*)attrs, (const float*)bg, tw, ts, (float*)out, (float*)alpha,         \
-      (float*)logt, (float*)ncomp)
   switch (channels) {
-    case 3: GGT_LAUNCH(3); break;
-    case 39: GGT_LAUNCH(39); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 3:
+      return launch_fwd<3>(pair_gidx, starts, counts, attrs, bg, num_tiles, tw, ts, out, alpha,
+                           logt, ncomp, s);
+    case 39:
+      return launch_fwd<39>(pair_gidx, starts, counts, attrs, bg, num_tiles, tw, ts, out, alpha,
+                            logt, ncomp, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-#undef GGT_LAUNCH
-  return (int)cudaGetLastError();
 }
 
-// Launches K3 on `stream` and returns cudaGetLastError(); 0 is success. Device pointers: counts
+// Launches K3 on `stream` and returns the CUDA error code; 0 is success. Device pointers: counts
 // (T,) int32 with 0 <= counts[t] <= kt; tables (T, kt, 6 + C), bg (C,) float32; outputs as K1's.
 extern "C" int ggt_composite_tables_fwd(const void* counts, const void* tables, const void* bg,
                                         int num_tiles, int kt, int tw, int ts, int channels,
@@ -268,23 +696,24 @@ extern "C" int ggt_composite_tables_fwd(const void* counts, const void* tables, 
                                         void* stream) {
   const int p = ts * ts;
   if (num_tiles <= 0 || kt < 0 || p < 1 || p > 1024) return (int)cudaErrorInvalidValue;
-  const dim3 grid(num_tiles), block(p);
   cudaStream_t s = (cudaStream_t)stream;
-#define GGT_LAUNCH(CH)                                                                      \
-  composite_tables_fwd_kernel<CH><<<grid, block, 0, s>>>(                                  \
-      (const int32_t*)counts, (const float*)tables, kt, (const float*)bg, tw, ts, (float*)out, \
-      (float*)alpha, (float*)logt, (float*)ncomp)
   switch (channels) {
-    case 3: GGT_LAUNCH(3); break;
-    case 7: GGT_LAUNCH(7); break;
-    case 39: GGT_LAUNCH(39); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 3:
+      return launch_tables<3>(counts, tables, kt, bg, num_tiles, tw, ts, out, alpha, logt, ncomp,
+                              s);
+    case 7:
+      return launch_tables<7>(counts, tables, kt, bg, num_tiles, tw, ts, out, alpha, logt, ncomp,
+                              s);
+    case 39:
+      return launch_tables<39>(counts, tables, kt, bg, num_tiles, tw, ts, out, alpha, logt, ncomp,
+                               s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-#undef GGT_LAUNCH
-  return (int)cudaGetLastError();
 }
 
-// Launches K5 (same arguments and outputs as K1) in two-CTA clusters; returns the CUDA error.
+// Launches K5 (same arguments and outputs as K1) in clusters of two tiles; returns the CUDA
+// error.
 extern "C" int ggt_composite_pairs_fwd2(const void* pair_gidx, const void* starts,
                                         const void* counts, const void* attrs, const void* bg,
                                         int num_tiles, int tw, int ts, int channels, void* out,
@@ -304,14 +733,33 @@ extern "C" int ggt_composite_pairs_fwd2(const void* pair_gidx, const void* start
   }
 }
 
-// cudaOccupancyMaxActiveClusters for K5 at this channel count and tile size: how many two-CTA
-// clusters the card can hold at once (0: it cannot launch). Returns the CUDA error.
+// cudaOccupancyMaxActiveClusters for K5 at this channel count and tile size, with its dynamic
+// shared memory: how many clusters the card can hold at once (0: it cannot launch).
 extern "C" int ggt_composite_pairs_fwd2_max_clusters(int channels, int ts, int* n) {
   if (ts * ts < 1 || ts * ts > 1024) return (int)cudaErrorInvalidValue;
   switch (channels) {
     case 3: return max_clusters_fwd2<3>(ts, n);
     case 39: return max_clusters_fwd2<39>(ts, n);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+#if GGT_FWD_TIMES
+// The (start ns, end ns, SM) of K1's first n CTAs in its last launch, into host memory.
+extern "C" int ggt_composite_fwd_cta_times(void* host, int n) {
+  if (n < 0 || n > kTimedCtas) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(host, g_cta_times, sizeof(unsigned long long) * 3 * n);
+}
+#endif
+
+// Dynamic shared memory of one CTA of K1 / K3 / K5 at this channel count and tile size, in bytes.
+extern "C" int ggt_composite_fwd_smem_bytes(int channels, int ts) {
+  const int threads = cta_threads(ts * ts);
+  switch (channels) {
+    case 3: return (int)FwdSmem<3>::bytes(threads);
+    case 7: return (int)FwdSmem<7>::bytes(threads);
+    case 39: return (int)FwdSmem<39>::bytes(threads);
+    default: return -1;
   }
 }
 

@@ -22,7 +22,7 @@ from gaussiangrasper_torch.data.dataparsers.base import (
     apply_transform_to_points,
     auto_orient_and_center_poses,
 )
-from gaussiangrasper_torch.utils.image_io import png_size
+from gaussiangrasper_torch.utils.image_io import image_size
 
 
 @dataclass
@@ -67,7 +67,7 @@ class TransformsJsonParser:
             w = f.get("w", meta.get("w"))
             h = f.get("h", meta.get("h"))
             if w is None:
-                w, h = png_size(data / name)
+                w, h = image_size(data / name)
             if "fl_x" in f or "fl_x" in meta:
                 fx = f.get("fl_x", meta.get("fl_x"))
                 fy = f.get("fl_y", meta.get("fl_y", fx))

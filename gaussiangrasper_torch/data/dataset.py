@@ -25,7 +25,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from gaussiangrasper_torch.data.dataparsers.base import DataparserOutputs
-from gaussiangrasper_torch.utils.image_io import read_png
+from gaussiangrasper_torch.utils.image_io import read_image
 
 
 def _sibling(image_path: Path, kind: str) -> Optional[Path]:
@@ -57,9 +57,10 @@ class InputDataset:
         return len(self.outputs.image_filenames)
 
     def load_image(self, idx: int) -> np.ndarray:
-        """(H, W, 3) float32 in [0, 1]; grey is repeated, alpha composited
-        over white."""
-        img = read_png(self.outputs.image_filenames[idx])
+        """(H, W, 3) float32 in [0, 1] from a PNG or JPEG frame; grey is
+        repeated, alpha composited over white. A 16-bit grey PNG keeps its
+        0-65535 range over 255, as the reference's Pillow array does."""
+        img = read_image(self.outputs.image_filenames[idx])
         if img.ndim == 2:
             img = img[..., None].repeat(3, -1)
         if img.shape[-1] == 2:  # grey + alpha

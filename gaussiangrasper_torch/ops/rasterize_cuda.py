@@ -64,10 +64,32 @@ rounded up to this. The port reproduces that count exactly."""
 
 KERNEL_CHANNELS = (3, 39)
 """Channel counts the kernels are instantiated for (rgb; rgb + 32-d feature
-+ depth + normal). Any other C raises on a CUDA tensor."""
++ depth + normal). The wrappers zero-pad any other C up to the next of
+these (`pad_channels`); C > 39 raises on a CUDA tensor."""
 
 TABLE_FWD_CHANNELS = (3, 7, 39)
 """K3's channel counts: KERNEL_CHANNELS and the kernel probe's C = 7."""
+
+
+def pad_channels(name: str, built, c: int, *xs):
+    """(ck, xs): ck the smallest instantiated channel count in `built` at
+    or above c, and each x (its last dimension ending in the c colour
+    channels: attrs, tables, bg, g_out) zero-padded to ck there. Zero
+    channels composite to zero and take zero gradient, and <c, g> gains
+    only zero terms, so the kernel's first c channels and the geometric
+    gradients are those of the unpadded inputs."""
+    ck = next((k for k in built if k >= c), None)
+    if ck is None:
+        raise ValueError(f"{name} kernel is built for C <= {built[-1]} (a feature dim of at most "
+                         f"{built[-1] - 7}), got C {c}")
+    if ck == c:
+        return ck, xs
+    return ck, tuple(torch.nn.functional.pad(x, (0, ck - c)).contiguous() for x in xs)
+
+
+def _crop(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x's last dimension cut back to `width` (the padded channels dropped)."""
+    return x if x.shape[-1] == width else x[..., :width].contiguous()
 
 
 def tiles_per_instance(value) -> int:
@@ -92,17 +114,17 @@ def _pixel_coords(num_tiles: int, tw: int, ts: int, device) -> Tuple[torch.Tenso
 
 
 def warp_pixels(ts: int, device=None) -> torch.Tensor:
-    """(P,) tile pixel of each thread of K2's tile, as the kernel's
-    `tile_pixel` places them: warp w covers the 8 x 4 pixel block w of the
-    tile (blocks in row-major order), lane l its pixel (l % 8, l // 8).
-    ts is a multiple of 8."""
+    """(P,) tile pixel of each thread of a compositor kernel's tile, as
+    `tile_pixel` (csrc/mma_tf32.cuh) places them: warp w covers the 8 x 4
+    pixel block w of the tile (blocks in row-major order), lane l its pixel
+    (l % 8, l // 8). ts is a multiple of 8."""
     lin = torch.arange(ts * ts, device=device)
     w, lane, bw = lin // 32, lin % 32, ts // 8
     return ((w // bw) * 4 + lane // 8) * ts + (w % bw) * 8 + lane % 8
 
 
 def composite_pairs_fwd_plain(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int,
-                              count_live: bool = False):
+                              count_live: bool = False, count_warp_rows: bool = False):
     """Plain PyTorch version of the kernel, one walk step per stream row,
     vectorized over every tile and pixel, in the kernel's operation order.
 
@@ -110,7 +132,12 @@ def composite_pairs_fwd_plain(pair_gidx, starts, counts, attrs, bg, tw: int, ts:
     attrs (N, 6 + C) rows xy | conic (a, b, c) | opacity | colour; bg (C,).
     Returns out (T, P, C), alpha, logt, ncomp (T, P) float32, plus, with
     `count_live`, the per-pixel number of composited entries with nonzero
-    alpha (the walk's work, for the roofline bound)."""
+    alpha (the walk's work, for the roofline bound), and with
+    `count_warp_rows` the kernel's work under its 8 x 4 pixel warps
+    (`warp_pixels`, ts a multiple of 8): warp x row pairs that some lane
+    walks (up to and including its cut row), those in which a lane
+    composites (the live ones), and the live 8-row sub-chunks (those that
+    take a tensor-core product)."""
     T = starts.shape[0]
     C = attrs.shape[1] - 6
     dev = attrs.device
@@ -123,6 +150,9 @@ def composite_pairs_fwd_plain(pair_gidx, starts, counts, attrs, bg, tw: int, ts:
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     counts64 = counts.to(torch.int64)
     kmax = int(counts64.max()) if T else 0
+    by_warp = warp_pixels(ts, dev) if count_warp_rows else None
+    work = torch.zeros(3, dtype=torch.int64, device=dev)  # walked, live warp-rows; live sub-chunks
+    sub_live = torch.zeros(T, ts * ts // 32, dtype=torch.bool, device=dev) if count_warp_rows else None
     for k in range(kmax):
         walking = (counts64 > k)[:, None] & (cut < 0)
         pos = torch.where(counts64 > k, starts.to(torch.int64) + k, 0)
@@ -137,17 +167,29 @@ def composite_pairs_fwd_plain(pair_gidx, starts, counts, attrs, bg, tw: int, ts:
         crossed = ok & ~(cum > _LOG_EPS)
         comp = ok & ~crossed
         w = torch.where(comp, a * torch.exp(logt), zero)
-        acc = acc + w[..., None] * row[:, None, 6:]
+        acc = acc + torch.einsum("tp,tc->tpc", w, row[:, 6:])  # the kernels' colour product
         logt = torch.where(comp, logt + lt, logt)
         cum_all = torch.where(comp, cum, cum_all)
         cut = torch.where(crossed, k, cut)
         live = live + comp.to(torch.int64)
+        if count_warp_rows:
+            comp_w = comp[:, by_warp].view(T, -1, 32).any(-1)
+            work[0] += walking[:, by_warp].view(T, -1, 32).any(-1).sum()
+            work[1] += comp_w.sum()
+            sub_live |= comp_w
+            if k % 8 == 7 or k == kmax - 1:  # the end of a sub-chunk of every tile's walk
+                work[2] += sub_live.sum()
+                sub_live.zero_()
     t_final = torch.exp(logt)
     out = acc + t_final[..., None] * bg
     walk_len = (counts64 + WALK_CHUNK - 1) // WALK_CHUNK * WALK_CHUNK
     ncomp = torch.where(cut >= 0, cut, walk_len[:, None]).to(torch.float32)
     res = (out, 1.0 - t_final, logt, ncomp)
-    return res + (live,) if count_live else res
+    if count_live:
+        res = res + (live,)
+    if count_warp_rows:
+        res = res + tuple(int(x) for x in work)
+    return res
 
 
 def _check_inputs(pair_gidx, starts, counts, attrs, bg):
@@ -203,13 +245,20 @@ def _require_clusters(kernel: str, channels: int, ts: int) -> None:
 
 
 def _launch_kernel(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int, two_tile: bool = False):
-    """K1, or K5 with `two_tile`."""
+    """K1, or K5 with `two_tile`, at any C <= 39 through `pad_channels`."""
     C = attrs.shape[1] - 6
     name = "composite_pairs_fwd2" if two_tile else "composite_pairs_fwd"
-    if C not in KERNEL_CHANNELS:
-        raise ValueError(f"{name} kernel is built for C in {KERNEL_CHANNELS}, got {C}")
     if ts * ts > 1024:
         raise ValueError(f"tile_size {ts}: one thread per pixel needs ts*ts <= 1024")
+    _, (attrs, bg) = pad_channels(name, KERNEL_CHANNELS, C, attrs, bg)
+    out, alpha, logt, ncomp = _kernel_fwd(pair_gidx, starts, counts, attrs, bg, tw, ts, two_tile)
+    return _crop(out, C), alpha, logt, ncomp
+
+
+def _kernel_fwd(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int, two_tile: bool):
+    """The launch of K1 / K5 at an instantiated C."""
+    C = attrs.shape[1] - 6
+    name = "composite_pairs_fwd2" if two_tile else "composite_pairs_fwd"
     lib, fn = _entry("composite_pairs_fwd", f"ggt_{name}",
                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
     if two_tile:
@@ -371,12 +420,21 @@ def _check_bwd_tile(ts: int) -> None:
 
 def _launch_bwd_kernel(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
                        tw: int, ts: int, two_tile: bool = False):
-    """K2, or K6 with `two_tile`."""
+    """K2, or K6 with `two_tile`, at any C <= 39 through `pad_channels`."""
     C = attrs.shape[1] - 6
     name = "composite_pairs_bwd2" if two_tile else "composite_pairs_bwd"
-    if C not in KERNEL_CHANNELS:
-        raise ValueError(f"{name} kernel is built for C in {KERNEL_CHANNELS}, got {C}")
     _check_bwd_tile(ts)
+    _, (attrs, bg, g_out) = pad_channels(name, KERNEL_CHANNELS, C, attrs, bg, g_out)
+    gpairs = _kernel_bwd(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp, tw, ts,
+                         two_tile)
+    return _crop(gpairs, 6 + C)
+
+
+def _kernel_bwd(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp, tw: int,
+                ts: int, two_tile: bool):
+    """The launch of K2 / K6 at an instantiated C."""
+    C = attrs.shape[1] - 6
+    name = "composite_pairs_bwd2" if two_tile else "composite_pairs_bwd"
     lib, fn = _entry("composite_pairs_bwd", f"ggt_{name}",
                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
     if two_tile:
@@ -534,13 +592,19 @@ def _check_table_inputs(counts, tables, bg):
 
 
 def _launch_table_fwd(counts, tables, bg, tw: int, ts: int):
-    T, kt, a = tables.shape
-    C = a - 6
-    if C not in TABLE_FWD_CHANNELS:
-        raise ValueError(f"composite_tables_fwd kernel is built for C in {TABLE_FWD_CHANNELS}, "
-                         f"got {C}")
+    """K3 at any C <= 39 through `pad_channels`."""
+    C = tables.shape[2] - 6
     if ts * ts > 1024:
         raise ValueError(f"tile_size {ts}: one thread per pixel needs ts*ts <= 1024")
+    _, (tables, bg) = pad_channels("composite_tables_fwd", TABLE_FWD_CHANNELS, C, tables, bg)
+    out, alpha, logt, ncomp = _kernel_table_fwd(counts, tables, bg, tw, ts)
+    return _crop(out, C), alpha, logt, ncomp
+
+
+def _kernel_table_fwd(counts, tables, bg, tw: int, ts: int):
+    """The launch of K3 at an instantiated C."""
+    T, kt, a = tables.shape
+    C = a - 6
     lib, fn = _entry("composite_pairs_fwd", "ggt_composite_tables_fwd",
                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5)
     P = ts * ts
@@ -573,12 +637,19 @@ composite_tables_fwd.launches = 0
 
 
 def _launch_table_bwd(counts, tables, bg, g_out, g_alpha, logt, ncomp, tw: int, ts: int):
+    """K4 at any C <= 39 through `pad_channels`."""
+    C = tables.shape[2] - 6
+    _check_bwd_tile(ts)
+    _, (tables, bg, g_out) = pad_channels("composite_tables_bwd", KERNEL_CHANNELS, C, tables, bg,
+                                          g_out)
+    gattr = _kernel_table_bwd(counts, tables, bg, g_out, g_alpha, logt, ncomp, tw, ts)
+    return _crop(gattr, 6 + C)
+
+
+def _kernel_table_bwd(counts, tables, bg, g_out, g_alpha, logt, ncomp, tw: int, ts: int):
+    """The launch of K4 at an instantiated C."""
     T, kt, a = tables.shape
     C = a - 6
-    if C not in KERNEL_CHANNELS:
-        raise ValueError(f"composite_tables_bwd kernel is built for C in {KERNEL_CHANNELS}, "
-                         f"got {C}")
-    _check_bwd_tile(ts)
     lib, fn = _entry("composite_pairs_bwd", "ggt_composite_tables_bwd",
                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
     gattr = torch.zeros_like(tables)

@@ -1,12 +1,19 @@
-"""PNG reading and writing and the JET colormap without Pillow or OpenCV.
+"""Image reading (PNG and JPEG), PNG writing and the JET colormap without
+Pillow or OpenCV.
 
-The CLIs and the data layer read and write PNGs on machines that have
-neither; a PNG is a signature plus zlib-compressed, per-row filtered
+The CLIs and the data layer read and write images on machines that have
+neither. A PNG is a signature plus zlib-compressed, per-row filtered
 scanlines in length-prefixed, CRC-checked chunks, which `zlib` and
-`struct` cover."""
+`struct` cover. A JPEG is decoded as libjpeg decodes it with its defaults,
+which Pillow uses: the Huffman entropy decoder in Python, then the
+integer "islow" inverse DCT, the fancy (triangular) chroma upsampling and
+the fixed-point YCbCr -> RGB tables, all vectorized in numpy over the
+blocks, so the result lands within 1 of Pillow's per channel.
+`read_image` / `image_size` pick the format from the file's signature."""
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 from pathlib import Path
@@ -16,6 +23,9 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
+# Adam7 passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 
 
 def _header(data: bytes, path) -> Tuple[int, int, int, int, int]:
@@ -76,14 +86,17 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def read_png(path: Path) -> np.ndarray:
-    """Read an 8-bit, non-interlaced grey, grey + alpha, RGB or RGBA PNG as
-    uint8 (H, W), (H, W, 2), (H, W, 3) or (H, W, 4), the arrays Pillow's
-    `np.asarray(Image.open(path))` gives. Anything else raises."""
+    """Read an 8- or 16-bit grey, grey + alpha, RGB or RGBA PNG, plain or
+    Adam7-interlaced, as the array Pillow's `np.asarray(Image.open(path))`
+    gives: uint8 (H, W), (H, W, 2), (H, W, 3) or (H, W, 4); 16-bit grey as
+    uint16 (H, W) (Pillow's I;16), the other 16-bit types as the uint8 of
+    each sample's high byte (Pillow's ;16B modes; grey + alpha as RGBA, grey
+    repeated). Anything else raises."""
     data = Path(path).read_bytes()
     w, h, depth, ctype, interlace = _header(data, path)
-    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
-        raise ValueError(f"{path}: only 8-bit non-interlaced grey / grey+alpha / RGB / RGBA PNGs "
-                         f"are read (bit depth {depth}, colour type {ctype}, interlace {interlace})")
+    if depth not in (8, 16) or ctype not in _CHANNELS or interlace not in (0, 1):
+        raise ValueError(f"{path}: only 8- and 16-bit grey / grey+alpha / RGB / RGBA PNGs are "
+                         f"read (bit depth {depth}, colour type {ctype}, interlace {interlace})")
     idat, pos = [], 8
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
@@ -94,8 +107,362 @@ def read_png(path: Path) -> np.ndarray:
             break
         pos += 12 + length
     ch = _CHANNELS[ctype]
-    img = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch)
-    return img.reshape(h, w) if ch == 1 else img.reshape(h, w, ch)
+    bpp = ch * depth // 8  # bytes a pixel
+    raw = zlib.decompress(b"".join(idat))
+    if interlace == 0:
+        img = _unfilter(raw, h, w * bpp, bpp).reshape(h, w, bpp)
+    else:
+        img = np.zeros((h, w, bpp), np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue  # an empty pass has no scanlines
+            n = ph * (pw * bpp + 1)
+            img[y0::dy, x0::dx] = _unfilter(raw[pos:pos + n], ph, pw * bpp, bpp).reshape(ph, pw, bpp)
+            pos += n
+    img = img.reshape(h, w, ch, depth // 8)
+    if depth == 8:
+        img = img[..., 0]
+    elif ch == 1:
+        img = img[..., 0].astype(np.uint16) << 8 | img[..., 1]
+    else:
+        img = img[..., 0]
+        if ch == 2:  # Pillow opens 16-bit grey + alpha as RGBA
+            img = img[..., [0, 0, 0, 1]]
+    return img[..., 0] if ch == 1 else img
+
+
+def read_image(path: Path) -> np.ndarray:
+    """A PNG (`read_png`) or a JPEG (`read_jpeg`), by the file's signature."""
+    with open(path, "rb") as fh:
+        head = fh.read(8)
+    if head == _SIGNATURE:
+        return read_png(path)
+    if head[:2] == b"\xff\xd8":
+        return read_jpeg(path)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+
+
+def image_size(path: Path) -> Tuple[int, int]:
+    """(width, height) of a PNG or a JPEG, from its header."""
+    with open(path, "rb") as fh:
+        head = fh.read(8)
+    if head == _SIGNATURE:
+        return png_size(path)
+    if head[:2] == b"\xff\xd8":
+        frame = _jpeg_segments(Path(path).read_bytes(), path, frame_only=True)["frame"]
+        return frame["width"], frame["height"]
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+
+
+# --- JPEG: baseline and extended-sequential Huffman (SOF0 / SOF1), 8-bit --------------
+
+_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27,
+    20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58,
+    59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])  # zigzag index -> natural
+_ZZ = _ZIGZAG.tolist()
+
+
+def _jpeg_segments(data: bytes, path, frame_only: bool = False) -> dict:
+    """The markers of a JPEG up to its first scan (or, with `frame_only`,
+    its frame header): quantization and Huffman tables, the restart
+    interval, the frame, and the scans with their entropy-coded bytes."""
+    if data[:2] != b"\xff\xd8":
+        raise ValueError(f"{path}: not a JPEG file")
+    out = {"qt": {}, "ht": {}, "restart": 0, "frame": None, "scans": [], "adobe": None}
+    pos = 2
+    while pos < len(data):
+        if data[pos] != 0xFF:
+            raise ValueError(f"{path}: corrupt JPEG (no marker at byte {pos})")
+        marker = data[pos + 1]
+        if marker == 0xFF:  # fill byte
+            pos += 1
+            continue
+        if marker == 0xD9:  # EOI
+            break
+        (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        seg = data[pos + 4:pos + 2 + length]
+        pos += 2 + length
+        if marker in (0xC0, 0xC1):  # SOF0 baseline, SOF1 extended sequential, Huffman
+            prec, height, width, nc = struct.unpack(">BHHB", seg[:6])
+            if prec != 8:
+                raise ValueError(f"{path}: {prec}-bit JPEG samples; only 8-bit are read")
+            comps = [dict(id=seg[6 + 3 * i], h=seg[7 + 3 * i] >> 4, v=seg[7 + 3 * i] & 15,
+                          tq=seg[8 + 3 * i]) for i in range(nc)]
+            out["frame"] = dict(width=width, height=height, comps=comps)
+            if frame_only:
+                return out
+        elif marker == 0xC2 or marker == 0xC6 or marker == 0xCA or marker == 0xCE:
+            raise ValueError(f"{path}: progressive JPEG (SOF{marker - 0xC0}) is not read; "
+                             "re-save it as baseline")
+        elif 0xC3 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            raise ValueError(f"{path}: JPEG process SOF{marker - 0xC0} is not read (only "
+                             "baseline and extended-sequential Huffman, SOF0 / SOF1)")
+        elif marker == 0xDB:  # DQT
+            i = 0
+            while i < len(seg):
+                pq, tq = seg[i] >> 4, seg[i] & 15
+                n = 128 if pq else 64
+                vals = np.frombuffer(seg[i + 1:i + 1 + n], ">u2" if pq else np.uint8)
+                table = np.zeros(64, np.int64)
+                table[_ZIGZAG] = vals
+                out["qt"][tq] = table
+                i += 1 + n
+        elif marker == 0xC4:  # DHT
+            i = 0
+            while i < len(seg):
+                tc, th = seg[i] >> 4, seg[i] & 15
+                counts = list(seg[i + 1:i + 17])
+                symbols = seg[i + 17:i + 17 + sum(counts)]
+                out["ht"][(tc, th)] = _huffman_lut(counts, symbols)
+                i += 17 + sum(counts)
+        elif marker == 0xDD:  # DRI
+            (out["restart"],) = struct.unpack(">H", seg[:2])
+        elif marker == 0xEE and seg[:5] == b"Adobe":
+            out["adobe"] = seg[11] if len(seg) > 11 else 0
+        elif marker == 0xDA:  # SOS, then the entropy-coded data up to the next real marker
+            if out["frame"] is None:
+                raise ValueError(f"{path}: scan before the frame header")
+            ns = seg[0]
+            comps = [(seg[1 + 2 * i], seg[2 + 2 * i] >> 4, seg[2 + 2 * i] & 15) for i in range(ns)]
+            end = pos
+            while True:
+                end = data.find(b"\xff", end)
+                if end < 0 or end + 1 >= len(data):
+                    end = len(data)
+                    break
+                nxt = data[end + 1]
+                if nxt == 0x00 or 0xD0 <= nxt <= 0xD7 or nxt == 0xFF:
+                    end += 1 if nxt == 0xFF else 2
+                    continue
+                break
+            out["scans"].append(dict(comps=comps, restart=out["restart"],
+                                     tables=dict(out["ht"]), data=data[pos:end]))
+            pos = end
+    if out["frame"] is None:
+        raise ValueError(f"{path}: no baseline frame header (SOF0 / SOF1)")
+    return out
+
+
+def _huffman_lut(counts, symbols) -> Tuple[list, list]:
+    """(code length, symbol) of every 16-bit window, by its leading code
+    (length 0: no code starts so)."""
+    lengths = np.zeros(1 << 16, np.int64)
+    values = np.zeros(1 << 16, np.int64)
+    code, k = 0, 0
+    for bits in range(1, 17):
+        for _ in range(counts[bits - 1]):
+            lo = code << (16 - bits)
+            lengths[lo:lo + (1 << (16 - bits))] = bits
+            values[lo:lo + (1 << (16 - bits))] = symbols[k]
+            code += 1
+            k += 1
+        code <<= 1
+    return lengths.tolist(), values.tolist()
+
+
+def _windows(segment: bytes) -> list:
+    """The 16-bit window of the bit stream at every bit position, with the
+    0xFF00 stuffing removed and 1-bits past the end."""
+    b = np.frombuffer(segment.replace(b"\xff\x00", b"\xff") + b"\xff" * 8, np.uint8)
+    n = 8 * (b.size - 8)
+    trip = (b[:-2].astype(np.int64) << 16) | (b[1:-1].astype(np.int64) << 8) | b[2:]
+    pos = np.arange(n + 17)
+    return ((trip[pos >> 3] >> (8 - (pos & 7))) & 0xFFFF).tolist()
+
+
+def _decode_scan(scan: dict, frame: dict, path) -> None:
+    """Huffman-decodes one scan into the coefficient lists of its components
+    (component["idx"]: block x 64 + natural index; component["val"]: the
+    quantized value there)."""
+    by_id = {c["id"]: c for c in frame["comps"]}
+    comps = []
+    for cid, td, ta in scan["comps"]:
+        if cid not in by_id or (0, td) not in scan["tables"] or (1, ta) not in scan["tables"]:
+            raise ValueError(f"{path}: scan names a missing component or Huffman table")
+        comps.append(by_id[cid])
+        comps[-1]["decode"] = (*scan["tables"][(0, td)], *scan["tables"][(1, ta)],
+                               comps[-1]["idx"].append, comps[-1]["val"].append)
+    # each unit (MCU) a list of its blocks: (component, first coefficient, tables, sinks)
+    if len(comps) == 1:  # non-interleaved: the component's own blocks in raster order
+        c = comps[0]
+        units = [[(0, (by * c["bw"] + bx) * 64, *c["decode"])]
+                 for by in range(-(-c["height"] // 8)) for bx in range(-(-c["width"] // 8))]
+    else:  # interleaved: MCUs of h x v blocks of each component
+        units = [[(i, ((my * c["v"] + v) * c["bw"] + mx * c["h"] + h) * 64, *c["decode"])
+                  for i, c in enumerate(comps) for v in range(c["v"]) for h in range(c["h"])]
+                 for my in range(frame["mcuy"]) for mx in range(frame["mcux"])]
+    interval = scan["restart"] or len(units)
+    # the entropy-coded pieces between RSTn markers (a stuffed 0xFF is followed by 0x00)
+    pieces = re.split(rb"\xff[\xd0-\xd7]", scan["data"])
+    zz = _ZZ
+    for s, start in enumerate(range(0, len(units), interval)):
+        if s >= len(pieces):
+            raise ValueError(f"{path}: corrupt JPEG (too few restart intervals)")
+        win = _windows(pieces[s])
+        nbits = len(win) - 17
+        pos = 0
+        pred = [0] * len(comps)
+        for unit in units[start:start + interval]:
+            for i, base, dcl, dcs, acl, acs, put_idx, put_val in unit:
+                w = win[pos]
+                length = dcl[w]
+                if length == 0:
+                    raise ValueError(f"{path}: corrupt JPEG (bad Huffman code)")
+                t = dcs[w]
+                pos += length
+                if t:
+                    v = win[pos] >> (16 - t)
+                    pos += t
+                    pred[i] += v if v >> (t - 1) else v - (1 << t) + 1
+                put_idx(base)
+                put_val(pred[i])
+                k = 1
+                while k < 64:
+                    w = win[pos]
+                    length = acl[w]
+                    if length == 0:
+                        raise ValueError(f"{path}: corrupt JPEG (bad Huffman code)")
+                    rs = acs[w]
+                    pos += length
+                    t = rs & 15
+                    if t == 0:
+                        if rs != 0xF0:
+                            break  # end of block
+                        k += 16
+                        continue
+                    k += rs >> 4
+                    v = win[pos] >> (16 - t)
+                    pos += t
+                    put_idx(base + zz[k])
+                    put_val(v if v >> (t - 1) else v - (1 << t) + 1)
+                    k += 1
+            if pos > nbits:
+                raise ValueError(f"{path}: corrupt JPEG (the scan data ends early)")
+
+
+# libjpeg's jidctint.c (jpeg_idct_islow): 13-bit fixed-point constants
+_F = dict(f0_298=2446, f0_390=3196, f0_541=4433, f0_765=6270, f0_899=7373, f1_175=9633,
+          f1_501=12299, f1_847=15137, f1_961=16069, f2_053=16819, f2_562=20995, f3_072=25172)
+
+
+def _idct_1d(x: np.ndarray, shift: int) -> np.ndarray:
+    """One pass of jpeg_idct_islow over axis -1 of int64 x (..., 8), each
+    output descaled by `shift` bits with rounding (libjpeg's DESCALE)."""
+    f = _F
+    z1 = (x[..., 2] + x[..., 6]) * f["f0_541"]
+    tmp2 = z1 - x[..., 6] * f["f1_847"]
+    tmp3 = z1 + x[..., 2] * f["f0_765"]
+    tmp0 = (x[..., 0] + x[..., 4]) << 13
+    tmp1 = (x[..., 0] - x[..., 4]) << 13
+    t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    o0, o1, o2, o3 = x[..., 7], x[..., 5], x[..., 3], x[..., 1]
+    z1, z2, z3, z4 = o0 + o3, o1 + o2, o0 + o2, o1 + o3
+    z5 = (z3 + z4) * f["f1_175"]
+    o0, o1, o2, o3 = o0 * f["f0_298"], o1 * f["f2_053"], o2 * f["f3_072"], o3 * f["f1_501"]
+    z1, z2 = z1 * -f["f0_899"], z2 * -f["f2_562"]
+    z3, z4 = z3 * -f["f1_961"] + z5, z4 * -f["f0_390"] + z5
+    o0, o1, o2, o3 = o0 + z1 + z3, o1 + z2 + z4, o2 + z2 + z3, o3 + z1 + z4
+    half = 1 << (shift - 1)
+    out = [t10 + o3, t11 + o2, t12 + o1, t13 + o0, t13 - o0, t12 - o1, t11 - o2, t10 - o3]
+    return (np.stack(out, -1) + half) >> shift
+
+
+def _idct_islow(coef: np.ndarray) -> np.ndarray:
+    """(..., 8, 8) dequantized coefficients (row v, column u) -> uint8
+    samples, as jpeg_idct_islow computes them: columns first (descale by
+    CONST_BITS - PASS1_BITS = 11), then rows (by CONST_BITS + PASS1_BITS +
+    3 = 18), plus 128, clamped."""
+    cols = _idct_1d(np.swapaxes(coef, -1, -2), 11)  # (..., u, y)
+    rows = _idct_1d(np.swapaxes(cols, -1, -2), 18)  # (..., y, x)
+    return np.clip(rows + 128, 0, 255).astype(np.uint8)
+
+
+def _fancy_h2(x: np.ndarray, bias_left: int, bias_right: int, shift: int) -> np.ndarray:
+    """libjpeg's fancy horizontal upsampling by 2 of int64 rows x (H, W):
+    out[2i] = (3 x[i] + x[i-1] + bias_left) >> shift and out[2i+1] = (3 x[i]
+    + x[i+1] + bias_right) >> shift, the edge columns 4 x with their bias."""
+    h, w = x.shape
+    out = np.empty((h, 2 * w), np.int64)
+    out[:, 0] = (4 * x[:, 0] + bias_left) >> shift
+    out[:, 2::2] = (3 * x[:, 1:] + x[:, :-1] + bias_left) >> shift
+    out[:, 1:-1:2] = (3 * x[:, :-1] + x[:, 1:] + bias_right) >> shift
+    out[:, -1] = (4 * x[:, -1] + bias_right) >> shift
+    return out
+
+
+def _upsample(plane: np.ndarray, h: int, v: int, path) -> np.ndarray:
+    """A chroma plane (its true downsampled size) brought to full size by
+    libjpeg's h2v1 / h2v2 fancy upsampling (triangular filters; the rows
+    above the first and below the last repeat them)."""
+    x = plane.astype(np.int64)
+    if (h, v) == (1, 1):
+        return x
+    if x.shape[1] <= 2:
+        raise ValueError(f"{path}: chroma planes of width <= 2 are not read")
+    if (h, v) == (2, 1):  # h2v1_fancy_upsample: 3/4 nearer + 1/4 further
+        return _fancy_h2(x, 1, 2, 2)
+    if (h, v) == (2, 2):  # h2v2_fancy_upsample: 9/16, 3/16, 3/16, 1/16
+        out = np.empty((2 * x.shape[0], 2 * x.shape[1]), np.int64)
+        out[0::2] = _fancy_h2(3 * x + np.concatenate([x[:1], x[:-1]]), 8, 7, 4)
+        out[1::2] = _fancy_h2(3 * x + np.concatenate([x[1:], x[-1:]]), 8, 7, 4)
+        return out
+    raise ValueError(f"{path}: chroma sampling {h}x{v} is not read (4:4:4, 4:2:2, 4:2:0 are)")
+
+
+def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """libjpeg's ycc_rgb_convert with its 16-bit fixed-point tables."""
+    def fix(v):
+        return int(v * 65536 + 0.5)
+
+    half = 1 << 15
+    cb, cr = cb - 128, cr - 128
+    r = y + ((fix(1.40200) * cr + half) >> 16)
+    g = y + ((-fix(0.34414) * cb + half - fix(0.71414) * cr) >> 16)
+    b = y + ((fix(1.77200) * cb + half) >> 16)
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def read_jpeg(path: Path) -> np.ndarray:
+    """Read a baseline or extended-sequential (SOF0 / SOF1) 8-bit Huffman
+    JPEG, grey or YCbCr with 4:4:4, 4:2:2 or 4:2:0 sampling, restart
+    intervals and any size, as uint8 (H, W) or (H, W, 3) RGB: Pillow's
+    `np.asarray(Image.open(path))` to within 1 per channel. Progressive,
+    lossless, arithmetic-coded, 12-bit, CMYK and Adobe-RGB files raise."""
+    data = Path(path).read_bytes()
+    seg = _jpeg_segments(data, path)
+    frame = seg["frame"]
+    comps = frame["comps"]
+    if len(comps) not in (1, 3) or (len(comps) == 3 and seg["adobe"] == 0):
+        raise ValueError(f"{path}: only grey and YCbCr JPEGs are read ({len(comps)} components)")
+    hmax = max(c["h"] for c in comps)
+    vmax = max(c["v"] for c in comps)
+    width, height = frame["width"], frame["height"]
+    frame["mcux"] = -(-width // (8 * hmax))
+    frame["mcuy"] = -(-height // (8 * vmax))
+    for c in comps:
+        c["bw"], c["bh"] = frame["mcux"] * c["h"], frame["mcuy"] * c["v"]
+        c["width"], c["height"] = -(-width * c["h"] // hmax), -(-height * c["v"] // vmax)
+        c["idx"], c["val"] = [], []
+        if c["tq"] not in seg["qt"]:
+            raise ValueError(f"{path}: missing quantization table {c['tq']}")
+    if not seg["scans"]:
+        raise ValueError(f"{path}: no scan")
+    for scan in seg["scans"]:
+        _decode_scan(scan, frame, path)
+    planes = []
+    for c in comps:
+        coef = np.zeros(c["bw"] * c["bh"] * 64, np.int64)
+        coef[np.asarray(c["idx"], np.int64)] = c["val"]
+        coef = coef.reshape(c["bh"], c["bw"], 8, 8) * seg["qt"][c["tq"]].reshape(8, 8)
+        pix = _idct_islow(coef).transpose(0, 2, 1, 3).reshape(8 * c["bh"], 8 * c["bw"])
+        planes.append((pix[:c["height"], :c["width"]], hmax // c["h"], vmax // c["v"]))
+    if len(planes) == 1:
+        return np.ascontiguousarray(planes[0][0][:height, :width])
+    full = [_upsample(p, h, v, path)[:height, :width] for p, h, v in planes]
+    return _ycc_to_rgb(*full)
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:

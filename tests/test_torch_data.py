@@ -122,8 +122,11 @@ def test_png_reader_rejects_other_formats(tmp_path):
     from PIL import Image
 
     Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 1000).save(tmp_path / "d16.png")
-    with pytest.raises(ValueError, match="8-bit"):
-        read_png(tmp_path / "d16.png")
+    np.testing.assert_array_equal(read_png(tmp_path / "d16.png"),  # 16-bit is read now
+                                  np.asarray(Image.open(tmp_path / "d16.png")))
+    Image.fromarray(np.eye(8, dtype=bool)).save(tmp_path / "d1.png")  # 1-bit grey
+    with pytest.raises(ValueError, match="8- and 16-bit"):
+        read_png(tmp_path / "d1.png")
     Image.fromarray(np.zeros((8, 8), np.uint8)).convert("P").save(tmp_path / "pal.png")
     with pytest.raises(ValueError, match="colour type"):
         read_png(tmp_path / "pal.png")

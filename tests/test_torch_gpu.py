@@ -112,13 +112,13 @@ def test_k2_kernel_matches_plain(cuda_device, channels, opacity):
 STRADDLE_COUNTS = (0, 1, 7, 8, 9, 31, 32, 33, 63, 64, 65, 129, 200)
 
 
-def _straddle_args(device, channels, opaque):
+def _straddle_args(device, channels, opaque, ts=32):
     """A synthetic stream, one row per Gaussian, centred in its tile. With
     `opaque`, splats far wider than a tile at opacity 0.999: every pixel of
     a tile with two rows or more composites its first row and is cut at the
     second."""
     rng = np.random.default_rng(3)
-    tw, ts = 3, 32
+    tw = 3
     rows = []
     for t, n in enumerate(STRADDLE_COUNTS):
         xy = rng.uniform(0, ts, (n, 2)) + ((t % tw) * ts, (t // tw) * ts)
@@ -328,10 +328,12 @@ def test_render_on_card_matches_cpu(cuda_device):
 
 @pytest.mark.gpu
 def test_cuda_tensor_with_unsupported_channels_raises(cuda_device):
-    x = torch.zeros(1, 6 + 5, device=cuda_device)
+    """C <= 39 runs through the zero padding; C 40 (a feature dim over 32)
+    raises and names the limit."""
+    x = torch.zeros(1, 6 + 40, device=cuda_device)
     one = torch.ones(1, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="built for C"):
-        rc.composite_pairs_fwd(one - 1, one - 1, one, x, torch.zeros(5, device=cuda_device), 1, 32)
+    with pytest.raises(ValueError, match="built for C <= 39"):
+        rc.composite_pairs_fwd(one - 1, one - 1, one, x, torch.zeros(40, device=cuda_device), 1, 32)
 
 
 def _table_args(device, channels, opacity, w=W, h=H):
@@ -432,16 +434,116 @@ def test_probes_match_plain(cuda_device):
 
 @pytest.mark.gpu
 def test_table_kernels_with_unsupported_channels_raise(cuda_device):
+    """K3 and K4 raise past C 39 and name the limit."""
     one = torch.ones(1, dtype=torch.int32, device=cuda_device)
-    tables = torch.zeros(1, 1, 6 + 5, device=cuda_device)
-    bg = torch.zeros(5, device=cuda_device)
-    with pytest.raises(ValueError, match="built for C"):
+    tables = torch.zeros(1, 1, 6 + 40, device=cuda_device)
+    bg = torch.zeros(40, device=cuda_device)
+    with pytest.raises(ValueError, match="built for C <= 39"):
         rc.composite_tables_fwd(one, tables, bg, 1, 32)
     g = torch.zeros(1, 1024, device=cuda_device)
-    with pytest.raises(ValueError, match="built for C"):
-        rc.composite_tables_bwd(one, tables, bg, torch.zeros(1, 1024, 5, device=cuda_device), g,
+    with pytest.raises(ValueError, match="built for C <= 39"):
+        rc.composite_tables_bwd(one, tables, bg, torch.zeros(1, 1024, 40, device=cuda_device), g,
                                 g, g, 1, 32)
-    tables7 = torch.zeros(1, 1, 6 + 7, device=cuda_device)
-    with pytest.raises(ValueError, match="built for C"):  # K3 takes C 7, K4 does not
-        rc.composite_tables_bwd(one, tables7, torch.zeros(7, device=cuda_device),
-                                torch.zeros(1, 1024, 7, device=cuda_device), g, g, g, 1, 32)
+
+
+def _table_of(args, kt):
+    """The stream args' rows packed into a (T, kt, 6 + C) table."""
+    gidx, starts, counts, attrs, bg, tw, ts = args
+    tables = torch.zeros(counts.shape[0], kt, attrs.shape[1], device=attrs.device)
+    for t, (s, n) in enumerate(zip(starts.tolist(), counts.tolist())):
+        tables[t, :n] = attrs[gidx[s: s + n].long()]
+    return counts, tables, bg, tw, ts
+
+
+def _assert_fwd_close(got, want):
+    for name, a, b in zip(("out", "alpha", "logt"), got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0, msg=name)
+    torch.testing.assert_close(got[3], want[3], atol=0, rtol=0, msg="ncomp")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts", [16, 32])
+@pytest.mark.parametrize("opaque", [False, True])
+@pytest.mark.parametrize("channels", [3, 7, 39])
+def test_k1_k3_k5_on_counts_around_sub_chunks_and_batches(cuda_device, channels, opaque, ts):
+    """K1 against the plain version (max abs 1e-4, ncomp exact) on 13
+    tiles (an odd count for K5) of 0 to 200 rows, around the forward's
+    8-row sub-chunks and 128-row batches, at low opacity and with every
+    walk one row (opaque); K3 on the same rows packed into a table of K 203
+    and K3 and K5 bit-equal to K1. C 7 runs K1 / K5 through the padding to
+    39 and K3 unpadded."""
+    args = _straddle_args(cuda_device, channels, opaque, ts)
+    counts = args[2]
+    before = [k.launches for k in (rc.composite_pairs_fwd, rc.composite_pairs_fwd2,
+                                   rc.composite_tables_fwd)]
+    got = rc.composite_pairs_fwd(*args)
+    got5 = rc.composite_pairs_fwd2(*args)
+    got3 = rc.composite_tables_fwd(*_table_of(args, 203))
+    want = rc.composite_pairs_fwd_plain(*args)
+    torch.cuda.synchronize()
+    assert [k.launches for k in (rc.composite_pairs_fwd, rc.composite_pairs_fwd2,
+                                 rc.composite_tables_fwd)] == [b + 1 for b in before]
+    if opaque:
+        assert bool((got[3][counts >= 2] == 1).all())
+    _assert_fwd_close(got, want)
+    for name, a, b3, b5 in zip(("out", "alpha", "logt", "ncomp"), got, got3, got5):
+        assert torch.equal(b5, a), name
+        assert torch.equal(b3, a), name  # each 8-channel n tile is its own product
+    _assert_fwd_close(got3, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("feature_dim", [8, 16])
+def test_padded_widths_match_plain(cuda_device, feature_dim):
+    """F 8 and 16 (C 15 and 23): K1, K2, K4 and K6 through the zero padding
+    to the C 39 kernels against the plain versions, with their criteria."""
+    channels = 3 + feature_dim + 4
+    args = _k1_args(cuda_device, channels, 0.95)
+    _assert_fwd_close(rc.composite_pairs_fwd(*args), rc.composite_pairs_fwd_plain(*args))
+    bargs = _bwd_args(args, seed=7)
+    want = _per_gaussian(args, rc.composite_pairs_bwd_plain(*bargs))
+    for fn in (rc.composite_pairs_bwd, rc.composite_pairs_bwd2):
+        got = fn(*bargs)
+        assert got.shape == (args[0].shape[0], 6 + channels)
+        _assert_grads_close(_per_gaussian(args, got), want, channels)
+    targs = _table_of(args, int(args[2].max()))
+    _, _, logt, ncomp = rc.composite_tables_fwd(*targs)
+    tbargs = targs[:3] + bargs[5:7] + (logt, ncomp) + targs[3:]
+    got = rc.composite_tables_bwd(*tbargs)
+    plain = rc.composite_tables_bwd_plain(*tbargs)
+    torch.cuda.synchronize()
+    assert got.shape == targs[1].shape
+    _assert_grads_close(got.reshape(-1, 6 + channels), plain.reshape(-1, 6 + channels), channels)
+
+
+@pytest.mark.gpu
+def test_train_cli_feature_dim_16(cuda_device, tmp_path):
+    """`ggt-torch-train --feature-dim 16` (C 23) trains on the card: two
+    steps through K1 / K2 with the padding, finite losses."""
+    from gaussiangrasper_torch.data.synthetic import generate_tabletop
+    from gaussiangrasper_torch.engine import train_state
+    from gaussiangrasper_torch.scripts import train
+
+    scene = generate_tabletop(tmp_path / "scene", width=64, height=48, n_views=4,
+                              feature_downscale=2)
+    losses = []
+    step = train_state.train_step
+
+    def recorded(*a, **k):
+        out = step(*a, **k)
+        losses.append(float(out[1]["loss"]))
+        return out
+
+    before = (rc.composite_pairs_fwd.launches, rc.composite_pairs_bwd.launches)
+    train_state.train_step = recorded
+    try:
+        trainer = train.main(["--data", str(scene), "--output-dir", str(tmp_path / "out"),
+                              "--max-iterations", "2", "--capacity", "4096", "--feature-dim",
+                              "16", "--sh-degree", "1", "--max-tiles-per-gaussian", "16"])
+    finally:
+        train_state.train_step = step
+    torch.cuda.synchronize()
+    assert trainer.config.model.num_channels == 23
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert (rc.composite_pairs_fwd.launches - before[0],
+            rc.composite_pairs_bwd.launches - before[1]) == (2, 2)

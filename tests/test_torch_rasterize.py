@@ -276,7 +276,7 @@ def k2_precision_case(scene_name):
 
 
 def k2_per_gaussian(gidx, n, rows):
-    acc = np.zeros((n, 45), np.float64)
+    acc = np.zeros((n, rows.shape[1]), np.float64)
     np.add.at(acc, gidx, rows)
     return acc
 
@@ -359,3 +359,198 @@ def test_k2_warp_row_counts():
             want_live += int(ok.view(-1, 32).any(1).sum())
     assert (rows, live) == (want_rows, want_live)
     assert 0 < live < rows
+
+
+K1_PRODUCT = "tp,tc->tpc"  # the colour terms in composite_pairs_fwd_plain
+
+
+@functools.lru_cache(maxsize=None)
+def k1_precision_case(scene_name):
+    """K1's inputs at C 39 for one scene and `_call_fwd_pairs`'s outputs on
+    them in interpret mode."""
+    scene = saturated_scene() if scene_name == "saturated" else make_scene(10, 300)
+    jp, gidx, starts, counts, attrs, bg = k1_inputs(scene, 39)
+    tw = -(-W // 32)
+    kr = -(-attrs.shape[0] // rp.KC) * rp.KC
+    pair_attrs = rp._gather_pairs(jnp.asarray(gidx), jp.xys, jp.conics, jnp.asarray(attrs[:, 5]),
+                                  jnp.asarray(attrs[:, 6:]), kr)
+    ref = rp._call_fwd_pairs(jnp.asarray(starts), jnp.asarray(counts), pair_attrs,
+                             jnp.asarray(bg)[None], tw, 32, starts.shape[0], 39, kr, interpret=True)
+    args = (T(gidx), T(starts), T(counts), T(attrs), T(bg), tw, 32)
+    return args, [np.asarray(x) for x in ref]
+
+
+def k1_emulated_errors(scene_name, product, monkeypatch):
+    """The plain forward with its colour terms taken by `product`: max
+    |out - JAX out|, and the same for alpha, logt (ncomp must be equal)."""
+    args, ref = k1_precision_case(scene_name)
+    exact = rc.composite_pairs_fwd_plain(*args)
+    taken = []
+
+    def patched(equation, *operands):
+        if equation == K1_PRODUCT:
+            taken.append(equation)
+            return product(equation, *operands)
+        return _einsum(equation, *operands)
+
+    monkeypatch.setattr(torch, "einsum", patched)
+    got = rc.composite_pairs_fwd_plain(*args)
+    monkeypatch.undo()
+    assert taken and not torch.equal(got[0], exact[0])  # the emulation took effect
+    for a, b in zip(got[1:], exact[1:]):  # only the colour sums round differently
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(got[3].numpy(), ref[3])
+    return {name: float(np.abs(a.numpy() - b).max())
+            for name, a, b in zip(("out", "alpha", "logt"), got, ref)}
+
+
+@pytest.mark.parametrize("scene_name", ["random", "saturated"])
+def test_k1_tensor_core_precision_meets_criterion(scene_name, monkeypatch):
+    """K1's colour sums in 3xTF32 (the kernel's mma.sync scheme, emulated in
+    the plain version) stay within chip_smoke.py's 1e-4 of the JAX kernel."""
+    errs = k1_emulated_errors(scene_name, einsum_3xtf32, monkeypatch)
+    assert max(errs.values()) <= 1e-4, errs
+
+
+@pytest.mark.parametrize("scene_name", ["random", "saturated"])
+def test_k1_one_tf32_pass_breaks_criterion(scene_name, monkeypatch):
+    """With one TF32 pass (hi hi) the colour sums miss 1e-4, so the card's
+    check would catch a K1 that dropped to it."""
+    errs = k1_emulated_errors(scene_name, einsum_1xtf32, monkeypatch)
+    assert errs["out"] > 1e-4, errs
+
+
+def test_k1_warp_row_counts():
+    """The forward's count_warp_rows against a count written out tile by
+    tile and warp by warp: walked (row k before or at some lane's cut, below
+    the count), live (a lane composites row k) and live 8-row sub-chunks."""
+    jp, gidx, starts, counts, attrs, bg = k1_inputs(saturated_scene(), 3)
+    tw = -(-W // 32)
+    args = (T(gidx), T(starts), T(counts), T(attrs), T(bg), tw, 32)
+    *_, rows, live, subs = rc.composite_pairs_fwd_plain(*args, count_warp_rows=True)
+    _, _, _, ncomp = rc.composite_pairs_fwd_plain(*args)
+    warps = rc.warp_pixels(32)
+    want = [0, 0, 0]
+    for t in range(starts.shape[0]):
+        px = float((t % tw) * 32) + (warps % 32).float()
+        py = float((t // tw) * 32) + (warps // 32).float()
+        cutk = ncomp[t, warps]  # a cut pixel stops at its cut row, an uncut one at the count
+        comp_by_k = []
+        for k in range(int(counts[t])):
+            row = T(attrs[gidx[starts[t] + k]])
+            dx, dy = px - row[0], py - row[1]
+            sigma = 0.5 * (row[2] * dx * dx + row[4] * dy * dy) + row[3] * dx * dy
+            alpha = torch.clamp(row[5] * torch.exp(-sigma), max=0.999)
+            walking = cutk >= k
+            comp = walking & (cutk > k) & (sigma >= 0) & (alpha >= 1.0 / 255.0)
+            want[0] += int(walking.view(-1, 32).any(1).sum())
+            comp_by_k.append(comp.view(-1, 32).any(1))
+        if comp_by_k:
+            comp_by_k = torch.stack(comp_by_k)
+            want[1] += int(comp_by_k.sum())
+            for k0 in range(0, comp_by_k.shape[0], 8):
+                want[2] += int(comp_by_k[k0:k0 + 8].any(0).sum())
+    assert [rows, live, subs] == want
+    assert 0 < subs < live < rows
+
+
+def patch_kernels_with_plain(monkeypatch, seen):
+    """The launch halves of the compositor wrappers replaced by the plain
+    versions on the (padded) CPU tensors they receive, recording each C."""
+    def fwd(gidx, starts, counts, attrs, bg, tw, ts, two_tile):
+        seen.append(attrs.shape[1] - 6)
+        return rc.composite_pairs_fwd_plain(gidx, starts, counts, attrs, bg, tw, ts)
+
+    def bwd(*args):
+        seen.append(args[3].shape[1] - 6)
+        return rc.composite_pairs_bwd_plain(*args[:-1])
+
+    def table_fwd(counts, tables, bg, tw, ts):
+        seen.append(tables.shape[2] - 6)
+        return rc.composite_tables_fwd_plain(counts, tables, bg, tw, ts)
+
+    def table_bwd(*args):
+        seen.append(args[1].shape[2] - 6)
+        return rc.composite_tables_bwd_plain(*args)
+
+    for name, fn in (("_kernel_fwd", fwd), ("_kernel_bwd", bwd), ("_kernel_table_fwd", table_fwd),
+                     ("_kernel_table_bwd", table_bwd)):
+        monkeypatch.setattr(rc, name, fn)
+
+
+@pytest.mark.parametrize("feature_dim", [8, 16])
+def test_padded_wrappers_match_unpadded_plain_and_jax(feature_dim, monkeypatch):
+    """F 8 and 16 (C 15 and 23): the wrappers pad the colours, bg and g_out
+    with zeros to the C 39 kernels (C 7 for K3 at F 0 would take its own)
+    and cut the outputs back. With the kernels' plain versions in their
+    place: the forward equals the unpadded plain version exactly and JAX's
+    `_call_fwd_pairs` to K1's tolerance; the backward's per-Gaussian sums
+    (pair stream and table) equal the unpadded plain version's within K2's
+    criterion and JAX's `_call_bwd_pairs` within it too."""
+    channels = 3 + feature_dim + 4
+    scene = make_scene(10, 300)
+    jp, gidx, starts, counts, attrs, bg = k1_inputs(scene, channels)
+    tw = -(-W // 32)
+    kr = -(-attrs.shape[0] // rp.KC) * rp.KC
+    pair_attrs = rp._gather_pairs(jnp.asarray(gidx), jp.xys, jp.conics, jnp.asarray(attrs[:, 5]),
+                                  jnp.asarray(attrs[:, 6:]), kr)
+    ref = rp._call_fwd_pairs(jnp.asarray(starts), jnp.asarray(counts), pair_attrs,
+                             jnp.asarray(bg)[None], tw, 32, starts.shape[0], channels, kr,
+                             interpret=True)
+    args = (T(gidx), T(starts), T(counts), T(attrs), T(bg), tw, 32)
+    seen = []
+    patch_kernels_with_plain(monkeypatch, seen)
+    got = rc._launch_kernel(*args)
+    want = rc.composite_pairs_fwd_plain(*args)
+    assert got[0].shape == want[0].shape == (starts.shape[0], 1024, channels)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for name, a, b in zip(("out", "alpha", "logt"), ref, got):
+        close(b, a, atol=1e-5, rtol=1e-4, msg=name)
+
+    rng = np.random.default_rng(5)
+    g_out = rng.normal(size=(starts.shape[0], 1024, channels)).astype(np.float32)
+    g_alpha = rng.normal(size=(starts.shape[0], 1024)).astype(np.float32)
+    bargs = args[:5] + (T(g_out), T(g_alpha), got[2], got[3]) + args[5:]
+    want_g = k2_per_gaussian(gidx, attrs.shape[0], rc.composite_pairs_bwd_plain(*bargs).numpy())
+    jref = rp._call_bwd_pairs(jnp.asarray(starts), jnp.asarray(counts), pair_attrs,
+                              jnp.asarray(bg), jnp.asarray(g_out), jnp.asarray(g_alpha),
+                              jnp.asarray(got[2].numpy()), jnp.asarray(got[3].numpy()), tw, 32, kr,
+                              interpret=True)
+    jref_g = k2_per_gaussian(gidx, attrs.shape[0], np.asarray(jref)[: gidx.shape[0], :6 + channels])
+    for two_tile in (False, True):
+        gpairs = rc._launch_bwd_kernel(*bargs, two_tile=two_tile)
+        assert gpairs.shape == (gidx.shape[0], 6 + channels)
+        got_g = k2_per_gaussian(gidx, attrs.shape[0], gpairs.numpy())
+        for ref_g in (want_g, jref_g):
+            for lo, hi in ((0, 2), (2, 5), (5, 6), (6, 6 + channels)):
+                scale = float(np.abs(ref_g[:, lo:hi]).max())
+                assert scale > 0
+                assert float(np.abs(got_g[:, lo:hi] - ref_g[:, lo:hi]).max()) <= 1e-4 * scale
+
+    # the table wrappers on the same rows, packed (T, K, 6 + C)
+    kt = int(counts.max())
+    tables = torch.zeros(starts.shape[0], kt, 6 + channels)
+    for t in range(starts.shape[0]):
+        tables[t, :counts[t]] = T(attrs[gidx[starts[t]:starts[t] + counts[t]]])
+    tcounts = T(counts)
+    tgot = rc._launch_table_fwd(tcounts, tables, T(bg), tw, 32)
+    for a, b in zip(tgot, rc.composite_tables_fwd_plain(tcounts, tables, T(bg), tw, 32)):
+        assert torch.equal(a, b)
+    tb = (tcounts, tables, T(bg), T(g_out), T(g_alpha), tgot[2], tgot[3], tw, 32)
+    gattr = rc._launch_table_bwd(*tb)
+    plain = rc.composite_tables_bwd_plain(*tb)
+    assert gattr.shape == tables.shape
+    for lo, hi in ((0, 2), (2, 5), (5, 6), (6, 6 + channels)):
+        scale = float(plain[..., lo:hi].abs().max())
+        assert float((gattr[..., lo:hi] - plain[..., lo:hi]).abs().max()) <= 1e-4 * scale
+    assert sorted(set(seen)) == [39]  # every launch at the instantiated width
+
+
+def test_wrappers_raise_past_39_channels():
+    with pytest.raises(ValueError, match="built for C <= 39"):
+        rc.pad_channels("composite_pairs_fwd", rc.KERNEL_CHANNELS, 40)
+    assert rc.pad_channels("composite_tables_fwd", rc.TABLE_FWD_CHANNELS, 5)[0] == 7
+    x = torch.ones(2, 6 + 3)
+    ck, (padded,) = rc.pad_channels("k", rc.KERNEL_CHANNELS, 3, x)
+    assert ck == 3 and padded is x  # an instantiated width is passed through untouched
