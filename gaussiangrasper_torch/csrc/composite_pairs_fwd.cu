@@ -32,32 +32,29 @@
 // goes to the tensor cores.
 //
 // Design. One thread a pixel; the pixels of a tile are covered by GGT_FWD_PARTS CTAs (2: two CTAs
-// of up to 512 threads, two an SM; 1: one CTA of up to 1024), each rounded up to whole warps, the
-// lanes past the tile's pixels idle. A warp covers an 8 x 4 pixel block (tile_pixel) where ts is
-// a multiple of 8, so a splat's footprint meets fewer warps than with pixel rows; for other tile
-// sizes it covers 32 pixels in row-major order. The tile's segment [start, start + count) is
-// walked in batches of kBatch rows that the CTA stages itself through the row source
-// (tile_rows.cuh); with GGT_FWD_PREFETCH the raw rows of batch i + 1 are copied by cp.async while
-// batch i is walked. Staging lays out the geometry (x, y, conic, opacity and the row's cull box)
-// in 8-float rows that two broadcast vector loads read, and the colours, split once into TF32 hi
-// and lo parts, zero past the count and past C. Within a batch each warp works alone, 8 rows at
-// a time:
-//   1. the cull: a row whose box (the extent outside which alpha < 1/255, with a margin; see
-//      cull_box) misses the warp's pixels is skipped by the whole warp, since no lane could
-//      composite it or be cut by it (GGT_FWD_CULL);
-//   2. the walk on the CUDA cores, one lane a pixel: sigma, alpha, the cut test and the weight
-//      w = alpha T_before; a stopped or idle lane takes w = 0 and keeps stepping with the warp;
-//   3. compaction (GGT_FWD_COMPACT): a row in which some lane composites takes the next slot of
-//      the warp's 16-slot weight ring (its 32 weights, its batch row); whenever 8 slots wait,
-//      acc[32 px x 8 NT ch] += W[32 px x 8 rows] . Colour[8 rows x 8 NT ch] by mma.sync m16n8k8 in
-//      3xTF32 (mma_tf32.cuh), two m tiles of 16 pixels and NT n tiles of 8 channels, each lane's
-//      B fragments read from its rows' colours, the accumulators in the D fragments (40 floats a
-//      lane at C = 39). The batch's last rows go in one product padded with zero weights. Without
-//      compaction every 8-row sub-chunk in which a lane composites takes one product.
+// of up to 512 threads, GGT_FWD_CTAS_PER_SM = 2 of them an SM), each rounded up to whole warps,
+// the lanes past the tile's pixels idle. A warp covers an 8 x 4 pixel block (tile_pixel) where ts
+// is a multiple of 8, so a splat's footprint meets fewer warps than with pixel rows; for other
+// tile sizes it covers 32 pixels in row-major order. The tile's segment [start, start + count)
+// is walked in batches of kBatch rows that the CTA stages itself through the row source
+// (tile_rows.cuh): the geometry (x, y, conic, opacity and the row's cull box) in 8-float rows
+// that two vector loads read, and the colours, split once into TF32 hi and lo parts, zero past C.
+// Within a batch each warp works alone, on windows of 32 rows:
+//   1. the cull: lane l tests row l of the window against the warp's pixel bounds; a row whose
+//      box (the extent outside which alpha < 1/255, with a margin: cull_box) misses them is left
+//      out for the whole warp, since no lane could composite it or be cut by it (GGT_FWD_CULL);
+//   2. the kept rows in order, 8 at a time: sigma and alpha of the 8 rows (independent of one
+//      another, so their latencies overlap), then the cut test and the weight w = alpha
+//      T_before row by row on the CUDA cores, each lane its pixel, into a per-warp 8 x 40 buffer
+//      (a stopped or idle lane writes 0 and keeps stepping with the warp);
+//   3. if a lane composited one of the 8 rows: acc[32 px x 8 NT ch] += W[32 px x 8 rows] .
+//      Colour[8 rows x 8 NT ch] by mma.sync m16n8k8 in 3xTF32 (mma_tf32.cuh), two m tiles of 16
+//      pixels and NT n tiles of 8 channels, each lane's B fragments read from its rows'
+//      colours, the accumulators in the D fragments (40 floats a lane at C = 39).
 // A warp whose pixels have all stopped skips the rest of the batch; the CTA stops when all have.
 // At the end each lane writes its pixel's alpha, logt and ncomp, and the D fragments go out with
 // T_final bg, T_final taken from the owning lane by a shuffle. None of this changes a cut
-// decision: culled rows and zero weights change no lane's state.
+// decision: a culled row changes no lane's state, a zero weight no sum.
 //
 // Two tiles per instance (K5). On the TPU the two tiles of one instance interleave their walks
 // chunk by chunk so the scheduler has two independent dependency chains. On Hopper the SM's warp
@@ -98,31 +95,19 @@
 #ifndef GGT_FWD_BATCH
 #define GGT_FWD_BATCH 128
 #endif
-#ifndef GGT_FWD_PREFETCH
-#define GGT_FWD_PREFETCH 0
-#endif
-#ifndef GGT_FWD_COMPACT
-#define GGT_FWD_COMPACT 1
-#endif
 #ifndef GGT_FWD_CULL
 #define GGT_FWD_CULL 1
 #endif
-#ifndef GGT_FWD_ACC_SMEM
-#define GGT_FWD_ACC_SMEM 0
-#endif
-#ifndef GGT_FWD_MTILE_SKIP
-#define GGT_FWD_MTILE_SKIP 1
-#endif
 // timing-only variants (probes/composite_variants.py): 32 x 1 pixel-row warps; no product (the
 // colour sums left out, so `out` is wrong); each CTA's start and end time and SM recorded
-#ifndef GGT_FWD_TIMES
-#define GGT_FWD_TIMES 0
-#endif
 #ifndef GGT_FWD_ROW_WARPS
 #define GGT_FWD_ROW_WARPS 0
 #endif
 #ifndef GGT_FWD_SKIP_PRODUCT
 #define GGT_FWD_SKIP_PRODUCT 0
+#endif
+#ifndef GGT_FWD_TIMES
+#define GGT_FWD_TIMES 0
 #endif
 
 namespace {
@@ -132,44 +117,33 @@ constexpr float kAlphaCutoff = (float)(1.0 / 255.0);
 constexpr float kLogEps = -9.2103403719761836f;  // log(1e-4)
 constexpr int kWalkChunk = 128;                  // K1's KC: the rounding of an uncut ncomp
 constexpr int kBatch = GGT_FWD_BATCH;  // rows staged in shared memory per batch
-constexpr int kSub = 8;         // rows a group of the walk and a product: the k of m16n8k8
+constexpr int kSub = 8;         // rows of a group of the walk: the k of the m16n8k8 products
 constexpr int kBufStride = 40;  // row stride of a warp's weight buffer: the A fragments' loads
                                 // (row tq, pixel gq) hit 32 banks
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kParts = GGT_FWD_PARTS;
 constexpr int kCtasPerSm = GGT_FWD_CTAS_PER_SM;  // the launch bound: at most 65536 / (kCtasPerSm
                                                  // 1024 / kParts) registers a thread
-constexpr bool kPrefetch = GGT_FWD_PREFETCH != 0;
-constexpr bool kCompact = GGT_FWD_COMPACT != 0;
 constexpr bool kCull = GGT_FWD_CULL != 0;
-constexpr bool kAccSmem = GGT_FWD_ACC_SMEM != 0;
-constexpr bool kMtileSkip = GGT_FWD_MTILE_SKIP != 0;
-constexpr bool kTimes = GGT_FWD_TIMES != 0;
-constexpr int kTimedCtas = 8192;
 constexpr bool kRowWarps = GGT_FWD_ROW_WARPS != 0;
 constexpr bool kSkipProduct = GGT_FWD_SKIP_PRODUCT != 0;
-constexpr int kSlots = kCompact ? 2 * kSub : kSub;  // weight rows a warp's buffer holds
+constexpr bool kTimes = GGT_FWD_TIMES != 0;
+constexpr int kTimedCtas = 8192;
 static_assert(kParts == 1 || kParts == 2 || kParts == 4, "GGT_FWD_PARTS is 1, 2 or 4");
-static_assert(kBatch % kSub == 0, "GGT_FWD_BATCH is a multiple of 8");
+static_assert(kBatch % 32 == 0, "GGT_FWD_BATCH is a multiple of 32");
 
 // Shared memory of the body, in 4-byte words: the batch's geometry (kBatch x 8), its colours split
-// (kBatch x 8 NT x 2), then for each warp its accumulators (2 NT D fragments of 32 lanes x 4, with
-// GGT_FWD_ACC_SMEM), its weight buffer (kSlots x kBufStride) and the batch rows of its slots
-// (kSlots), then the batch's indices (with the prefetch: two index buffers and two kBatch x
-// (6 + C) raw row buffers). Every region starts on 16 bytes.
+// (kBatch x 8 NT x 2), each warp's weight buffer (kSub x kBufStride), the batch's indices
+// (kBatch). Every region starts on 16 bytes.
 template <int C>
 struct FwdSmem {
   static constexpr int NT = (C + 7) / 8;  // 8-channel n tiles
   static constexpr int kGeo = kBatch * 8;
   static constexpr int kCol = kBatch * NT * 8 * 2;
-  static constexpr int kAcc = kAccSmem ? 2 * NT * 32 * 4 : 0;
-  static constexpr int kWarp = kAcc + kSlots * kBufStride + kSlots;
-  static constexpr int kRaw = kBatch * (6 + C);
+  static constexpr int kWarp = kSub * kBufStride;
 
   static size_t bytes(int threads) {
-    const size_t words = kGeo + kCol + (size_t)(threads / 32) * kWarp +
-                         (kPrefetch ? 2 * (size_t)kRaw + 2 * kBatch : kBatch);
-    return 4 * words;
+    return 4 * (kGeo + kCol + (size_t)(threads / 32) * kWarp + kBatch);
   }
 };
 
@@ -180,11 +154,6 @@ __host__ __device__ __forceinline__ int cta_threads(int p) {
 }
 __host__ __device__ __forceinline__ int tile_ctas(int p) {
   return (p + cta_threads(p) - 1) / cta_threads(p);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src) : "memory");
 }
 
 // Half-extents (rx, ry) of the box around a row's centre outside which no pixel passes the alpha
@@ -201,43 +170,41 @@ __device__ __forceinline__ float2 cull_box(float a, float b, float c, float o) {
   return make_float2(sqrtf(l2 * c / det) * 1.001f + 1e-3f, sqrtf(l2 * a / det) * 1.001f + 1e-3f);
 }
 
-// Lays out rows [0, n) of a batch, row r at row(r) (global or shared memory), for the walk and
-// the product: geometry in 8-float rows (x, y, conic a, b | conic c, opacity, the cull box's
-// half-extents); colours of rows [0, n) x channels [0, 8 NT) split into TF32 {hi, lo} at
-// s_col[r 8 NT + c], zero past C.
-template <int C, class RowOf>
-__device__ __forceinline__ void split_batch(int n, const RowOf& row, float4* s_geo, float2* s_col) {
+// Lays out rows [0, n) of a batch, through the row source, for the walk and the product: geometry
+// in 8-float rows (x, y, conic a, b | conic c, opacity, the cull box's half-extents); colours of
+// rows [0, n) x channels [0, 8 NT) split into TF32 {hi, lo} at s_col[r 8 NT + c], zero past C.
+template <int C, class Rows>
+__device__ __forceinline__ void stage_batch(const Rows& rows, size_t first, int n,
+                                            const int32_t* s_gid, float4* s_geo, float2* s_col) {
+  constexpr int A = 6 + C;
   constexpr int CP = FwdSmem<C>::NT * 8;
   for (int r = threadIdx.x; r < n; r += blockDim.x) {
-    const float* src = row(r);
+    const float* src = rows.template row<A>(first, r, s_gid);
     const float2 box = cull_box(src[2], src[3], src[4], src[5]);
     s_geo[2 * r] = make_float4(src[0], src[1], src[2], src[3]);
     s_geo[2 * r + 1] = make_float4(src[4], src[5], box.x, box.y);
   }
+#pragma unroll 4
   for (int i = threadIdx.x; i < n * CP; i += blockDim.x) {
     const int r = i / CP, c = i - r * CP;
     uint32_t hi, lo;
-    split_tf32(c < C ? row(r)[6 + c] : 0.f, hi, lo);
+    split_tf32(c < C ? rows.template row<A>(first, r, s_gid)[6 + c] : 0.f, hi, lo);
     s_col[i] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
   }
 }
 
 // acc[pixel][channel] += sum_k w[k][pixel] colour[row k][channel] on the tensor cores, 3xTF32:
 // M the warp's 32 pixels (two m tiles), N the channels (NT n tiles), K the 8 weight rows at
-// w (kBufStride apart); the lane's B rows are lo (fragment row tq) and hi (tq + 4). The
-// accumulators are the D fragments, in registers (racc) or in the lane's shared slots (sacc).
-// Bit m of `mtiles` (warp-uniform) says that m tile m (the warp's pixels 16 m .. 16 m + 15) has a
-// nonzero weight; the other takes no product.
+// w (kBufStride apart); the lane's B rows are lo (fragment row tq) and hi (tq + 4); the
+// accumulators are the D fragments.
 template <int NT>
-__device__ __forceinline__ void colour_product(float (&racc)[2][NT][4], float4* sacc,
-                                               const float* w, const float2* s_col, int lo,
-                                               int hi, int lane, unsigned mtiles) {
+__device__ __forceinline__ void colour_product(float (&acc)[2][NT][4], const float* w,
+                                               const float2* s_col, int lo, int hi, int lane) {
   const int gq = lane >> 2, tq = lane & 3;
   const float2* c0 = s_col + lo * NT * 8 + gq;
   const float2* c1 = s_col + hi * NT * 8 + gq;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
-    if (!(mtiles >> mt & 1u)) continue;  // no weight of the m tile's 16 pixels is nonzero
     const float* wr = w + tq * kBufStride + mt * 16 + gq;
     uint32_t ah[4], al[4];
     split_tf32(wr[0], ah[0], al[0]);
@@ -249,15 +216,7 @@ __device__ __forceinline__ void colour_product(float (&racc)[2][NT][4], float4* 
       const float2 b0 = c0[nt * 8], b1 = c1[nt * 8];
       const uint32_t bh[2] = {__float_as_uint(b0.x), __float_as_uint(b1.x)};
       const uint32_t bl[2] = {__float_as_uint(b0.y), __float_as_uint(b1.y)};
-      if constexpr (kAccSmem) {
-        float4* slot = sacc + (mt * NT + nt) * 32 + lane;
-        const float4 v = *slot;
-        float d[4] = {v.x, v.y, v.z, v.w};
-        mma_3xtf32_split(d, ah, al, bh, bl);
-        *slot = make_float4(d[0], d[1], d[2], d[3]);
-      } else {
-        mma_3xtf32_split(racc[mt][nt], ah, al, bh, bl);
-      }
+      mma_3xtf32_split(acc[mt][nt], ah, al, bh, bl);
     }
   }
 }
@@ -270,7 +229,6 @@ __device__ __forceinline__ void composite_tile(
     const float* __restrict__ bg, int tw, int ts, float* __restrict__ out,
     float* __restrict__ alpha_out, float* __restrict__ logt_out,
     float* __restrict__ ncomp_out) {
-  constexpr int A = 6 + C;
   constexpr int NT = FwdSmem<C>::NT;
   extern __shared__ float4 smem4[];
   float4* s_geo = smem4;  // kBatch x 2
@@ -278,12 +236,8 @@ __device__ __forceinline__ void composite_tile(
   float* s_warps = reinterpret_cast<float*>(smem4) + FwdSmem<C>::kGeo + FwdSmem<C>::kCol;
   const int nthreads = blockDim.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* s_mine = s_warps + warp * FwdSmem<C>::kWarp;
-  float4* sacc = reinterpret_cast<float4*>(s_mine);                     // 2 NT x 32 float4
-  float* s_buf = s_mine + FwdSmem<C>::kAcc;                              // kSlots x kBufStride
-  int32_t* s_rows = reinterpret_cast<int32_t*>(s_buf + kSlots * kBufStride);  // kSlots
-  float* s_raw = s_warps + (nthreads / 32) * FwdSmem<C>::kWarp;  // prefetch only: 2 x kRaw
-  int32_t* s_gid = reinterpret_cast<int32_t*>(s_raw + (kPrefetch ? 2 * FwdSmem<C>::kRaw : 0));
+  float* s_buf = s_warps + warp * FwdSmem<C>::kWarp;  // kSub x kBufStride
+  int32_t* s_gid = reinterpret_cast<int32_t*>(s_warps + (nthreads / 32) * FwdSmem<C>::kWarp);
   const int tq = lane & 3;
 
   const int P = ts * ts;
@@ -301,67 +255,23 @@ __device__ __forceinline__ void composite_tile(
   const float ylo = (float)__reduce_min_sync(kFull, active ? iy : INT_MAX);
   const float yhi = (float)__reduce_max_sync(kFull, active ? iy : INT_MIN);
 
-  float racc[2][NT][4];
+  float acc[2][NT][4];
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) racc[mt][nt][e] = 0.f;
-      if (kAccSmem) sacc[(mt * NT + nt) * 32 + lane] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
   float cum_all = 0.f;    // sum of log(1 - alpha) over every walked entry
   float logt_comp = 0.f;  // the same over composited entries
   int cut = active ? -1 : 0;  // an idle lane (past the tile's pixels) is stopped from the start
-  int head = 0, fill = 0;  // compaction: weight rows waiting in slots [head, head + fill) mod kSlots
-  unsigned mine = 0u;      // the slots in which this lane's weight is nonzero
-  // the m tiles of the slots [first, first + 8) with a nonzero weight (warp-uniform)
-  auto mtiles_of = [&](int first) {
-    const unsigned any = __ballot_sync(kFull, (mine >> first & 0xFFu) != 0u);
-    return kMtileSkip ? (unsigned)((any & 0xFFFFu) != 0u) | (unsigned)(any >> 16 != 0u) << 1 : 3u;
-  };
 
-  const int nbatch = (count + kBatch - 1) / kBatch;
-  auto batch_rows = [&](int b) { return min(kBatch, count - b * kBatch); };
-  // prefetch: the raw rows of batch b into buffer `slot`, through the indices in s_gid[slot]
-  auto issue = [&](int b, int slot) {
-    const size_t first = start + (size_t)b * kBatch;
-    const int n = batch_rows(b);
-    float* dst = s_raw + slot * FwdSmem<C>::kRaw;
-    const int32_t* gid = s_gid + slot * kBatch;
-    for (int i = threadIdx.x; i < n * A; i += nthreads) {
-      const int r = i / A;
-      cp_async4(dst + i, rows.template row<A>(first, r, gid) + (i - r * A));
-    }
-    asm volatile("cp.async.commit_group;" ::: "memory");
-  };
-  if (kPrefetch && nbatch > 0) {
-    rows.load_index(start, batch_rows(0), s_gid);
-    __syncthreads();
-    issue(0, 0);
-    if (nbatch > 1) rows.load_index(start + kBatch, batch_rows(1), s_gid + kBatch);
-  }
-
-  for (int b = 0; b < nbatch; ++b) {
-    const int base = b * kBatch;
-    const int n = batch_rows(b);
+  for (int base = 0; base < count; base += kBatch) {
+    const int n = min(kBatch, count - base);
     const size_t first = start + base;
-    if (kPrefetch) {
-      asm volatile("cp.async.wait_all;" ::: "memory");
-      __syncthreads();  // batch b's rows have landed; every warp is done with batch b - 1
-      const int slot = b & 1;
-      if (b + 1 < nbatch) issue(b + 1, slot ^ 1);
-      const float* raw = s_raw + slot * FwdSmem<C>::kRaw;
-      split_batch<C>(n, [&](int r) { return raw + r * A; }, s_geo, s_col);
-      if (b + 2 < nbatch) {
-        rows.load_index(first + 2 * kBatch, batch_rows(b + 2), s_gid + slot * kBatch);
-      }
-    } else {  // the barrier that ended batch b - 1 is behind every warp
-      rows.load_index(first, n, s_gid);
-      __syncthreads();
-      split_batch<C>(n, [&](int r) { return rows.template row<A>(first, r, s_gid); }, s_geo,
-                     s_col);
-    }
+    rows.load_index(first, n, s_gid);  // the barrier that ended the last batch is behind us
+    __syncthreads();
+    stage_batch<C>(rows, first, n, s_gid, s_geo, s_col);
     __syncthreads();
 
     // each warp on its own, windows of 32 rows
@@ -380,16 +290,19 @@ __device__ __forceinline__ void composite_tile(
       }
       // the kept rows in order, kSub at a time
       while (todo != 0u && !__all_sync(kFull, cut >= 0)) {
-        // 1. sigma and alpha of the group's rows, independent of one another
+        // 1. sigma and alpha of the group's rows (the lowest kSub bits of todo), independent of
+        // one another; the lane's B rows of the product are slots tq and tq + 4
+        const unsigned group = todo;
         float av[kSub];
-        int rj[kSub];
         unsigned ok = 0u;
+        int lo = w0, hi = w0;
 #pragma unroll
         for (int j = 0; j < kSub; ++j) {
           const bool has = todo != 0u;
           const int r = has ? w0 + __ffs(todo) - 1 : w0;
           todo &= todo - 1u;
-          rj[j] = r;
+          if (j == tq) lo = r;
+          if (j == tq + 4) hi = r;
           const float4 g0 = s_geo[2 * r];      // x, y, conic a, conic b
           const float4 g1 = s_geo[2 * r + 1];  // conic c, opacity, cull box
           const float dx = __fsub_rn(px, g0.x);
@@ -401,7 +314,7 @@ __device__ __forceinline__ void composite_tile(
           av[j] = fminf(kAlphaClamp, __fmul_rn(g1.y, expf(-sigma)));
           if (has && sigma >= 0.f && av[j] >= kAlphaCutoff) ok |= 1u << j;  // else alpha 0
         }
-        // 2. the cut test and the weight w = alpha T_before of each row, in order
+        // 2. the cut test and the weight w = alpha T_before of each row, in order, into slot j
         bool live = false;
 #pragma unroll
         for (int j = 0; j < kSub; ++j) {
@@ -410,7 +323,10 @@ __device__ __forceinline__ void composite_tile(
             const float lt = log1pf(-av[j]);
             const float cum = __fadd_rn(cum_all, lt);
             if (!(cum > kLogEps)) {
-              cut = base + rj[j];
+              unsigned m = group;  // the group's row j: the (j + 1)-th set bit of group
+#pragma unroll
+              for (int k = 0; k < j; ++k) m &= m - 1u;
+              cut = base + w0 + __ffs(m) - 1;
             } else {
               w = __fmul_rn(av[j], expf(logt_comp));
               logt_comp = __fadd_rn(logt_comp, lt);
@@ -418,63 +334,18 @@ __device__ __forceinline__ void composite_tile(
               live = true;
             }
           }
-          if (kCompact) {  // a row in which some lane composites takes the next slot
-            if (__any_sync(kFull, w != 0.f)) {
-              const int s = (head + fill) & (kSlots - 1);
-              s_buf[s * kBufStride + lane] = w;
-              if (lane == 0) s_rows[s] = rj[j];
-              mine |= (unsigned)(w != 0.f) << s;
-              ++fill;
-            }
-          } else {
-            s_buf[j * kBufStride + lane] = w;
-            if (lane == 0) s_rows[j] = rj[j];
-            mine |= (unsigned)(w != 0.f) << j;
-          }
+          s_buf[j * kBufStride + lane] = w;
         }
-        // 3. the colour product of 8 weight rows
-        if (kSkipProduct) {
-          fill = 0;
-          mine = 0u;
-        } else if (kCompact) {
-          if (fill >= kSub) {
-            __syncwarp();
-            colour_product<NT>(racc, sacc, s_buf + head * kBufStride, s_col, s_rows[head + tq],
-                               s_rows[head + tq + 4], lane, mtiles_of(head));
-            __syncwarp();  // the slots are read before they are written again
-            mine &= ~(0xFFu << head);
-            head ^= kSub;
-            fill -= kSub;
-          }
-        } else if (__any_sync(kFull, live)) {
+        // 3. the colour product of the group's rows, if some lane composited one
+        if (!kSkipProduct && __any_sync(kFull, live)) {
           __syncwarp();
-          colour_product<NT>(racc, sacc, s_buf, s_col, s_rows[tq], s_rows[tq + 4], lane,
-                             mtiles_of(0));
-          __syncwarp();
-          mine = 0u;
-        } else {
-          mine = 0u;
+          colour_product<NT>(acc, s_buf, s_col, lo, hi, lane);
+          __syncwarp();  // the slots are read before the next group writes them
         }
       }
-    }
-    if (kCompact && fill > 0) {  // the batch's last rows, padded with zero weights, before the
-                                 // next batch replaces the colours
-      for (int k = fill; k < kSub; ++k) {
-        const int s = (head + k) & (kSlots - 1);
-        s_buf[s * kBufStride + lane] = 0.f;
-        if (lane == 0) s_rows[s] = 0;
-      }
-      __syncwarp();
-      colour_product<NT>(racc, sacc, s_buf + head * kBufStride, s_col, s_rows[head + tq],
-                         s_rows[head + tq + 4], lane, mtiles_of(head));
-      __syncwarp();
-      mine = 0u;
-      head ^= kSub;
-      fill = 0;
     }
     if (__syncthreads_count(cut >= 0) == nthreads) break;
   }
-  if (kPrefetch) asm volatile("cp.async.wait_all;" ::: "memory");
 
   const float t_final = expf(logt_comp);
   if (active) {
@@ -490,13 +361,6 @@ __device__ __forceinline__ void composite_tile(
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      if (kAccSmem) {
-        const float4 v = sacc[(mt * NT + nt) * 32 + lane];
-        racc[mt][nt][0] = v.x, racc[mt][nt][1] = v.y, racc[mt][nt][2] = v.z, racc[mt][nt][3] = v.w;
-      }
-    }
-#pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int q = mt * 16 + h * 8 + (lane >> 2);
       const float tf = __shfl_sync(kFull, t_final, q);
@@ -507,7 +371,7 @@ __device__ __forceinline__ void composite_tile(
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int c = nt * 8 + 2 * tq + e;
-            if (c < C) o[c] = __fadd_rn(racc[mt][nt][2 * h + e], __fmul_rn(tf, bg[c]));
+            if (c < C) o[c] = __fadd_rn(acc[mt][nt][2 * h + e], __fmul_rn(tf, bg[c]));
           }
         }
       }

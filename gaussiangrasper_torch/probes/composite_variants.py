@@ -7,33 +7,27 @@ Run from the root of a checkout (it takes the inputs from chip_smoke.py).
 `csrc/composite_pairs_fwd.cu` is compiled once per variant with its `-D`
 switches (`_build.build_variants`, all at once). The build's default is
 four CTAs of 256 threads a tile, three an SM (at most 80 registers a
-thread), 128-row batches staged after the walk of the one before, the
-accumulators in registers, the weight-row compaction, the skip of m tiles
-without a weight and the warp cull; each variant changes some of them:
+thread), 128-row batches and the warp cull; each variant changes some of
+them:
   default             the build's default (what K1 runs)
   p1_1sm              one CTA of 1024 threads a tile (64 registers)
   p2_2sm              two CTAs of 512 threads a tile, two an SM (64 registers)
-  p4_2sm              two CTAs an SM (128 registers)
-  batch32, batch64    32- and 64-row batches
-  acc_smem            the accumulators in shared memory, 32-row batches
-  prefetch            the raw rows of batch i + 1 copied by cp.async while
-                      batch i is walked (two CTAs an SM fit the buffers)
-  no_mtile_skip       every product takes both m tiles
-  no_cull             every warp walks every row
-  no_compact          a product for every group of 8 walked rows in which a
-                      lane composites, on the group's rows
-  per_sub_chunk       no_compact, no cull, no m-tile skip
+  p4_4sm_b64          four CTAs an SM (64 registers), 64-row batches (their
+                      shared memory)
+  batch64             64-row batches
+  no_cull             every warp walks every row, so a product takes 8
+                      consecutive rows with a lane that composites
   row_warps           32 x 1 pixel-row warps
   no_product          the colour product left out (timing only: `out` holds
                       only the background term)
   times               the default recording each CTA's start, end and SM
-                      (%globaltimer, %smid): the launch's span, the CTAs'
-                      times and the tail in which fewer CTAs run than fit
+                      (%globaltimer, %smid): the launch's span, the CTAs' and
+                      tiles' times, the busy share of the CTA slots, the drain
 Each variant's four outputs are held against the default build's K1
 (`rasterize_cuda._kernel_fwd`): alpha, logt and ncomp bit-equal for every
 variant; `out` bit-equal where the rows of each product are the same
-(parts, prefetch, cull), else within 1e-4 (another grouping of the colour
-sums), except no_product. Then the variants are timed in turns, `--rounds`
+(SAME_PRODUCTS), else within 1e-4 (another grouping of the colour sums),
+except no_product. Then the variants are timed in turns, `--rounds`
 times (CUDA events, median of 20 launches each). Prints one JSON line a
 variant and one with the card.
 """
@@ -55,21 +49,15 @@ VARIANTS = {
     "default": {},
     "p1_1sm": {"GGT_FWD_PARTS": 1, "GGT_FWD_CTAS_PER_SM": 1},
     "p2_2sm": {"GGT_FWD_PARTS": 2, "GGT_FWD_CTAS_PER_SM": 2},
-    "p4_2sm": {"GGT_FWD_CTAS_PER_SM": 2},
-    "batch32": {"GGT_FWD_BATCH": 32},
+    "p4_4sm_b64": {"GGT_FWD_CTAS_PER_SM": 4, "GGT_FWD_BATCH": 64},
     "batch64": {"GGT_FWD_BATCH": 64},
-    "acc_smem": {"GGT_FWD_ACC_SMEM": 1, "GGT_FWD_BATCH": 32},
-    "prefetch": {"GGT_FWD_PREFETCH": 1},
-    "no_mtile_skip": {"GGT_FWD_MTILE_SKIP": 0},
     "no_cull": {"GGT_FWD_CULL": 0},
-    "no_compact": {"GGT_FWD_COMPACT": 0},
-    "per_sub_chunk": {"GGT_FWD_COMPACT": 0, "GGT_FWD_CULL": 0, "GGT_FWD_MTILE_SKIP": 0},
     "row_warps": {"GGT_FWD_ROW_WARPS": 1},
     "no_product": {"GGT_FWD_SKIP_PRODUCT": 1},
     "times": {"GGT_FWD_TIMES": 1},
 }
-SAME_PRODUCTS = ("default", "p1_1sm", "p2_2sm", "p4_2sm", "prefetch", "no_mtile_skip", "no_cull",
-                 "times")
+# the variants whose products take the same rows as the default's: `out` bit-equal
+SAME_PRODUCTS = ("default", "p1_1sm", "p2_2sm", "p4_4sm_b64", "batch64", "times")
 OUT_ERR_MAX = 1e-4  # chip_smoke.py's K1 criterion
 
 
