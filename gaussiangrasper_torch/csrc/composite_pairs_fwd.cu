@@ -31,8 +31,8 @@
 // the same sum as a matrix product (_fwd_pairs_kernel's `mm`, rasterize_pallas.py:490); here it
 // goes to the tensor cores.
 //
-// Design. One thread a pixel; the pixels of a tile are covered by GGT_FWD_PARTS CTAs (2: two CTAs
-// of up to 512 threads, GGT_FWD_CTAS_PER_SM = 2 of them an SM), each rounded up to whole warps,
+// Design. One thread a pixel; the pixels of a tile are covered by GGT_FWD_PARTS CTAs (4: four CTAs
+// of up to 256 threads, GGT_FWD_CTAS_PER_SM = 3 of them an SM), each rounded up to whole warps,
 // the lanes past the tile's pixels idle. A warp covers an 8 x 4 pixel block (tile_pixel) where ts
 // is a multiple of 8, so a splat's footprint meets fewer warps than with pixel rows; for other
 // tile sizes it covers 32 pixels in row-major order. The tile's segment [start, start + count)
@@ -76,7 +76,20 @@
 // expf and the weight (6) on the CUDA cores and the 2C flops of its colour terms on the tensor
 // cores. chip_smoke.py computes the bound from the run's own visit counts, the two units' times
 // added, and the compulsory bytes (the (N, 6 + C) table, pair_gidx, the (T, P, 3 + C) outputs);
-// the kernel is bound by operations. Measured times: PERF.md.
+// the kernel is bound by operations: 0.236 ms at chip_smoke.py's full-width k1 inputs (632 M
+// visits, 152 M composited), where the first design spent 2.84-2.90 ms (8.5x).
+//
+// Measured (probes/composite_variants.py at those inputs, NVIDIA H100 80GB HBM3, 700.00 W, CUDA
+// events, median of 20 launches, three rounds): this design 1.80-1.87 ms (7.6-7.9x the bound);
+// without the colour product (timing only) 1.28-1.30, so the product takes ~0.55 ms and the walk
+// the rest; without the cull 2.80-2.90 (every product then takes 8 consecutive rows); 32 x 1
+// warps 2.32-2.35; 64-row batches 1.89-1.95; one 1024-thread CTA a tile 2.08-2.12, two of 512
+// two an SM 1.94-1.98, four of 256 four an SM (64-row batches) 1.97-2.01, those three at 64
+// registers with spills. A cp.async double-buffered staging, measured in an earlier state of
+// the same script, lost to the smem it takes from the CTAs an SM holds. Each CTA's times
+// (GGT_FWD_TIMES): the SM's 396 CTA slots are busy 95% of the launch, the drain after the last
+// CTA starts takes 8% of it. ptxas: 79-80 registers at C = 3, 7 and 39, 24 bytes of spills at 39;
+// dynamic shared memory 55.8 KB a CTA at C = 39, 22.5 KB at C = 3 and 7 (PERF.md).
 
 #include <cuda_runtime.h>
 #include <limits.h>

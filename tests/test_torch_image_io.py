@@ -172,3 +172,13 @@ def test_jpeg_capture_loads_as_in_jax(tmp_path):
         assert float(np.abs(t_data["image"] - j_data["image"]).max()) <= 1.0 / 255.0
         for k in set(j_data) - {"image"}:
             np.testing.assert_array_equal(t_data[k], j_data[k], err_msg=k)
+
+
+def test_jpeg_at_capture_size_matches_pillow(tmp_path):
+    """An 800x800 4:2:0 frame at quality 95, the trainer's capture size:
+    within 1 of Pillow (its decode time is this test's, `--durations`)."""
+    path = tmp_path / "big.jpg"
+    Image.fromarray(smooth_noisy(800, 800, 3, seed=8)).save(path, "JPEG", quality=95)
+    got, want = read_jpeg(path), np.asarray(Image.open(path))
+    assert got.shape == (800, 800, 3)
+    assert int(np.abs(got.astype(np.int64) - want).max()) <= 1
