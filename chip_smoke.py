@@ -13,9 +13,11 @@ Phases, one JSON line each:
   k1       the forward kernel against its plain PyTorch version on the card, at
            a mid size (C 39, C 3, and C 23 through the wrapper's zero padding)
            and at full width (200k Gaussians, 800x800, C = 39): errors, kernel
-           and plain times, the roofline bound, and the work in warp x row pairs
-           (warp_rows walked, live_warp_rows with a lane that composites,
-           live_sub_chunks) with the SM clocks the kernel spends a live warp-row
+           and plain times, the roofline bound on the visits the kernel's cull
+           keeps (beside bound_all_visits_ms, every visit charged), and the work
+           in warp x row pairs (warp_rows walked, live_warp_rows with a lane that
+           composites, kept_warp_rows that the cull keeps, the colour products)
+           with the SM clocks the kernel spends a live warp-row
   k2       the backward kernel against its plain version on K1's own logt
            and ncomp, random g_out and a nonzero g_alpha, at mid size (C 39,
            C 3 and C 23) and full width: errors of the per-Gaussian sums,
@@ -203,43 +205,62 @@ def roofline(ops: float, nbytes: float, tc_ops: float = 0.0, **counts) -> dict:
     return {**row, "tensor_core_ops": tc_ops} if tc_ops else row
 
 
-def walk_ops(counts, ncomp, live, c: int):
-    """(visits, live visits, operations outside the tensor cores, colour
-    products on them) of the forward walk on these inputs: a pixel walks
-    until its cut entry, inclusive."""
+def walk_ops(work: dict, n_live: float, c: int):
+    """(operations outside the tensor cores, colour products on them) of the
+    forward walk on these inputs as the kernel's per-warp cull leaves it
+    (`composite_pairs_fwd_plain(count_warp_rows=True)`): the visits of
+    walking lanes in the rows their warp keeps, the box tests, and the
+    composited visits."""
+    # per kept visit: dx, dy, sigma (9), exp, o*exp, min, two tests = 16; per box test: four
+    # adds and four compares = 8; per composited live visit: log1p, cum add, test, exp, w,
+    # logt add = 6, and the 2C flops of its colour terms, which the kernels take on the tensor
+    # cores
+    ops = 16.0 * work["kept_visits"] + 8.0 * work["box_tests"] + 6.0 * n_live
+    return ops, 2.0 * c * n_live
+
+
+def all_visits_bound(counts, ncomp, n_live: float, c: int) -> dict:
+    """The bound with every pair-pixel visit up to each pixel's cut
+    charged its 16 operations, as if no visit could be left out: the
+    colour products at the 3xTF32 rate, the rest at the f32 peak."""
     import torch
 
     cnt = counts.double()[:, None].expand_as(ncomp)
     visits = float(torch.where(ncomp < cnt, ncomp.double() + 1.0, cnt).sum())
+    t_ops = (16.0 * visits + 6.0 * n_live) / F32_PEAK_FLOPS + 2.0 * c * n_live / TF32X3_PEAK_FLOPS
+    return {"bound_all_visits_ms": 1e3 * t_ops, "visits": visits}
+
+
+def fwd_bound(counts, ncomp, live, work: dict, c: int, nbytes: float) -> dict:
     n_live = float(live.double().sum())
-    # per visit: dx, dy, sigma (9), exp, o*exp, min, two tests = 16
-    # per composited live visit: log1p, cum add, test, exp, w, logt add = 6, and the 2C flops of
-    # its colour terms, which the kernels take on the tensor cores
-    return visits, n_live, 16.0 * visits + 6.0 * n_live, 2.0 * c * n_live
+    ops, tc_ops = walk_ops(work, n_live, c)
+    return roofline(ops, nbytes, tc_ops, **all_visits_bound(counts, ncomp, n_live, c),
+                    kept_visits=float(work["kept_visits"]), box_tests=float(work["box_tests"]),
+                    live_visits=n_live)
 
 
-def k1_bound(args, ncomp, live) -> dict:
+def k1_bound(args, ncomp, live, work: dict) -> dict:
     """Least time for K1's work on these inputs: operations from the
-    walk's own visit counts, the colour products at the 3xTF32 rate and
-    the rest at the f32 peak, and compulsory bytes (the (N, 6 + C) table,
-    the walked pair_gidx, outputs) at the HBM rate."""
+    walk's own counts (`walk_ops`), the colour products at the 3xTF32 rate
+    and the rest at the f32 peak, and compulsory bytes (the (N, 6 + C)
+    table, the walked pair_gidx, outputs) at the HBM rate; beside it the
+    bound that charges every visit (`all_visits_bound`)."""
     gidx, starts, counts, attrs, bg, tw, ts = args
     c = attrs.shape[1] - 6
-    visits, n_live, ops, tc_ops = walk_ops(counts, ncomp, live, c)
     t, p = ncomp.shape
     nbytes = 4.0 * (attrs.numel() + float(counts.sum()) + 2 * t + c + t * p * (c + 3))
-    return roofline(ops, nbytes, tc_ops, visits=visits, live_visits=n_live)
+    return fwd_bound(counts, ncomp, live, work, c, nbytes)
 
 
-def k3_bound(targs, ncomp, live) -> dict:
-    """K1's operations on the table's rows; bytes: the walked table rows,
-    counts, bg and the outputs."""
+def k3_bound(targs, ncomp, live, work: dict) -> dict:
+    """K1's operations on the table's rows (`work` counted on the stream
+    of the same rows); bytes: the walked table rows, counts, bg and the
+    outputs."""
     counts, tables, bg, tw, ts = targs
     c = tables.shape[2] - 6
-    visits, n_live, ops, tc_ops = walk_ops(counts, ncomp, live, c)
     t, p = ncomp.shape
     nbytes = 4.0 * (float(counts.sum()) * tables.shape[2] + t + c + t * p * (c + 3))
-    return roofline(ops, nbytes, tc_ops, visits=visits, live_visits=n_live)
+    return fwd_bound(counts, ncomp, live, work, c, nbytes)
 
 
 def check_k1(label: str, args, time_it: bool) -> dict:
@@ -248,7 +269,7 @@ def check_k1(label: str, args, time_it: bool) -> dict:
     from gaussiangrasper_torch.ops import rasterize_cuda as rc
 
     got = rc.composite_pairs_fwd(*args)
-    want = rc.composite_pairs_fwd_plain(*args, count_live=True)
+    want = rc.composite_pairs_fwd_plain(*args, count_live=True, count_warp_rows=time_it)
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(got[:3], want[:3]))
     dn = (got[3] - want[3]).abs()
@@ -263,9 +284,10 @@ def check_k1(label: str, args, time_it: bool) -> dict:
         row["ms"] = cuda_ms(lambda: rc._launch_kernel(*args), 20)
         row["wrapper_ms"] = cuda_ms(lambda: rc.composite_pairs_fwd(*args), 20)
         row["plain_ms"] = cuda_ms(lambda: rc.composite_pairs_fwd_plain(*args), 3)
-        row.update(k1_bound(args, want[3], want[4]))
-        *_, rows, live, subs = rc.composite_pairs_fwd_plain(*args, count_warp_rows=True)
-        row.update(warp_row_work(rows, live, row["ms"]), live_sub_chunks=subs)
+        work = want[5]
+        row.update(k1_bound(args, want[3], want[4], work))
+        row.update(warp_row_work(work["warp_rows"], work["live_warp_rows"], row["ms"]),
+                   kept_warp_rows=work["kept_warp_rows"], products=work["products"])
     emit(row)
     if not finite or err > K1_ERR_MAX or dn_max > 1 or share > K1_NCOMP_SHARE_MAX:
         raise RuntimeError(f"k1 {label}: kernel disagrees with its plain version: {row}")
@@ -443,7 +465,7 @@ def check_k5(label: str, args, time_it: bool, plain: bool) -> dict:
     ok = all(equal) and all(bool(torch.isfinite(x).all()) for x in got)
     want = None
     if plain or time_it:
-        want = rc.composite_pairs_fwd_plain(*args, count_live=True)
+        want = rc.composite_pairs_fwd_plain(*args, count_live=True, count_warp_rows=time_it)
     if plain:
         err = max(float((a - b).abs().max()) for a, b in zip(got[:3], want[:3]))
         dn = (got[3] - want[3]).abs()
@@ -455,7 +477,7 @@ def check_k5(label: str, args, time_it: bool, plain: bool) -> dict:
         row["ms"] = cuda_ms(lambda: rc._launch_kernel2(*args), 20)
         row["k1_ms"] = cuda_ms(lambda: rc._launch_kernel(*args), 20)
         row["plain_ms"] = cuda_ms(lambda: rc.composite_pairs_fwd_plain(*args), 3)
-        row.update(k1_bound(args, want[3], want[4]))
+        row.update(k1_bound(args, want[3], want[4], want[5]))
         row.setdefault("max_abs_err", max(float((a - b).abs().max()) for a, b in zip(got[:3], want[:3])))
     emit(row)
     if not ok:
@@ -566,7 +588,9 @@ def check_k3(label: str, inp: dict, time_it: bool, against_k1: bool) -> dict:
             row["k1_ms"] = cuda_ms(lambda: rc._launch_kernel(*inp["k1"]), 20)
         row["wrapper_ms"] = cuda_ms(lambda: rc.composite_tables_fwd(*targs), 20)
         row["plain_ms"] = cuda_ms(lambda: rc.composite_tables_fwd_plain(*targs), 3)
-        row.update(k3_bound(targs, want[3], want[4]))
+        # K3's rows are the stream's (no clip), so K1's count on the stream is K3's work
+        work = rc.composite_pairs_fwd_plain(*inp["k1"], count_warp_rows=True)[4]
+        row.update(k3_bound(targs, want[3], want[4], work))
     emit(row)
     if not ok:
         raise RuntimeError(f"k3 {label}: K3 disagrees with its plain version or K1: {row}")

@@ -11,9 +11,7 @@ alpha-cutoff test against their plain PyTorch versions. A library is rebuilt
 when its source, or a csrc/ header the source includes, is newer. Nothing here runs at
 import: a machine without nvcc or a GPU imports the package and uses the
 plain versions on CPU tensors. `build_all` starts one nvcc per source, all
-at once. `entry` binds one C entry point of a built library. `build_variants`
-compiles one source several times with different `-D` settings, each into
-its own library, for timing design variants against each other.
+at once. `entry` binds one C entry point of a built library.
 """
 
 from __future__ import annotations
@@ -50,25 +48,23 @@ def _stale(name: str) -> bool:
     return not lib.exists() or lib.stat().st_mtime < newest
 
 
-def _start(name: str, lib: Path = None, defines: Dict[str, int] = None) -> subprocess.Popen:
+def _start(name: str) -> subprocess.Popen:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
         raise RuntimeError("nvcc not found on PATH or under /usr/local/cuda/bin")
-    src, default_lib, _ = _paths(name)
+    src, lib, _ = _paths(name)
     BUILD.mkdir(parents=True, exist_ok=True)
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-           *(f"-D{k}={v}" for k, v in (defines or {}).items()),
-           "-o", str(lib or default_lib), str(src)]
+           "-o", str(lib), str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def _finish(name: str, proc: subprocess.Popen, report: Path = None) -> str:
+def _finish(name: str, proc: subprocess.Popen) -> None:
     out, _ = proc.communicate()
-    (report or _paths(name)[2]).write_text(out)
+    _paths(name)[2].write_text(out)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{out}")
-    return out
 
 
 def build_all() -> Dict[str, str]:
@@ -79,18 +75,6 @@ def build_all() -> Dict[str, str]:
         _finish(name, proc)
     return {name: _paths(name)[2].read_text() for name in kernel_sources()
             if _paths(name)[2].exists()}
-
-
-def build_variants(name: str, variants: Dict[str, Dict[str, int]]) -> Dict[str, tuple]:
-    """Compile csrc/<name>.cu once per variant (tag -> {macro: value}), all
-    at once, into build/lib<name>_<tag>.so; returns tag -> (the loaded
-    library, its `-Xptxas -v` report)."""
-    procs = {tag: _start(name, BUILD / f"lib{name}_{tag}.so", defines)
-             for tag, defines in variants.items()}
-    reports = {tag: _finish(name, proc, BUILD / f"{name}_{tag}.ptxas.txt")
-               for tag, proc in procs.items()}
-    return {tag: (ctypes.CDLL(str(BUILD / f"lib{name}_{tag}.so")), reports[tag])
-            for tag in variants}
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -31,18 +31,18 @@
 // the same sum as a matrix product (_fwd_pairs_kernel's `mm`, rasterize_pallas.py:490); here it
 // goes to the tensor cores.
 //
-// Design. One thread a pixel; the pixels of a tile are covered by GGT_FWD_PARTS CTAs (4: four CTAs
-// of up to 256 threads, GGT_FWD_CTAS_PER_SM = 3 of them an SM), each rounded up to whole warps,
-// the lanes past the tile's pixels idle. A warp covers an 8 x 4 pixel block (tile_pixel) where ts
-// is a multiple of 8, so a splat's footprint meets fewer warps than with pixel rows; for other
-// tile sizes it covers 32 pixels in row-major order. The tile's segment [start, start + count)
-// is walked in batches of kBatch rows that the CTA stages itself through the row source
+// Design. One thread a pixel; the pixels of a tile are covered by up to four CTAs of up to 256
+// threads (kParts), three of them an SM (kCtasPerSm), each rounded up to whole warps, the lanes
+// past the tile's pixels idle. A warp covers an 8 x 4 pixel block (tile_pixel) where ts is a
+// multiple of 8, so a splat's footprint meets fewer warps than with pixel rows; for other tile
+// sizes it covers 32 pixels in row-major order. The tile's segment [start, start + count) is
+// walked in batches of kBatch rows that the CTA stages itself through the row source
 // (tile_rows.cuh): the geometry (x, y, conic, opacity and the row's cull box) in 8-float rows
 // that two vector loads read, and the colours, split once into TF32 hi and lo parts, zero past C.
 // Within a batch each warp works alone, on windows of 32 rows:
 //   1. the cull: lane l tests row l of the window against the warp's pixel bounds; a row whose
 //      box (the extent outside which alpha < 1/255, with a margin: cull_box) misses them is left
-//      out for the whole warp, since no lane could composite it or be cut by it (GGT_FWD_CULL);
+//      out for the whole warp, since no lane could composite it or be cut by it;
 //   2. the kept rows in order, 8 at a time: sigma and alpha of the 8 rows (independent of one
 //      another, so their latencies overlap), then the cut test and the weight w = alpha
 //      T_before row by row on the CUDA cores, each lane its pixel, into a per-warp 8 x 40 buffer
@@ -59,8 +59,8 @@
 // Two tiles per instance (K5). On the TPU the two tiles of one instance interleave their walks
 // chunk by chunk so the scheduler has two independent dependency chains. On Hopper the SM's warp
 // scheduler already interleaves independent warps, so K5 maps "one instance, two tiles" onto a
-// thread-block cluster holding both tiles' CTAs: CTA rank r of cluster j takes part r % parts of
-// tile 2j + r / parts. The phantom CTAs of an odd T return before any barrier and write nothing.
+// thread-block cluster of two CTAs, the same part of tiles 2j and 2j + 1. The phantom CTAs of an
+// odd T return before any barrier and write nothing.
 // All three kernels call the one per-tile body (composite_tile), so K3 and K5 compute exactly
 // K1's arithmetic and their outputs are bit-equal to K1's on the same rows.
 //
@@ -71,25 +71,28 @@
 // kernel probe's width) and 39, K1 / K5 for 3 and 39; the wrapper zero-pads other widths.
 //
 // Bound on this card (H100 SXM: 67 TFLOP/s f32 outside the tensor cores, 495 TFLOP/s dense TF32
-// on them, so 165 for an f32-grade 3xTF32 product; 3.35 TB/s). Each walked pair-pixel visit
-// costs ~16 f32 operations with one expf for sigma and alpha; each composited visit adds log1pf,
-// expf and the weight (6) on the CUDA cores and the 2C flops of its colour terms on the tensor
-// cores. chip_smoke.py computes the bound from the run's own visit counts, the two units' times
-// added, and the compulsory bytes (the (N, 6 + C) table, pair_gidx, the (T, P, 3 + C) outputs);
-// the kernel is bound by operations: 0.236 ms at chip_smoke.py's full-width k1 inputs (632 M
-// visits, 152 M composited), where the first design spent 2.84-2.90 ms (8.5x).
+// on them, so 165 for an f32-grade 3xTF32 product; 3.35 TB/s). Each pair-pixel visit that a
+// warp's cull keeps costs ~16 f32 operations with one expf for sigma and alpha, each composited
+// visit adds log1pf, expf and the weight (6) on the CUDA cores and the 2C flops of its colour
+// terms on the tensor cores, and each warp tests every row of the 32-row windows it walks
+// against its box (8). chip_smoke.py computes the bound from the run's own counts
+// (composite_pairs_fwd_plain(count_warp_rows=True)), the two units' times added, and the
+// compulsory bytes (the (N, 6 + C) table, pair_gidx, the (T, P, 3 + C) outputs): see PERF.md.
 //
-// Measured (probes/composite_variants.py at those inputs, NVIDIA H100 80GB HBM3, 700.00 W, CUDA
-// events, median of 20 launches, three rounds): this design 1.80-1.87 ms (7.6-7.9x the bound);
-// without the colour product (timing only) 1.28-1.30, so the product takes ~0.55 ms and the walk
-// the rest; without the cull 2.80-2.90 (every product then takes 8 consecutive rows); 32 x 1
-// warps 2.32-2.35; 64-row batches 1.89-1.95; one 1024-thread CTA a tile 2.08-2.12, two of 512
-// two an SM 1.94-1.98, four of 256 four an SM (64-row batches) 1.97-2.01, those three at 64
-// registers with spills. A cp.async double-buffered staging, measured in an earlier state of
-// the same script, lost to the smem it takes from the CTAs an SM holds. Each CTA's times
-// (GGT_FWD_TIMES): the SM's 396 CTA slots are busy 95% of the launch, the drain after the last
-// CTA starts takes 8% of it. ptxas: 79-80 registers at C = 3, 7 and 39, 24 bytes of spills at 39;
-// dynamic shared memory 55.8 KB a CTA at C = 39, 22.5 KB at C = 3 and 7 (PERF.md).
+// Precision. The tensor core adds each m16n8k8 product into its accumulator with truncation,
+// not round-to-nearest, so the colour sums err toward zero by up to about an ulp of the running
+// sum a product, three products (lo hi, hi lo, hi hi) a group of 8 rows. On an NVIDIA H100 80GB
+// HBM3 (700 W), at chip_smoke.py's full-width inputs, K1's out is within 3.2e-5 of the plain
+// version (|out| up to 2.6), 99.9% of the error's mass toward zero; the first design's per-row
+// FMAs were within 9.5e-7 (tests/test_torch_gpu.py, PERF.md).
+//
+// Measured on that card (chip_smoke.py, CUDA events, median of 20 launches): K1 1.877-1.878 ms
+// at the full-width inputs, where the first design took 2.837-2.993 in the same call; K3 within
+// 1-2% of K1; K5 in two-CTA clusters, 198 of which fit the card (45 of the eight-CTA clusters
+// that held both tiles' parts, 10% slower than K1), within 3% of K1. The design variants timed
+// against this one (one CTA of 1024 threads a tile, two of 512, 64-row batches, 32 x 1 warps,
+// no cull, a cp.async double-buffered staging), ptxas's registers (79-80), spills (24 bytes at
+// C = 39) and shared memory are in PERF.md.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -99,51 +102,20 @@
 #include "mma_tf32.cuh"
 #include "tile_rows.cuh"
 
-#ifndef GGT_FWD_PARTS
-#define GGT_FWD_PARTS 4
-#endif
-#ifndef GGT_FWD_CTAS_PER_SM
-#define GGT_FWD_CTAS_PER_SM 3
-#endif
-#ifndef GGT_FWD_BATCH
-#define GGT_FWD_BATCH 128
-#endif
-#ifndef GGT_FWD_CULL
-#define GGT_FWD_CULL 1
-#endif
-// timing-only variants (probes/composite_variants.py): 32 x 1 pixel-row warps; no product (the
-// colour sums left out, so `out` is wrong); each CTA's start and end time and SM recorded
-#ifndef GGT_FWD_ROW_WARPS
-#define GGT_FWD_ROW_WARPS 0
-#endif
-#ifndef GGT_FWD_SKIP_PRODUCT
-#define GGT_FWD_SKIP_PRODUCT 0
-#endif
-#ifndef GGT_FWD_TIMES
-#define GGT_FWD_TIMES 0
-#endif
-
 namespace {
 
 constexpr float kAlphaClamp = 0.999f;
 constexpr float kAlphaCutoff = (float)(1.0 / 255.0);
 constexpr float kLogEps = -9.2103403719761836f;  // log(1e-4)
 constexpr int kWalkChunk = 128;                  // K1's KC: the rounding of an uncut ncomp
-constexpr int kBatch = GGT_FWD_BATCH;  // rows staged in shared memory per batch
+constexpr int kBatch = 128;     // rows staged in shared memory per batch
 constexpr int kSub = 8;         // rows of a group of the walk: the k of the m16n8k8 products
 constexpr int kBufStride = 40;  // row stride of a warp's weight buffer: the A fragments' loads
                                 // (row tq, pixel gq) hit 32 banks
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kParts = GGT_FWD_PARTS;
-constexpr int kCtasPerSm = GGT_FWD_CTAS_PER_SM;  // the launch bound: at most 65536 / (kCtasPerSm
-                                                 // 1024 / kParts) registers a thread
-constexpr bool kCull = GGT_FWD_CULL != 0;
-constexpr bool kRowWarps = GGT_FWD_ROW_WARPS != 0;
-constexpr bool kSkipProduct = GGT_FWD_SKIP_PRODUCT != 0;
-constexpr bool kTimes = GGT_FWD_TIMES != 0;
-constexpr int kTimedCtas = 8192;
-static_assert(kParts == 1 || kParts == 2 || kParts == 4, "GGT_FWD_PARTS is 1, 2 or 4");
-static_assert(kBatch % 32 == 0, "GGT_FWD_BATCH is a multiple of 32");
+constexpr int kParts = 4;       // CTAs of a 1024-pixel tile, 256 threads each
+constexpr int kCtasPerSm = 3;   // the launch bound: at most 65536 / (3 x 256) = 85 registers a
+                                // thread (80 in use)
 
 // Shared memory of the body, in 4-byte words: the batch's geometry (kBatch x 8), its colours split
 // (kBatch x 8 NT x 2), each warp's weight buffer (kSub x kBufStride), the batch's indices
@@ -254,7 +226,7 @@ __device__ __forceinline__ void composite_tile(
   const int tq = lane & 3;
 
   const int P = ts * ts;
-  const bool blocks = ts % 8 == 0 && !kRowWarps;  // 8 x 4 pixel warps, else 32 pixels in a row
+  const bool blocks = ts % 8 == 0;  // 8 x 4 pixel warps, else 32 pixels in a row
   const int lin = part * nthreads + threadIdx.x;
   const int pl = blocks ? tile_pixel(lin, ts) : lin;
   const int ix = (t % tw) * ts + pl % ts, iy = (t / tw) * ts + pl / ts;
@@ -289,12 +261,12 @@ __device__ __forceinline__ void composite_tile(
 
     // each warp on its own, windows of 32 rows
     for (int w0 = 0; w0 < n; w0 += 32) {
-      // the cull: lane l tests row w0 + l against the warp's pixels (GGT_FWD_CULL)
+      // the cull: lane l tests row w0 + l against the warp's pixels
       unsigned todo;
       {
         const int rl = w0 + lane;
         bool keep = rl < n;
-        if (kCull && keep) {
+        if (keep) {
           const float4 g0 = s_geo[2 * rl], g1 = s_geo[2 * rl + 1];
           keep = !(g0.x + g1.z < xlo || g0.x - g1.z > xhi || g0.y + g1.w < ylo ||
                    g0.y - g1.w > yhi);
@@ -350,7 +322,7 @@ __device__ __forceinline__ void composite_tile(
           s_buf[j * kBufStride + lane] = w;
         }
         // 3. the colour product of the group's rows, if some lane composited one
-        if (!kSkipProduct && __any_sync(kFull, live)) {
+        if (__any_sync(kFull, live)) {
           __syncwarp();
           colour_product<NT>(acc, s_buf, s_col, lo, hi, lane);
           __syncwarp();  // the slots are read before the next group writes them
@@ -392,16 +364,6 @@ __device__ __forceinline__ void composite_tile(
   }
 }
 
-#if GGT_FWD_TIMES
-__device__ unsigned long long g_cta_times[3 * kTimedCtas];  // start ns, end ns, SM of each CTA
-#endif
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 // K1: tile_ctas CTAs per tile.
 template <int C>
 __global__ void __launch_bounds__(1024 / kParts, kCtasPerSm) composite_pairs_fwd_kernel(
@@ -410,19 +372,8 @@ __global__ void __launch_bounds__(1024 / kParts, kCtasPerSm) composite_pairs_fwd
     const float* __restrict__ bg, int parts, int tw, int ts, float* __restrict__ out,
     float* __restrict__ alpha_out, float* __restrict__ logt_out,
     float* __restrict__ ncomp_out) {
-  const unsigned long long t0 = kTimes ? global_ns() : 0ull;
   composite_tile<C>(blockIdx.x / parts, blockIdx.x % parts, PairRows{pair_gidx, starts, attrs},
                     counts, bg, tw, ts, out, alpha_out, logt_out, ncomp_out);
-#if GGT_FWD_TIMES
-  __syncthreads();
-  if (threadIdx.x == 0 && blockIdx.x < kTimedCtas) {
-    unsigned sm;
-    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
-    g_cta_times[3 * blockIdx.x] = t0;
-    g_cta_times[3 * blockIdx.x + 1] = global_ns();
-    g_cta_times[3 * blockIdx.x + 2] = sm;
-  }
-#endif
 }
 
 // K3: as K1, rows from the packed (T, kt, 6 + C) table.
@@ -436,8 +387,8 @@ __global__ void __launch_bounds__(1024 / kParts, kCtasPerSm) composite_tables_fw
                     ts, out, alpha_out, logt_out, ncomp_out);
 }
 
-// K5: tiles 2j and 2j + 1 per cluster j of 2 parts CTAs, cluster_ctarank r taking part r % parts
-// of tile 2j + r / parts.
+// K5: clusters of two CTAs, cluster j holding part j % parts of tiles 2 (j / parts) and
+// 2 (j / parts) + 1, one a CTA (cluster_ctarank 0 and 1).
 template <int C>
 __global__ void __launch_bounds__(1024 / kParts, kCtasPerSm) composite_pairs_fwd2_kernel(
     const int32_t* __restrict__ pair_gidx, const int32_t* __restrict__ starts,
@@ -448,10 +399,10 @@ __global__ void __launch_bounds__(1024 / kParts, kCtasPerSm) composite_pairs_fwd
   unsigned cluster, rank;
   asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(cluster));
   asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
-  const int t = 2 * (int)cluster + (int)rank / parts;
+  const int t = 2 * ((int)cluster / parts) + (int)rank;
   if (t >= num_tiles) return;  // the phantom tile of an odd tile count: before any barrier
-  composite_tile<C>(t, (int)rank % parts, PairRows{pair_gidx, starts, attrs}, counts, bg, tw, ts,
-                    out, alpha_out, logt_out, ncomp_out);
+  composite_tile<C>(t, (int)cluster % parts, PairRows{pair_gidx, starts, attrs}, counts, bg, tw,
+                    ts, out, alpha_out, logt_out, ncomp_out);
 }
 
 // Lets `kernel` take `bytes` of dynamic shared memory, with the SM's carveout at its most shared
@@ -474,7 +425,7 @@ cudaLaunchConfig_t pair_config(int num_tiles, int p, size_t bytes, cudaStream_t 
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = s;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = 2 * parts;
+  attr->val.clusterDim.x = 2;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -620,14 +571,6 @@ extern "C" int ggt_composite_pairs_fwd2_max_clusters(int channels, int ts, int* 
     default: return (int)cudaErrorInvalidValue;
   }
 }
-
-#if GGT_FWD_TIMES
-// The (start ns, end ns, SM) of K1's first n CTAs in its last launch, into host memory.
-extern "C" int ggt_composite_fwd_cta_times(void* host, int n) {
-  if (n < 0 || n > kTimedCtas) return (int)cudaErrorInvalidValue;
-  return (int)cudaMemcpyFromSymbol(host, g_cta_times, sizeof(unsigned long long) * 3 * n);
-}
-#endif
 
 // Dynamic shared memory of one CTA of K1 / K3 / K5 at this channel count and tile size, in bytes.
 extern "C" int ggt_composite_fwd_smem_bytes(int channels, int ts) {

@@ -10,8 +10,8 @@ tensors; for a CUDA tensor they launch the kernel or raise, never falling
 back. Every launch adds one to the wrapper's `launches`.
 `composite_pairs_fwd2` (K5) and `composite_pairs_bwd2` (K6) are the
 two-tile kernels, in the same two files: the same per-tile body launched
-in clusters that hold two tiles (K5: two CTAs, one a tile; K6: four, two
-a tile, as K2 runs two CTAs a tile). They compute K1's and K2's
+in clusters that hold two tiles (K5: two CTAs, the same part of each of
+the two tiles; K6: four, two a tile, as K2 runs two CTAs a tile). They compute K1's and K2's
 functions, so on CPU tensors they run the same plain versions; each has
 its own `launches`.
 
@@ -133,11 +133,21 @@ def composite_pairs_fwd_plain(pair_gidx, starts, counts, attrs, bg, tw: int, ts:
     Returns out (T, P, C), alpha, logt, ncomp (T, P) float32, plus, with
     `count_live`, the per-pixel number of composited entries with nonzero
     alpha (the walk's work, for the roofline bound), and with
-    `count_warp_rows` the kernel's work under its 8 x 4 pixel warps
-    (`warp_pixels`, ts a multiple of 8): warp x row pairs that some lane
-    walks (up to and including its cut row), those in which a lane
-    composites (the live ones), and the live 8-row sub-chunks (those that
-    take a tensor-core product)."""
+    `count_warp_rows` a dict of the kernel's work under its 8 x 4 pixel
+    warps (`warp_pixels`, ts a multiple of 8), as its per-warp cull and
+    product groups see it:
+      warp_rows       warp x row pairs that some lane walks (up to and
+                      including its cut row);
+      live_warp_rows  those in which a lane composites;
+      kept_warp_rows  those whose cull box (`cull_box`) meets the warp's
+                      pixel bounds: the rows the warp evaluates;
+      kept_visits     pixel x row pairs of walking lanes in kept rows;
+      box_tests       row tests of the cull: every row of each 32-row
+                      window (32-aligned in the walk) that a warp enters
+                      with a lane still walking;
+      products        the colour products: each warp's kept rows of a
+                      window, 8 at a time, a group with a lane that
+                      composites one of them taking one."""
     T = starts.shape[0]
     C = attrs.shape[1] - 6
     dev = attrs.device
@@ -150,9 +160,15 @@ def composite_pairs_fwd_plain(pair_gidx, starts, counts, attrs, bg, tw: int, ts:
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     counts64 = counts.to(torch.int64)
     kmax = int(counts64.max()) if T else 0
-    by_warp = warp_pixels(ts, dev) if count_warp_rows else None
-    work = torch.zeros(3, dtype=torch.int64, device=dev)  # walked, live warp-rows; live sub-chunks
-    sub_live = torch.zeros(T, ts * ts // 32, dtype=torch.bool, device=dev) if count_warp_rows else None
+    if count_warp_rows:
+        by_warp = warp_pixels(ts, dev)
+        wx, wy = px[:, by_warp].view(T, -1, 32), py[:, by_warp].view(T, -1, 32)
+        bounds = (wx.amin(-1), wx.amax(-1), wy.amin(-1), wy.amax(-1))  # (T, W) each
+        work = dict.fromkeys(("warp_rows", "live_warp_rows", "kept_warp_rows", "kept_visits",
+                              "box_tests", "products"), 0)
+        in_window = torch.zeros(bounds[0].shape, dtype=torch.bool, device=dev)
+        group_rows = torch.zeros(bounds[0].shape, dtype=torch.int64, device=dev)
+        group_live = torch.zeros_like(in_window)
     for k in range(kmax):
         walking = (counts64 > k)[:, None] & (cut < 0)
         pos = torch.where(counts64 > k, starts.to(torch.int64) + k, 0)
@@ -173,13 +189,29 @@ def composite_pairs_fwd_plain(pair_gidx, starts, counts, attrs, bg, tw: int, ts:
         cut = torch.where(crossed, k, cut)
         live = live + comp.to(torch.int64)
         if count_warp_rows:
+            walk_w = walking[:, by_warp].view(T, -1, 32)
+            alive = walk_w.any(-1)  # (T, W): the warp has a lane still walking
             comp_w = comp[:, by_warp].view(T, -1, 32).any(-1)
-            work[0] += walking[:, by_warp].view(T, -1, 32).any(-1).sum()
-            work[1] += comp_w.sum()
-            sub_live |= comp_w
-            if k % 8 == 7 or k == kmax - 1:  # the end of a sub-chunk of every tile's walk
-                work[2] += sub_live.sum()
-                sub_live.zero_()
+            if k % 32 == 0:  # a new window: the open groups end
+                work["products"] += int(group_live.sum())
+                group_live.zero_()
+                group_rows.zero_()
+                in_window = alive
+            bx, by = cull_box(row[:, 2], row[:, 3], row[:, 4], row[:, 5])
+            x, y = row[:, 0:1], row[:, 1:2]
+            kept = alive & (counts64 > k)[:, None] & ~(
+                (x + bx[:, None] < bounds[0]) | (x - bx[:, None] > bounds[1])
+                | (y + by[:, None] < bounds[2]) | (y - by[:, None] > bounds[3]))
+            group_live |= comp_w & kept
+            group_rows += kept
+            full = kept & (group_rows % 8 == 0)
+            work["products"] += int((group_live & full).sum())
+            group_live &= ~full
+            work["warp_rows"] += int(alive.sum())
+            work["live_warp_rows"] += int(comp_w.sum())
+            work["kept_warp_rows"] += int(kept.sum())
+            work["kept_visits"] += int((walk_w & kept[..., None]).sum())
+            work["box_tests"] += int((in_window & (counts64 > k)[:, None]).sum())
     t_final = torch.exp(logt)
     out = acc + t_final[..., None] * bg
     walk_len = (counts64 + WALK_CHUNK - 1) // WALK_CHUNK * WALK_CHUNK
@@ -188,8 +220,25 @@ def composite_pairs_fwd_plain(pair_gidx, starts, counts, attrs, bg, tw: int, ts:
     if count_live:
         res = res + (live,)
     if count_warp_rows:
-        res = res + tuple(int(x) for x in work)
+        work["products"] += int(group_live.sum())
+        res = res + (work,)
     return res
+
+
+def cull_box(a, b, c, o):
+    """The forward kernel's cull box (`cull_box` in
+    csrc/composite_pairs_fwd.cu) of rows with conic (a, b, c) and opacity
+    o: half-extents (rx, ry) around the row's centre outside which no
+    pixel passes the alpha test (alpha >= 1/255 needs sigma <= log(255 o)),
+    widened by a margin; unbounded where the conic is not safely positive
+    definite, (-1, -1) where o < 1/255."""
+    det = a * c - b * b
+    l2 = 2.0 * (torch.log(255.0 * o) + 0.05)
+    bounded = (a > 0.0) & (c > 0.0) & (det > 1e-4 * a * c)
+    rx = torch.where(bounded, torch.sqrt(l2 * c / det) * 1.001 + 1e-3, torch.inf)
+    ry = torch.where(bounded, torch.sqrt(l2 * a / det) * 1.001 + 1e-3, torch.inf)
+    empty = ~(o >= ALPHA_CUTOFF)
+    return torch.where(empty, -1.0, rx), torch.where(empty, -1.0, ry)
 
 
 def _check_inputs(pair_gidx, starts, counts, attrs, bg):
@@ -281,7 +330,8 @@ def _kernel_fwd(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int, two_tile
 
 
 def _launch_kernel2(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int):
-    """K5: K1's arguments and outputs, two tiles per two-CTA cluster."""
+    """K5: K1's arguments and outputs, two tiles per instance: each two-CTA
+    cluster holds the same part of two tiles."""
     return _launch_kernel(pair_gidx, starts, counts, attrs, bg, tw, ts, two_tile=True)
 
 

@@ -10,6 +10,8 @@ same kernels to the same bounds at full width.
 """
 
 import dataclasses
+import json
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -547,3 +549,105 @@ def test_train_cli_feature_dim_16(cuda_device, tmp_path):
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert (rc.composite_pairs_fwd.launches - before[0],
             rc.composite_pairs_bwd.launches - before[1]) == (2, 2)
+
+
+def _tf32(x):
+    """float32 rounded to TF32 as `cvt.rna.tf32.f32` rounds it (to nearest,
+    ties away from zero)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """float32 as the tensor core reads it for a TF32 operand: the 13 low
+    mantissa bits dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _round_toward_zero(x):
+    """float64 to float32, rounded toward zero."""
+    y = x.to(torch.float32)
+    away = y.to(torch.float64).abs() > x.abs()
+    return torch.where(away, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def tensor_core_fwd(args, rounding: str):
+    """K1's four outputs with the colour sums taken in groups of 8 walk
+    rows, as mma.sync m16n8k8 takes them in 3xTF32: W (pixels x 8 rows) and
+    Colour (8 rows x C) split into hi = tf32(x) and lo = x - hi (read
+    truncated to TF32), then lo hi, hi lo and hi hi in mma_3xtf32_split's
+    order, each product's 8 terms added to the accumulator exactly and the
+    sum rounded once: toward zero (`rounding="rz"`, as the tensor core
+    rounds its sums) or to nearest ("rn"). The kernel's groups are each
+    warp's kept rows, 8 at a time; consecutive walk rows stand in for them.
+    The plain forward supplies the weights (its colour product patched)."""
+    rnd = _round_toward_zero if rounding == "rz" else (lambda x: x.to(torch.float32))
+    einsum, pending, acc = torch.einsum, [], []
+
+    def flush():
+        w, c = torch.stack([p[0] for p in pending], -1), torch.stack([p[1] for p in pending], 1)
+        pending.clear()
+        wh, ch = _tf32(w), _tf32(c)
+        wl, cl = _tf32_truncated(w - wh), _tf32_truncated(c - ch)
+        d = acc.pop() if acc else torch.zeros(w.shape[:2] + c.shape[-1:], device=w.device)
+        for a, b in ((wl, ch), (wh, cl), (wh, ch)):
+            d = rnd(d.double() + einsum("tpk,tkc->tpc", a.double(), b.double()))
+        acc.append(d)
+
+    def patched(equation, *operands):
+        if equation != "tp,tc->tpc":
+            return einsum(equation, *operands)
+        w, c = operands
+        pending.append((w, c))
+        if len(pending) == 8:
+            flush()
+        return torch.zeros(w.shape + c.shape[-1:], device=w.device)
+
+    with mock.patch.object(torch, "einsum", patched):
+        out, alpha, logt, ncomp = rc.composite_pairs_fwd_plain(*args)  # out: T_final bg alone
+    if pending:
+        flush()
+    return (acc[0] + out if acc else out), alpha, logt, ncomp
+
+
+def _full_width_args(device):
+    """chip_smoke.py's full-width K1 inputs: bench.py's field of 200k
+    Gaussians at 800x800, C 39."""
+    import chip_smoke
+
+    field, alive = chip_smoke.bench_field(chip_smoke.N_FULL, seed=0, device=device)
+    cam = chip_smoke.bench_camera(chip_smoke.WIDTH, chip_smoke.HEIGHT, device)
+    with torch.no_grad():
+        return chip_smoke.k1_inputs(field, alive, cam, GaussianSplatConfig())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["saturated", "full_width"])
+def test_k1_colour_sums_err_as_the_tensor_cores_round(cuda_device, inputs):
+    """K1's out against the plain version on the card at C 39, background
+    0 (so out is the colour sum alone): within chip_smoke.py's 1e-4, and
+    the difference is the tensor core's rounding toward zero: it lowers
+    |out| at nearly every pixel that differs, as the truncating emulation
+    (`tensor_core_fwd`) does, where the same emulation rounding to nearest
+    leaves no such bias. Prints the readings as one JSON line."""
+    args = _k1_args(cuda_device, 39, 0.95) if inputs == "saturated" else _full_width_args(cuda_device)
+    args = args[:4] + (torch.zeros_like(args[4]),) + args[5:]
+    with torch.no_grad():
+        got = rc.composite_pairs_fwd(*args)[0]
+        want = rc.composite_pairs_fwd_plain(*args)[0]
+        emul = {r: tensor_core_fwd(args, r)[0] for r in ("rz", "rn")}
+    torch.cuda.synchronize()
+
+    def reading(x):
+        d = (x - want).double()
+        toward_zero = float((d * torch.sign(want)).sum() / d.abs().sum().clamp(min=1e-300))
+        return {"max_abs": float(d.abs().max()), "mean_abs": float(d.abs().mean()),
+                "toward_zero": -toward_zero}
+
+    readings = {"kernel": reading(got), **{f"emulated_{r}": reading(x) for r, x in emul.items()},
+                "kernel_vs_emulated_rz_max_abs": float((got - emul["rz"]).abs().max()),
+                "max_abs_out": float(want.abs().max())}
+    print("k1_precision", inputs, json.dumps(readings))
+    assert readings["kernel"]["max_abs"] <= 1e-4
+    assert readings["kernel"]["toward_zero"] > 0.5
+    assert readings["emulated_rz"]["toward_zero"] > 0.5
+    assert abs(readings["emulated_rn"]["toward_zero"]) < 0.5

@@ -31,6 +31,7 @@ from gaussiangrasper_tpu.ops.oracle import render_oracle as j_oracle
 from gaussiangrasper_tpu.ops.rasterize import RasterizeConfig as JConfig
 from gaussiangrasper_tpu.ops.rasterize import bin_gaussians as j_bin
 from tests.test_torch_core import H, W, T, close, make_scene, project_both
+from tests.test_torch_gpu import tensor_core_fwd
 
 BIN_CASES = {
     "plain": dict(n=300, cfg={}),
@@ -420,38 +421,83 @@ def test_k1_one_tf32_pass_breaks_criterion(scene_name, monkeypatch):
     assert errs["out"] > 1e-4, errs
 
 
+@pytest.mark.parametrize("scene_name", ["random", "saturated"])
+def test_k1_truncating_tensor_core_sums_meet_criterion(scene_name):
+    """K1's colour sums as the card's tensor cores take them (3xTF32 in
+    groups of 8 rows, each product's sum rounded toward zero:
+    `tensor_core_fwd`) stay within chip_smoke.py's 1e-4 of the JAX kernel,
+    err toward zero, and leave alpha, logt and ncomp as they are."""
+    args, ref = k1_precision_case(scene_name)
+    exact = rc.composite_pairs_fwd_plain(*args)
+    got = tensor_core_fwd(args, "rz")
+    for a, b in zip(got[1:], exact[1:]):
+        assert torch.equal(a, b)
+    assert float(np.abs(got[0].numpy() - ref[0]).max()) <= 1e-4
+    d = (got[0] - exact[0]).double()
+    assert float((d * torch.sign(exact[0])).sum()) < -0.5 * float(d.abs().sum())
+
+
 def test_k1_warp_row_counts():
     """The forward's count_warp_rows against a count written out tile by
-    tile and warp by warp: walked (row k before or at some lane's cut, below
-    the count), live (a lane composites row k) and live 8-row sub-chunks."""
+    tile, warp by warp and window by window: walked (row k before or at
+    some lane's cut, below the count), live (a lane composites row k), kept
+    (the row's cull box meets the warp's pixel bounds), kept visits (the
+    walking lanes of kept rows), box tests (the rows of each 32-row window
+    a warp enters with a lane walking) and products (a window's kept rows 8
+    at a time, a group with a composited row)."""
     jp, gidx, starts, counts, attrs, bg = k1_inputs(saturated_scene(), 3)
     tw = -(-W // 32)
     args = (T(gidx), T(starts), T(counts), T(attrs), T(bg), tw, 32)
-    *_, rows, live, subs = rc.composite_pairs_fwd_plain(*args, count_warp_rows=True)
+    *_, work = rc.composite_pairs_fwd_plain(*args, count_warp_rows=True)
     _, _, _, ncomp = rc.composite_pairs_fwd_plain(*args)
-    warps = rc.warp_pixels(32)
-    want = [0, 0, 0]
+    warps = rc.warp_pixels(32).view(-1, 32)
+    want = dict.fromkeys(work, 0)
     for t in range(starts.shape[0]):
-        px = float((t % tw) * 32) + (warps % 32).float()
-        py = float((t // tw) * 32) + (warps // 32).float()
-        cutk = ncomp[t, warps]  # a cut pixel stops at its cut row, an uncut one at the count
-        comp_by_k = []
-        for k in range(int(counts[t])):
-            row = T(attrs[gidx[starts[t] + k]])
-            dx, dy = px - row[0], py - row[1]
-            sigma = 0.5 * (row[2] * dx * dx + row[4] * dy * dy) + row[3] * dx * dy
-            alpha = torch.clamp(row[5] * torch.exp(-sigma), max=0.999)
-            walking = cutk >= k
-            comp = walking & (cutk > k) & (sigma >= 0) & (alpha >= 1.0 / 255.0)
-            want[0] += int(walking.view(-1, 32).any(1).sum())
-            comp_by_k.append(comp.view(-1, 32).any(1))
-        if comp_by_k:
-            comp_by_k = torch.stack(comp_by_k)
-            want[1] += int(comp_by_k.sum())
-            for k0 in range(0, comp_by_k.shape[0], 8):
-                want[2] += int(comp_by_k[k0:k0 + 8].any(0).sum())
-    assert [rows, live, subs] == want
-    assert 0 < subs < live < rows
+        n = int(counts[t])
+        for lanes in warps:
+            px = float((t % tw) * 32) + (lanes % 32).float()
+            py = float((t // tw) * 32) + (lanes // 32).float()
+            cutk = ncomp[t, lanes]  # a cut pixel stops at its cut row, an uncut one at the count
+            for w0 in range(0, n, 32):
+                if not bool((cutk >= w0).any()):
+                    break
+                want["box_tests"] += min(32, n - w0)
+                groups = []
+                for k in range(w0, min(w0 + 32, n)):
+                    walking = cutk >= k
+                    if not bool(walking.any()):
+                        break
+                    row = T(attrs[gidx[starts[t] + k]])
+                    dx, dy = px - row[0], py - row[1]
+                    sigma = 0.5 * (row[2] * dx * dx + row[4] * dy * dy) + row[3] * dx * dy
+                    alpha = torch.clamp(row[5] * torch.exp(-sigma), max=0.999)
+                    comp = walking & (cutk > k) & (sigma >= 0) & (alpha >= 1.0 / 255.0)
+                    want["warp_rows"] += 1
+                    want["live_warp_rows"] += int(comp.any())
+                    # the cull box, in float32: |dx| <= sqrt(2 L c / det), |dy| <= sqrt(2 L a
+                    # / det) with L = log(255 o) + 0.05, widened by 0.1% and 1e-3
+                    x, y, a, b, c, o = attrs[gidx[starts[t] + k], :6]
+                    f = np.float32
+                    det = a * c - b * b
+                    if not o >= f(1.0 / 255.0):
+                        rx = ry = f(-1.0)
+                    elif a > 0 and c > 0 and det > f(1e-4) * a * c:
+                        l2 = f(2.0) * (np.log(f(255.0) * o) + f(0.05))
+                        rx = np.sqrt(l2 * c / det) * f(1.001) + f(1e-3)
+                        ry = np.sqrt(l2 * a / det) * f(1.001) + f(1e-3)
+                    else:
+                        rx = ry = f(np.inf)
+                    if (x + rx < f(px.min()) or x - rx > f(px.max())
+                            or y + ry < f(py.min()) or y - ry > f(py.max())):
+                        continue
+                    want["kept_warp_rows"] += 1
+                    want["kept_visits"] += int(walking.sum())
+                    groups.append(bool(comp.any()))
+                want["products"] += sum(any(groups[i:i + 8]) for i in range(0, len(groups), 8))
+    assert work == want
+    assert 0 < work["products"] < work["live_warp_rows"] <= work["kept_warp_rows"] \
+        < work["warp_rows"]
+    assert work["kept_visits"] < 32 * work["kept_warp_rows"]
 
 
 def patch_kernels_with_plain(monkeypatch, seen):
