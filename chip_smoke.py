@@ -58,7 +58,10 @@ Phases, one JSON line each:
            probe's shapes; copy_probe: P2, P3), launch counts set to 0 just
            before, every stage OK; P1-P3 and the library calls for P1 / P2
            against their plain versions, exact; their device times from the
-           profiler over 50 calls (CUDA events around one call time the host)
+           profiler over 50 calls (CUDA events around one call time the host);
+           then P1 on 2^26 floats and P3 on 2048 overlapping blocks into 2^17
+           rows, where bytes decide (p1_large, p3_large: exact, timed over 20
+           calls, with the bound and its share)
   train    the full-width train step (bench field grown to capacity 400k,
            bench camera, bench batch shapes, seeded fea_up), steps 4000 to
            4099 and a refine step with every launch count set to 0 just
@@ -760,9 +763,28 @@ def table_phase(device, cfg) -> dict:
     return row
 
 
+P1_LARGE = 1 << 26  # floats: 256 MB in, 256 MB out
+P3_LARGE = dict(blocks=2048, rows=1 << 17)
+
+
+def p3_large_inputs(device, seed: int = 9):
+    """P3 where bytes decide: P3_LARGE's blocks at seeded random starts in
+    [0, rows - 128], overlapping (about 86% of the rows covered, most of
+    them by two blocks or more), and their seeded values."""
+    import torch
+
+    rows, t = P3_LARGE["rows"], P3_LARGE["blocks"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    starts = torch.randint(0, rows - 128 + 1, (t,), generator=gen, device=device,
+                           dtype=torch.int32)
+    vals = torch.randn(t, 128, 128, generator=gen, device=device)
+    return vals, starts, rows
+
+
 def probes_phase(device) -> dict:
     """Both probe entry points in-process, then each probe kernel against
-    its plain version on the card (exact) and timed."""
+    its plain version on the card (exact) and timed, at the probes' shapes
+    and, for P1 and P3, at a shape where bytes decide."""
     import torch
     from gaussiangrasper_torch.ops import rasterize_cuda as rc
     from gaussiangrasper_torch.probes import copy_probe, kernel_probe
@@ -788,32 +810,46 @@ def probes_phase(device) -> dict:
     one = torch.ones((), device=device)
     windows = src.unfold(0, 128, 1).mT  # windows[s] = rows [s, s + 128) of src
     rstarts_long = rstarts.long()
+    xl = torch.randn(P1_LARGE, generator=torch.Generator(device=device).manual_seed(3),
+                     device=device)
+    lvals, lstarts, lrows = p3_large_inputs(device)
+    lcovered = pk.covered_rows(lstarts, lrows).to(device)
     # compulsory words: inputs read once, outputs written once; P3 reads and
     # writes only the covered rows, each from the block that wins it
     cases = {
         "p1": (lambda: pk._launch_affine(x), lambda: pk.affine_plain(x),
-               lambda: torch.add(one, x, alpha=2.0), 2 * x.numel()),
+               lambda: torch.add(one, x, alpha=2.0), 2 * x.numel(), None, (50, 20)),
         "p2": (lambda: pk._launch_read_at(src, rstarts), lambda: pk.read_at_plain(src, rstarts),
-               lambda: windows[rstarts_long], 2 * 3 * 128 * 128 + 3),
+               lambda: windows[rstarts_long], 2 * 3 * 128 * 128 + 3, None, (50, 20)),
         "p3": (lambda: pk._launch_write_at(vals, wstarts, 512),
                lambda: pk.write_at_plain(vals, wstarts, 512), None,
-               2 * int(covered.sum()) * 128 + 3),
+               2 * int(covered.sum()) * 128 + 3, covered, (50, 20)),
+        "p1_large": (lambda: pk._launch_affine(xl), lambda: pk.affine_plain(xl),
+                     lambda: torch.add(one, xl, alpha=2.0), 2 * xl.numel(), None, (20, 5)),
+        "p3_large": (lambda: pk._launch_write_at(lvals, lstarts, lrows),
+                     lambda: pk.write_at_plain(lvals, lstarts, lrows), None,
+                     2 * int(lcovered.sum()) * 128 + lstarts.numel(), lcovered, (20, 3)),
     }
     rows = {}
-    for name, (kernel, plain, library, words) in cases.items():
+    for name, (kernel, plain, library, words, rows_checked, (reps, plain_reps)) in cases.items():
         got, want = kernel(), plain()
         lib_equal = library is None or bool(torch.equal(library(), want))
         torch.cuda.synchronize()
-        if name == "p3":
-            got, want = got[covered], want[covered]
+        if rows_checked is not None:
+            got, want = got[rows_checked], want[rows_checked]
         r = {"max_abs_err": float((got - want).abs().max()), "equal": bool(torch.equal(got, want)),
-             "library_equal": lib_equal, "ms": device_ms(kernel, 50),
-             "plain_ms": device_ms(plain, 20),
-             "library_ms": device_ms(library, 50) if library else None,
-             "host_ms": cuda_ms(kernel, 50)}
+             "library_equal": lib_equal, "ms": device_ms(kernel, reps),
+             "plain_ms": device_ms(plain, plain_reps),
+             "library_ms": device_ms(library, reps) if library else None,
+             "host_ms": cuda_ms(kernel, reps)}
+        del got, want
         r["us"] = 1e3 * r["ms"]
         r.update(roofline(0.0, 4.0 * words))
+        r["bound_share"] = r["bound_ms"] / r["ms"]
         rows[name] = r
+    rows["p3_large"].update(blocks=P3_LARGE["blocks"], rows=lrows,
+                            covered_rows=int(lcovered.sum()))
+    rows["p1_large"]["elements"] = P1_LARGE
     row = {"phase": "probes", "exit_codes": rcs, "launches": launches, **rows}
     emit(row)
     if not all(r["equal"] and r["library_equal"] and r["ms"] > 0 for r in rows.values()):
@@ -1279,6 +1315,10 @@ def main() -> int:
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row.get("library_ms")}
 
+    def large_row(row):
+        return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                    "bound_by", "bound_share")}
+
     emit({"kernels": [
         kernel_row("composite_pairs_fwd", "composite_pairs_fwd",
                    "rasterize_pallas.py:490 (_fwd_pairs_kernel)", full,
@@ -1306,12 +1346,14 @@ def main() -> int:
         kernel_row("composite_tables_bwd", "composite_pairs_bwd",
                    "rasterize_pallas.py:206 (_bwd_kernel)", full4,
                    {"table_train": table["train_launches"]["k4"]}),
-        kernel_row("probe_affine", "probes", "pallas_probe.py:38 (kernel)",
-                   probes["p1"], {"kernel_probe": probes["launches"]["p1"]}),
+        {**kernel_row("probe_affine", "probes", "pallas_probe.py:38 (kernel)",
+                      probes["p1"], {"kernel_probe": probes["launches"]["p1"]}),
+         "large": large_row(probes["p1_large"])},
         kernel_row("probe_read_at", "probes", "dma_probe.py:37 (_read_kernel)",
                    probes["p2"], {"copy_probe": probes["launches"]["p2"]}),
-        kernel_row("probe_write_at", "probes", "dma_probe.py:65 (_write_kernel)",
-                   probes["p3"], {"copy_probe": probes["launches"]["p3"]}),
+        {**kernel_row("probe_write_at", "probes", "dma_probe.py:65 (_write_kernel)",
+                      probes["p3"], {"copy_probe": probes["launches"]["p3"]}),
+         "large": large_row(probes["p3_large"])},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,20 +18,36 @@
 //      (T, 128, 128) is written to rows [starts[t], starts[t] + 128) of out, and where blocks
 //      overlap the later block wins. The TPU grid runs its steps in order, so the last write
 //      lands last; CUDA blocks run in no order, so the kernel computes the function instead: row
-//      r comes from block max{t : s_t <= r < s_t + 128}, and each CTA writes only the rows of
-//      its block that no later block covers (a scan of the later starts per row). Rows that no
-//      block covers are left as the caller allocated them.
+//      r comes from block max{t : s_t <= r < s_t + 128}. Rows that no block covers are left as
+//      the caller allocated them. See "P3's design" below.
 //
-// Bound on this card (H100 SXM, 3.35 TB/s): each probe moves a few hundred KB at most (P1 8 KB,
-// P2 and P3 192 KB of blocks each way in the probe's calls), at most 0.12 us by bytes, far below
-// a kernel launch, so each sits at the launch floor. Measured by chip_smoke.py (profiler device
-// time over 50 calls) on an NVIDIA H100 80GB HBM3 at 700.00 W: P1 0.95-1.06 us; P3 4.30-4.70 us;
-// P2 1.12-1.29 us beside its library call (x.unfold(0, 128, 1).mT[starts]) at 1.20-1.38 us.
-// P2's first design took 2.43-2.56 us on the same card: three CTAs, each one 64 KB bulk copy,
-// a wait, then 256 threads storing the block, so 192 KB went through 3 of 132 SMs with the load
-// and the store in series. Cut into 2 KB pieces, the copies run on 96 SMs at once.
-
+// Bound on this card (H100 SXM, 3.35 TB/s): at the probes' own shapes each probe moves a few
+// hundred KB at most (P1 8 KB, P2 and P3 192 KB of blocks each way), at most 0.12 us by bytes,
+// far below a kernel launch, so each sits at the launch floor there. chip_smoke.py also times P1
+// on 2^26 floats (512 MB moved, 0.16 ms by bytes) and P3 on 2048 overlapping blocks into 2^17
+// rows (the covered rows read once and written once), where bytes decide. Measured by
+// chip_smoke.py (profiler device time over 50 calls) on an NVIDIA H100 80GB HBM3 at 700.00 W at
+// the probes' shapes: P1 0.95-1.06 us; P2 1.12-1.29 us beside its library call
+// (x.unfold(0, 128, 1).mT[starts]) at 1.20-1.38 us; P3's first design 4.30-4.70 us. P2's first
+// design took 2.43-2.56 us on the same card: three CTAs, each one 64 KB bulk copy, a wait, then
+// 256 threads storing the block, so 192 KB went through 3 of 132 SMs with the load and the store
+// in series. Cut into 2 KB pieces, the copies run on 96 SMs at once. PERF.md has the rest.
+//
+// P3's design. The first design ran one CTA a block (3 CTAs on 3 of 132 SMs at the probe's
+// shape), each warp loading one row and then storing it, row after row (two dependent global
+// latencies a row), and before each row it scanned every later start in global memory: O(T) a
+// row, O(128 T^2) in all. Now each CTA owns 128 output rows [r0, r0 + 128), so the grid spreads
+// over the output (rows / 128 CTAs). The CTA reads the T starts once, coalesced, and for each
+// block that starts in (r0 - 128, r0 + 128), the blocks that can cover one of its rows, it
+// records the latest block at that start position (a shared atomicMax, 256 positions). Row r0 + i
+// is covered by the blocks starting at positions i + 1 .. i + 128 of that window, so its winner
+// is the larger of a suffix max over the first 128 positions and a prefix max over the last 128:
+// two 7-step scans in shared memory give every row's winner at once, O(T + 128 log 128) a CTA
+// and none a row. Each warp then copies 16 of the rows, 8 at a time: the 8 rows' float4 loads
+// are issued before any store, so their latencies overlap. A winner is kept as t * 256 + its
+// window position, so the row's source offset needs no second read of starts.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -91,23 +107,51 @@ __global__ void __launch_bounds__(32) read_at_kernel(const float* __restrict__ x
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
+constexpr int kCopyRows = 8;  // rows a warp loads before it stores them
+
 __global__ void __launch_bounds__(kThreads) write_at_kernel(const float* __restrict__ vals,
                                                             const int32_t* __restrict__ starts,
-                                                            int num_blocks,
+                                                            int num_blocks, int rows,
                                                             float* __restrict__ out) {
-  const int t = blockIdx.x;
-  const int s = starts[t];
-  const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x / 32; i < kRows; i += blockDim.x / 32) {  // one row a warp
-    const int r = s + i;
-    bool later = false;
-    for (int u = t + 1; u < num_blocks && !later; ++u) {
-      const int su = starts[u];
-      later = su <= r && r < su + kRows;
+  // s_win[j]: the latest block starting at row r0 - 128 + j, as t * 256 + j (-1: none)
+  __shared__ int s_win[2 * kRows];
+  const int r0 = blockIdx.x * kRows;
+  const int k = threadIdx.x;  // kThreads = 2 kRows: one thread a window position
+  s_win[k] = -1;
+  __syncthreads();
+  for (int t = k; t < num_blocks; t += kThreads) {
+    const int j = starts[t] - (r0 - kRows);
+    if (j > 0 && j < 2 * kRows) atomicMax(&s_win[j], t * 2 * kRows + j);
+  }
+  __syncthreads();
+  // suffix max over positions [0, 128), prefix max over [128, 256)
+  for (int d = 1; d < kRows; d <<= 1) {
+    int v = s_win[k];
+    if (k < kRows && k + d < kRows) v = max(v, s_win[k + d]);
+    if (k >= kRows && k - d >= kRows) v = max(v, s_win[k - d]);
+    __syncthreads();
+    s_win[k] = v;
+    __syncthreads();
+  }
+  const int warp = k >> 5, lane = k & 31;
+  for (int i0 = warp * (kRows / (kThreads / 32)); i0 < (warp + 1) * (kRows / (kThreads / 32));
+       i0 += kCopyRows) {
+    float4 v[kCopyRows];
+    int dst[kCopyRows];
+#pragma unroll
+    for (int u = 0; u < kCopyRows; ++u) {
+      const int i = i0 + u, r = r0 + i;
+      // row r0 + i: blocks at window positions i + 1 .. i + 128
+      const int w = r < rows ? max(i + 1 < kRows ? s_win[i + 1] : -1, s_win[kRows + i]) : -1;
+      dst[u] = w >= 0 ? r : -1;
+      if (w >= 0) {
+        const int t = w / (2 * kRows), s = r0 - kRows + w % (2 * kRows);
+        v[u] = reinterpret_cast<const float4*>(vals + ((size_t)t * kRows + (r - s)) * kCols)[lane];
+      }
     }
-    if (later) continue;
-    const float4* src = reinterpret_cast<const float4*>(vals + ((size_t)t * kRows + i) * kCols);
-    reinterpret_cast<float4*>(out + (size_t)r * kCols)[lane] = src[lane];
+#pragma unroll
+    for (int u = 0; u < kCopyRows; ++u)
+      if (dst[u] >= 0) reinterpret_cast<float4*>(out + (size_t)dst[u] * kCols)[lane] = v[u];
   }
 }
 
@@ -136,11 +180,13 @@ extern "C" int ggt_probe_read_at(const void* x, const void* starts, int num_bloc
 
 // P3: vals (T, 128, 128) float32; starts (T,) int32 with 0 <= starts[t] <= rows - 128; out
 // (rows, 128) float32, of which only the rows some block covers are written.
-extern "C" int ggt_probe_write_at(const void* vals, const void* starts, int num_blocks, void* out,
-                                  void* stream) {
-  if (num_blocks <= 0) return (int)cudaErrorInvalidValue;
-  write_at_kernel<<<num_blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)vals, (const int32_t*)starts, num_blocks, (float*)out);
+extern "C" int ggt_probe_write_at(const void* vals, const void* starts, int num_blocks, int rows,
+                                  void* out, void* stream) {
+  // a winner is kept as t * 256 + a window position in an int
+  if (num_blocks <= 0 || num_blocks > INT_MAX / (2 * kRows) || rows < kRows)
+    return (int)cudaErrorInvalidValue;
+  write_at_kernel<<<(rows + kRows - 1) / kRows, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)vals, (const int32_t*)starts, num_blocks, rows, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -64,27 +64,93 @@ rounded up to this. The port reproduces that count exactly."""
 
 KERNEL_CHANNELS = (3, 39)
 """Channel counts the kernels are instantiated for (rgb; rgb + 32-d feature
-+ depth + normal). The wrappers zero-pad any other C up to the next of
-these (`pad_channels`); C > 39 raises on a CUDA tensor."""
++ depth + normal). The wrappers cut the C colour channels into pieces of at
+most 39 (`channel_pieces`), zero-pad each piece up to the next of these
+(`pad_channels`) and launch the kernel once a piece."""
 
 TABLE_FWD_CHANNELS = (3, 7, 39)
 """K3's channel counts: KERNEL_CHANNELS and the kernel probe's C = 7."""
 
+MAX_CHANNELS = 122
+"""The widest C the JAX package composites: its pair rows hold the 6 + C
+attributes in 128 lanes (rasterize_pallas._gather_pairs). A feature dim of
+at most 115."""
 
-def pad_channels(name: str, built, c: int, *xs):
+
+def check_channels(c: int) -> None:
+    if c > MAX_CHANNELS:
+        raise ValueError(f"C {c} colour channels: the attribute row of 6 + C = {6 + c} values "
+                         f"exceeds the JAX package's 128-value row (C <= {MAX_CHANNELS}, a "
+                         f"feature dim of at most {MAX_CHANNELS - 7})")
+
+
+def channel_pieces(c: int):
+    """[(lo, hi)]: the colour channels [0, c) in pieces of at most
+    KERNEL_CHANNELS[-1], one kernel launch each."""
+    step = KERNEL_CHANNELS[-1]
+    return [(lo, min(lo + step, c)) for lo in range(0, c, step)] or [(0, c)]
+
+
+def pad_channels(built, c: int, *xs):
     """(ck, xs): ck the smallest instantiated channel count in `built` at
-    or above c, and each x (its last dimension ending in the c colour
+    or above c (<= 39), and each x (its last dimension ending in the c colour
     channels: attrs, tables, bg, g_out) zero-padded to ck there. Zero
     channels composite to zero and take zero gradient, and <c, g> gains
     only zero terms, so the kernel's first c channels and the geometric
     gradients are those of the unpadded inputs."""
-    ck = next((k for k in built if k >= c), None)
-    if ck is None:
-        raise ValueError(f"{name} kernel is built for C <= {built[-1]} (a feature dim of at most "
-                         f"{built[-1] - 7}), got C {c}")
+    ck = next(k for k in built if k >= c)
     if ck == c:
         return ck, xs
     return ck, tuple(torch.nn.functional.pad(x, (0, ck - c)).contiguous() for x in xs)
+
+
+def _piece(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """x (..., 6 + C) with colour channels [lo, hi) alone after the 6
+    geometric columns; x itself where that is all of them."""
+    if lo == 0 and hi == x.shape[-1] - 6:
+        return x
+    return torch.cat([x[..., :6], x[..., 6 + lo:6 + hi]], -1)
+
+
+def fwd_pieces(kernel, built, rows: torch.Tensor, bg: torch.Tensor):
+    """The forward in channel pieces: for each (lo, hi) of `channel_pieces`,
+    kernel(rows', bg') on the piece's rows and bg, zero-padded to a width in
+    `built`, gives (out, alpha, logt, ncomp); out is cut back to the piece.
+    The weights depend on the geometry alone, so every piece's alpha, logt
+    and ncomp are the same."""
+    res = []
+    for lo, hi in channel_pieces(rows.shape[-1] - 6):
+        _, (r, b) = pad_channels(built, hi - lo, _piece(rows, lo, hi), bg[lo:hi])
+        out, *rest = kernel(r, b)
+        res.append((_crop(out, hi - lo), *rest))
+    return res
+
+
+def _join_fwd(pieces):
+    """(out, alpha, logt, ncomp): the pieces' outs side by side, the first
+    piece's alpha, logt and ncomp."""
+    out = pieces[0][0] if len(pieces) == 1 else torch.cat([p[0] for p in pieces], -1)
+    return (out,) + tuple(pieces[0][1:])
+
+
+def bwd_pieces(kernel, rows: torch.Tensor, bg: torch.Tensor, g_out: torch.Tensor,
+               g_alpha: torch.Tensor) -> torch.Tensor:
+    """The backward in channel pieces: kernel(rows', bg', g_out', g_alpha')
+    on each piece (zero-padded to a width in KERNEL_CHANNELS) gives its
+    (..., 6 + C') gradients, cut back to the piece. Every gradient is linear
+    in (g_out, g_alpha) and <c, g> and <bg, g_out> are sums over channels,
+    so the geometric columns 0-5 are the sum over pieces, with g_alpha given
+    to the first piece only (zeros to the others: its term counts once), and
+    the colour columns are each piece's own."""
+    grads = []
+    for i, (lo, hi) in enumerate(channel_pieces(rows.shape[-1] - 6)):
+        _, (r, b, g) = pad_channels(KERNEL_CHANNELS, hi - lo, _piece(rows, lo, hi), bg[lo:hi],
+                                    g_out[..., lo:hi].contiguous())
+        grads.append(_crop(kernel(r, b, g, g_alpha if i == 0 else torch.zeros_like(g_alpha)),
+                           6 + hi - lo))
+    if len(grads) == 1:
+        return grads[0]
+    return torch.cat([sum(g[..., :6] for g in grads)] + [g[..., 6:] for g in grads], -1)
 
 
 def _crop(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -254,6 +320,7 @@ def _check_inputs(pair_gidx, starts, counts, attrs, bg):
             raise ValueError(f"{name} must be contiguous")
     if attrs.ndim != 2 or bg.shape != (attrs.shape[1] - 6,):
         raise ValueError(f"attrs {tuple(attrs.shape)} / bg {tuple(bg.shape)}: want (N, 6+C) / (C,)")
+    check_channels(attrs.shape[1] - 6)
     if starts.shape != counts.shape or starts.ndim != 1:
         raise ValueError("starts and counts must be (T,)")
     if starts.numel():
@@ -294,14 +361,13 @@ def _require_clusters(kernel: str, channels: int, ts: int) -> None:
 
 
 def _launch_kernel(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int, two_tile: bool = False):
-    """K1, or K5 with `two_tile`, at any C <= 39 through `pad_channels`."""
-    C = attrs.shape[1] - 6
-    name = "composite_pairs_fwd2" if two_tile else "composite_pairs_fwd"
+    """K1, or K5 with `two_tile`, at any C <= MAX_CHANNELS: one launch a
+    channel piece (`fwd_pieces`)."""
     if ts * ts > 1024:
         raise ValueError(f"tile_size {ts}: one thread per pixel needs ts*ts <= 1024")
-    _, (attrs, bg) = pad_channels(name, KERNEL_CHANNELS, C, attrs, bg)
-    out, alpha, logt, ncomp = _kernel_fwd(pair_gidx, starts, counts, attrs, bg, tw, ts, two_tile)
-    return _crop(out, C), alpha, logt, ncomp
+    return _join_fwd(fwd_pieces(
+        lambda a, b: _kernel_fwd(pair_gidx, starts, counts, a, b, tw, ts, two_tile),
+        KERNEL_CHANNELS, attrs, bg))
 
 
 def _kernel_fwd(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int, two_tile: bool):
@@ -470,14 +536,12 @@ def _check_bwd_tile(ts: int) -> None:
 
 def _launch_bwd_kernel(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
                        tw: int, ts: int, two_tile: bool = False):
-    """K2, or K6 with `two_tile`, at any C <= 39 through `pad_channels`."""
-    C = attrs.shape[1] - 6
-    name = "composite_pairs_bwd2" if two_tile else "composite_pairs_bwd"
+    """K2, or K6 with `two_tile`, at any C <= MAX_CHANNELS: one launch a
+    channel piece (`bwd_pieces`)."""
     _check_bwd_tile(ts)
-    _, (attrs, bg, g_out) = pad_channels(name, KERNEL_CHANNELS, C, attrs, bg, g_out)
-    gpairs = _kernel_bwd(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp, tw, ts,
-                         two_tile)
-    return _crop(gpairs, 6 + C)
+    return bwd_pieces(lambda a, b, g, ga: _kernel_bwd(pair_gidx, starts, counts, a, b, g, ga, logt,
+                                                      ncomp, tw, ts, two_tile),
+                      attrs, bg, g_out, g_alpha)
 
 
 def _kernel_bwd(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp, tw: int,
@@ -636,19 +700,18 @@ def _check_table_inputs(counts, tables, bg):
     if tables.ndim != 3 or bg.shape != (tables.shape[2] - 6,) or counts.shape != tables.shape[:1]:
         raise ValueError(f"counts {tuple(counts.shape)} / tables {tuple(tables.shape)} / bg "
                          f"{tuple(bg.shape)}: want (T,) / (T, K, 6+C) / (C,)")
+    check_channels(tables.shape[2] - 6)
     # the kernels read rows [0, counts[t]) of tile t without bounds checks: one sync
     if counts.numel() and bool((counts < 0).any() | (counts > tables.shape[1]).any()):
         raise ValueError(f"counts must lie in [0, {tables.shape[1]}] (the table's K)")
 
 
 def _launch_table_fwd(counts, tables, bg, tw: int, ts: int):
-    """K3 at any C <= 39 through `pad_channels`."""
-    C = tables.shape[2] - 6
+    """K3 at any C <= MAX_CHANNELS: one launch a channel piece (`fwd_pieces`)."""
     if ts * ts > 1024:
         raise ValueError(f"tile_size {ts}: one thread per pixel needs ts*ts <= 1024")
-    _, (tables, bg) = pad_channels("composite_tables_fwd", TABLE_FWD_CHANNELS, C, tables, bg)
-    out, alpha, logt, ncomp = _kernel_table_fwd(counts, tables, bg, tw, ts)
-    return _crop(out, C), alpha, logt, ncomp
+    return _join_fwd(fwd_pieces(lambda t, b: _kernel_table_fwd(counts, t, b, tw, ts),
+                                TABLE_FWD_CHANNELS, tables, bg))
 
 
 def _kernel_table_fwd(counts, tables, bg, tw: int, ts: int):
@@ -687,13 +750,11 @@ composite_tables_fwd.launches = 0
 
 
 def _launch_table_bwd(counts, tables, bg, g_out, g_alpha, logt, ncomp, tw: int, ts: int):
-    """K4 at any C <= 39 through `pad_channels`."""
-    C = tables.shape[2] - 6
+    """K4 at any C <= MAX_CHANNELS: one launch a channel piece (`bwd_pieces`)."""
     _check_bwd_tile(ts)
-    _, (tables, bg, g_out) = pad_channels("composite_tables_bwd", KERNEL_CHANNELS, C, tables, bg,
-                                          g_out)
-    gattr = _kernel_table_bwd(counts, tables, bg, g_out, g_alpha, logt, ncomp, tw, ts)
-    return _crop(gattr, 6 + C)
+    return bwd_pieces(lambda t, b, g, ga: _kernel_table_bwd(counts, t, b, g, ga, logt, ncomp, tw,
+                                                            ts),
+                      tables, bg, g_out, g_alpha)
 
 
 def _kernel_table_bwd(counts, tables, bg, g_out, g_alpha, logt, ncomp, tw: int, ts: int):

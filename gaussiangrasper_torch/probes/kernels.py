@@ -129,10 +129,10 @@ def write_at(vals: torch.Tensor, starts: torch.Tensor, rows: int) -> torch.Tenso
 
 def _launch_write_at(vals: torch.Tensor, starts: torch.Tensor, rows: int) -> torch.Tensor:
     lib, fn = entry("probes", "ggt_probe_write_at", [ctypes.c_void_p, ctypes.c_void_p,
-                                                     ctypes.c_int, ctypes.c_void_p,
+                                                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                                                      ctypes.c_void_p])
     out = torch.empty(rows, COLS, dtype=torch.float32, device=vals.device)
-    check_error(lib, fn(vals.data_ptr(), starts.data_ptr(), starts.shape[0], out.data_ptr(),
+    check_error(lib, fn(vals.data_ptr(), starts.data_ptr(), starts.shape[0], rows, out.data_ptr(),
                         _stream(vals)), "probe_write_at launch")
     write_at.launches += 1
     return out

@@ -328,14 +328,59 @@ def test_render_on_card_matches_cpu(cuda_device):
         torch.testing.assert_close(gpu[k].cpu(), cpu[k], atol=1e-4, rtol=1e-4, msg=k)
 
 
+def _widen(args, channels):
+    """The stream args with `channels` colour channels: the main path's 39
+    (c), then 1 - c, 0.25 c, 1 - c, ..., cut to `channels`."""
+    attrs, bg = args[3], args[4]
+    cols, bgs, i = [], [], 0
+    while sum(c.shape[1] for c in cols) < channels:
+        cols.append(attrs[:, 6:] * (0.5 ** i) if i % 2 == 0 else 1.0 - attrs[:, 6:])
+        bgs.append(bg * (0.5 ** i) if i % 2 == 0 else 1.0 - bg)
+        i += 1
+    attrs = torch.cat([attrs[:, :6]] + cols, 1)[:, :6 + channels].contiguous()
+    return args[:3] + (attrs, torch.cat(bgs)[:channels].contiguous()) + args[5:]
+
+
+def _assert_pieces_agree(pieces):
+    """alpha, logt and ncomp bit-equal across the channel pieces' launches."""
+    assert len(pieces) > 1
+    for p in pieces[1:]:
+        for name, a, b in zip(("alpha", "logt", "ncomp"), p[1:], pieces[0][1:]):
+            assert torch.equal(a, b), name
+
+
 @pytest.mark.gpu
-def test_cuda_tensor_with_unsupported_channels_raises(cuda_device):
-    """C <= 39 runs through the zero padding; C 40 (a feature dim over 32)
-    raises and names the limit."""
-    x = torch.zeros(1, 6 + 40, device=cuda_device)
-    one = torch.ones(1, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="built for C <= 39"):
-        rc.composite_pairs_fwd(one - 1, one - 1, one, x, torch.zeros(40, device=cuda_device), 1, 32)
+@pytest.mark.parametrize("channels", [71, 122])
+def test_chunked_widths_match_plain(cuda_device, channels):
+    """C 71 (F 64) and 122 (F 115, the widest the JAX package takes): K1,
+    K5, K2 and K6 in pieces of at most 39 channels against the plain
+    versions with their criteria, each piece's alpha / logt / ncomp
+    bit-equal to the first's; C 123 raises and names the limit."""
+    args = _widen(_k1_args(cuda_device, 39, 0.95), channels)
+    gidx, starts, counts, attrs, bg, tw, ts = args
+    want = rc.composite_pairs_fwd_plain(*args)
+    for two_tile in (False, True):
+        pieces = rc.fwd_pieces(lambda a, b: rc._kernel_fwd(gidx, starts, counts, a, b, tw, ts,
+                                                           two_tile), rc.KERNEL_CHANNELS, attrs, bg)
+        assert len(pieces) == len(rc.channel_pieces(channels))
+        _assert_pieces_agree(pieces)
+        fn = rc.composite_pairs_fwd2 if two_tile else rc.composite_pairs_fwd
+        before = fn.launches
+        got = fn(*args)
+        assert fn.launches == before + len(pieces)
+        assert got[0].shape == want[0].shape
+        _assert_fwd_close(got, want)
+    bargs = _bwd_args(args, seed=7)
+    plain = _per_gaussian(args, rc.composite_pairs_bwd_plain(*bargs))
+    for fn in (rc.composite_pairs_bwd, rc.composite_pairs_bwd2):
+        before = fn.launches
+        got = fn(*bargs)
+        assert fn.launches == before + len(rc.channel_pieces(channels))
+        assert got.shape == (gidx.shape[0], 6 + channels)
+        _assert_grads_close(_per_gaussian(args, got), plain, channels)
+    wide = _widen(args, 123)
+    with pytest.raises(ValueError, match="C <= 122"):
+        rc.composite_pairs_fwd(*wide)
 
 
 def _table_args(device, channels, opacity, w=W, h=H):
@@ -434,18 +479,69 @@ def test_probes_match_plain(cuda_device):
         (before[0], before[1], before[2] + 1)
 
 
+def _p3_case(device, shape):
+    """(vals, starts, rows) of P3: the probe's 3 blocks into 512 rows, the
+    large shape of chip_smoke.py, or 300 blocks at 22 shared starts (0 and
+    rows - 128 among them) into 1000 rows, so that many blocks share a
+    start and the last CTA's rows are cut."""
+    import chip_smoke
+
+    if shape == "large":
+        return chip_smoke.p3_large_inputs(device)
+    if shape == "probe":
+        starts, rows = [0, 100, 200], 512
+    else:
+        rng = np.random.default_rng(4)
+        rows = 1000
+        starts = rng.choice(np.r_[0, rows - 128, rng.integers(0, rows - 127, 20)], 300).tolist()
+    vals = torch.randn(len(starts), 128, 128, generator=torch.Generator(device).manual_seed(1),
+                       device=device)
+    return vals, torch.tensor(starts, dtype=torch.int32, device=device), rows
+
+
 @pytest.mark.gpu
-def test_table_kernels_with_unsupported_channels_raise(cuda_device):
-    """K3 and K4 raise past C 39 and name the limit."""
-    one = torch.ones(1, dtype=torch.int32, device=cuda_device)
-    tables = torch.zeros(1, 1, 6 + 40, device=cuda_device)
-    bg = torch.zeros(40, device=cuda_device)
-    with pytest.raises(ValueError, match="built for C <= 39"):
-        rc.composite_tables_fwd(one, tables, bg, 1, 32)
-    g = torch.zeros(1, 1024, device=cuda_device)
-    with pytest.raises(ValueError, match="built for C <= 39"):
-        rc.composite_tables_bwd(one, tables, bg, torch.zeros(1, 1024, 40, device=cuda_device), g,
-                                g, g, 1, 32)
+@pytest.mark.parametrize("shape", ["probe", "large", "shared_starts"])
+def test_p1_p3_exact_at_probe_and_large_shapes(cuda_device, shape):
+    """P1 on (8, 128) / 2^26 floats and P3 (`_p3_case`) equal to their
+    plain versions bit for bit, P3 on every covered row, one launch each."""
+    import chip_smoke
+
+    n = chip_smoke.P1_LARGE if shape == "large" else 8 * 128
+    x = torch.randn(n, generator=torch.Generator(cuda_device).manual_seed(2), device=cuda_device)
+    vals, starts, rows = _p3_case(cuda_device, shape)
+    before = (pk.affine.launches, pk.write_at.launches)
+    got_x = pk.affine(x)
+    got = pk.write_at(vals, starts, rows)
+    torch.cuda.synchronize()
+    assert (pk.affine.launches, pk.write_at.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got_x, pk.affine_plain(x))
+    covered = pk.covered_rows(starts, rows).to(cuda_device)
+    assert torch.equal(got[covered], pk.write_at_plain(vals, starts, rows)[covered])
+
+
+@pytest.mark.gpu
+def test_chunked_table_widths_match_plain(cuda_device):
+    """K3 and K4 at C 71 in pieces against the plain versions, K3's pieces'
+    alpha / logt / ncomp bit-equal; C 123 raises."""
+    args = _widen(_k1_args(cuda_device, 39, 0.95), 71)
+    targs = _table_of(args, int(args[2].max()))
+    counts, tables, bg, tw, ts = targs
+    pieces = rc.fwd_pieces(lambda t, b: rc._kernel_table_fwd(counts, t, b, tw, ts),
+                           rc.TABLE_FWD_CHANNELS, tables, bg)
+    _assert_pieces_agree(pieces)
+    got = rc.composite_tables_fwd(*targs)
+    _assert_fwd_close(got, rc.composite_tables_fwd_plain(*targs))
+    bargs = _bwd_args(args, seed=7)
+    tbargs = targs[:3] + bargs[5:7] + got[2:] + targs[3:]
+    before = rc.composite_tables_bwd.launches
+    gattr = rc.composite_tables_bwd(*tbargs)
+    plain = rc.composite_tables_bwd_plain(*tbargs)
+    torch.cuda.synchronize()
+    assert rc.composite_tables_bwd.launches == before + 2
+    _assert_grads_close(gattr.reshape(-1, 6 + 71), plain.reshape(-1, 6 + 71), 71)
+    with pytest.raises(ValueError, match="C <= 122"):
+        rc.composite_tables_fwd(counts, torch.zeros(*tables.shape[:2], 6 + 123, device=cuda_device),
+                                torch.zeros(123, device=cuda_device), tw, ts)
 
 
 def _table_of(args, kt):
@@ -518,10 +614,9 @@ def test_padded_widths_match_plain(cuda_device, feature_dim):
     _assert_grads_close(got.reshape(-1, 6 + channels), plain.reshape(-1, 6 + channels), channels)
 
 
-@pytest.mark.gpu
-def test_train_cli_feature_dim_16(cuda_device, tmp_path):
-    """`ggt-torch-train --feature-dim 16` (C 23) trains on the card: two
-    steps through K1 / K2 with the padding, finite losses."""
+def _train_cli_two_steps(tmp_path, feature_dim):
+    """`ggt-torch-train --feature-dim <feature_dim>` for two steps on the
+    card: (trainer, losses, K1 and K2 launches)."""
     from gaussiangrasper_torch.data.synthetic import generate_tabletop
     from gaussiangrasper_torch.engine import train_state
     from gaussiangrasper_torch.scripts import train
@@ -541,14 +636,34 @@ def test_train_cli_feature_dim_16(cuda_device, tmp_path):
     try:
         trainer = train.main(["--data", str(scene), "--output-dir", str(tmp_path / "out"),
                               "--max-iterations", "2", "--capacity", "4096", "--feature-dim",
-                              "16", "--sh-degree", "1", "--max-tiles-per-gaussian", "16"])
+                              str(feature_dim), "--sh-degree", "1", "--max-tiles-per-gaussian",
+                              "16"])
     finally:
         train_state.train_step = step
     torch.cuda.synchronize()
+    return trainer, losses, (rc.composite_pairs_fwd.launches - before[0],
+                             rc.composite_pairs_bwd.launches - before[1])
+
+
+@pytest.mark.gpu
+def test_train_cli_feature_dim_16(cuda_device, tmp_path):
+    """`ggt-torch-train --feature-dim 16` (C 23) trains on the card: two
+    steps through K1 / K2 with the padding, finite losses."""
+    trainer, losses, launches = _train_cli_two_steps(tmp_path, 16)
     assert trainer.config.model.num_channels == 23
     assert len(losses) == 2 and all(np.isfinite(losses))
-    assert (rc.composite_pairs_fwd.launches - before[0],
-            rc.composite_pairs_bwd.launches - before[1]) == (2, 2)
+    assert launches == (2, 2)
+
+
+@pytest.mark.gpu
+def test_train_cli_feature_dim_64(cuda_device, tmp_path):
+    """`ggt-torch-train --feature-dim 64` (C 71) trains on the card: two
+    steps, each K1 and K2 launched once a channel piece (39 + 32), finite
+    losses."""
+    trainer, losses, launches = _train_cli_two_steps(tmp_path, 64)
+    assert trainer.config.model.num_channels == 71
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert launches == (4, 4)
 
 
 def _tf32(x):
@@ -575,12 +690,15 @@ def tensor_core_fwd(args, rounding: str):
     rows, as mma.sync m16n8k8 takes them in 3xTF32: W (pixels x 8 rows) and
     Colour (8 rows x C) split into hi = tf32(x) and lo = x - hi (read
     truncated to TF32), then lo hi, hi lo and hi hi in mma_3xtf32_split's
-    order, each product's 8 terms added to the accumulator exactly and the
-    sum rounded once: toward zero (`rounding="rz"`, as the tensor core
-    rounds its sums) or to nearest ("rn"). The kernel's groups are each
+    order, each product's 8 terms added exactly and the sum rounded once.
+    `rounding`: "rz", each product added to the running accumulator and
+    rounded toward zero, as the tensor core rounds its sums; "rn", the same
+    rounded to nearest; "group", the three products of a group into a
+    zeroed sum rounded toward zero, that sum then added to the running
+    accumulator in IEEE float32 (to nearest). The kernel's groups are each
     warp's kept rows, 8 at a time; consecutive walk rows stand in for them.
     The plain forward supplies the weights (its colour product patched)."""
-    rnd = _round_toward_zero if rounding == "rz" else (lambda x: x.to(torch.float32))
+    rnd = _round_toward_zero if rounding in ("rz", "group") else (lambda x: x.to(torch.float32))
     einsum, pending, acc = torch.einsum, [], []
 
     def flush():
@@ -588,10 +706,12 @@ def tensor_core_fwd(args, rounding: str):
         pending.clear()
         wh, ch = _tf32(w), _tf32(c)
         wl, cl = _tf32_truncated(w - wh), _tf32_truncated(c - ch)
-        d = acc.pop() if acc else torch.zeros(w.shape[:2] + c.shape[-1:], device=w.device)
+        zero = torch.zeros(w.shape[:2] + c.shape[-1:], device=w.device)
+        run = acc.pop() if acc else zero
+        d = zero if rounding == "group" else run
         for a, b in ((wl, ch), (wh, cl), (wh, ch)):
             d = rnd(d.double() + einsum("tpk,tkc->tpc", a.double(), b.double()))
-        acc.append(d)
+        acc.append(run + d if rounding == "group" else d)
 
     def patched(equation, *operands):
         if equation != "tp,tc->tpc":
@@ -607,6 +727,42 @@ def tensor_core_fwd(args, rounding: str):
     if pending:
         flush()
     return (acc[0] + out if acc else out), alpha, logt, ncomp
+
+
+DENSE_ROWS = 2048
+
+
+def dense_tile_args(device, channels=39):
+    """K1's inputs for two dense 32 x 32 tiles, background 0: each walks
+    DENSE_ROWS large faint splats (conic 1e-5, opacity 0.0042: alpha just
+    above 1/255 at every pixel, so every row composites and no pixel is cut
+    before the last), colours of alternating sign by channel with
+    magnitudes in [3.5, 4) on tile 0 and [4, 4.5) on tile 1, so |out| ends
+    near 3.8 and 4.3, on either side of a binade edge."""
+    rng = np.random.default_rng(11)
+    n = 2 * DENSE_ROWS
+    xy = rng.uniform(0.0, 32.0, (n, 2)) + np.repeat([[0.0, 0.0], [32.0, 0.0]], DENSE_ROWS, 0)
+    geo = np.tile([1e-5, 0.0, 1e-5, 0.0042], (n, 1))
+    mag = np.concatenate([rng.uniform(3.5, 4.0, (DENSE_ROWS, channels)),
+                          rng.uniform(4.0, 4.5, (DENSE_ROWS, channels))])
+    colors = mag * np.where(np.arange(channels) % 2 == 0, 1.0, -1.0)
+    attrs = np.concatenate([xy, geo, colors], 1).astype(np.float32)
+
+    def t(x):
+        return torch.as_tensor(x, device=device)
+
+    return (t(np.arange(n, dtype=np.int32)), t(np.array([0, DENSE_ROWS], np.int32)),
+            t(np.full(2, DENSE_ROWS, np.int32)), t(attrs), torch.zeros(channels, device=device),
+            2, 32)
+
+
+def precision_reading(x, want):
+    """max and mean |x - want|, and the share of the error's mass that
+    lowers |out| (1: all toward zero, -1: all away)."""
+    d = (x - want).double()
+    toward_zero = float((d * torch.sign(want)).sum() / d.abs().sum().clamp(min=1e-300))
+    return {"max_abs": float(d.abs().max()), "mean_abs": float(d.abs().mean()),
+            "toward_zero": -toward_zero}
 
 
 def _full_width_args(device):
@@ -651,3 +807,31 @@ def test_k1_colour_sums_err_as_the_tensor_cores_round(cuda_device, inputs):
     assert readings["kernel"]["toward_zero"] > 0.5
     assert readings["emulated_rz"]["toward_zero"] > 0.5
     assert abs(readings["emulated_rn"]["toward_zero"]) < 0.5
+
+
+@pytest.mark.gpu
+def test_k1_colour_sums_on_a_dense_tile(cuda_device):
+    """K1's out against the plain version on two dense tiles (2048 live
+    rows a pixel, |out| ~4, background 0: `dense_tile_args`), where a
+    truncating sum's error grows with the rows: within chip_smoke.py's
+    1e-4; K3 on the same rows and K5 bit-equal to K1. Prints the readings,
+    with the emulations of `tensor_core_fwd`, as one JSON line."""
+    args = dense_tile_args(cuda_device)
+    with torch.no_grad():
+        got = rc.composite_pairs_fwd(*args)
+        want = rc.composite_pairs_fwd_plain(*args, count_live=True)
+        k5 = rc.composite_pairs_fwd2(*args)
+        k3 = rc.composite_tables_fwd(*_table_of(args, DENSE_ROWS))
+        emul = {r: tensor_core_fwd(args, r)[0] for r in ("rz", "rn", "group")}
+    torch.cuda.synchronize()
+    readings = {"kernel": precision_reading(got[0], want[0]),
+                **{f"emulated_{r}": precision_reading(x, want[0]) for r, x in emul.items()},
+                "max_abs_out": float(want[0].abs().max()), "min_abs_out": float(want[0].abs().min()),
+                "live_rows": [int(want[4].min()), int(want[4].max())]}
+    print("k1_precision dense_tile", json.dumps(readings))
+    assert int(want[4].min()) == DENSE_ROWS and 3.5 < readings["min_abs_out"]
+    assert readings["max_abs_out"] < 4.5
+    assert readings["kernel"]["max_abs"] <= 1e-4
+    for other in (k5, k3):
+        for name, a, b in zip(("out", "alpha", "logt", "ncomp"), other, got):
+            assert torch.equal(a, b), name

@@ -524,16 +524,15 @@ def patch_kernels_with_plain(monkeypatch, seen):
         monkeypatch.setattr(rc, name, fn)
 
 
-@pytest.mark.parametrize("feature_dim", [8, 16])
-def test_padded_wrappers_match_unpadded_plain_and_jax(feature_dim, monkeypatch):
-    """F 8 and 16 (C 15 and 23): the wrappers pad the colours, bg and g_out
-    with zeros to the C 39 kernels (C 7 for K3 at F 0 would take its own)
-    and cut the outputs back. With the kernels' plain versions in their
-    place: the forward equals the unpadded plain version exactly and JAX's
-    `_call_fwd_pairs` to K1's tolerance; the backward's per-Gaussian sums
-    (pair stream and table) equal the unpadded plain version's within K2's
-    criterion and JAX's `_call_bwd_pairs` within it too."""
-    channels = 3 + feature_dim + 4
+def wrappers_against_plain_and_jax(channels, monkeypatch):
+    """The compositor wrappers at `channels` with the kernels' plain versions
+    in their place (`patch_kernels_with_plain`) against the plain versions
+    on the whole width and JAX's pair kernels in interpret mode. The
+    forward equals the plain version exactly and JAX's `_call_fwd_pairs`
+    to K1's tolerance; the backward's per-Gaussian sums (pair stream, K2 and
+    K6's wrappers, and table) equal the plain version's within K2's
+    criterion (1e-4 of each column group's max), and JAX's
+    `_call_bwd_pairs` within it too. Returns the widths the launches saw."""
     scene = make_scene(10, 300)
     jp, gidx, starts, counts, attrs, bg = k1_inputs(scene, channels)
     tw = -(-W // 32)
@@ -590,13 +589,53 @@ def test_padded_wrappers_match_unpadded_plain_and_jax(feature_dim, monkeypatch):
     for lo, hi in ((0, 2), (2, 5), (5, 6), (6, 6 + channels)):
         scale = float(plain[..., lo:hi].abs().max())
         assert float((gattr[..., lo:hi] - plain[..., lo:hi]).abs().max()) <= 1e-4 * scale
+    return seen
+
+
+@pytest.mark.parametrize("feature_dim", [8, 16])
+def test_padded_wrappers_match_unpadded_plain_and_jax(feature_dim, monkeypatch):
+    """F 8 and 16 (C 15 and 23): one piece, zero-padded to the C 39
+    kernels (C 7 for K3 at F 0 would take its own), the outputs cut back."""
+    seen = wrappers_against_plain_and_jax(3 + feature_dim + 4, monkeypatch)
     assert sorted(set(seen)) == [39]  # every launch at the instantiated width
 
 
-def test_wrappers_raise_past_39_channels():
-    with pytest.raises(ValueError, match="built for C <= 39"):
-        rc.pad_channels("composite_pairs_fwd", rc.KERNEL_CHANNELS, 40)
-    assert rc.pad_channels("composite_tables_fwd", rc.TABLE_FWD_CHANNELS, 5)[0] == 7
+@pytest.mark.parametrize("channels", [47, 71, 122])
+def test_chunked_wrappers_match_unchunked_plain_and_jax(channels, monkeypatch):
+    """C 47, 71 and 122 (F 40, 64 and 115, the widest the JAX package
+    takes): the wrappers launch once a piece of at most 39 channels, each
+    padded to an instantiated width; the forward keeps the first piece's
+    alpha / logt / ncomp, the backward sums the pieces' geometric columns
+    (g_alpha in the first piece alone) and joins their colour columns."""
+    seen = wrappers_against_plain_and_jax(channels, monkeypatch)
+    pieces = rc.channel_pieces(channels)
+    assert pieces[0] == (0, 39) and pieces[-1][1] == channels
+    assert all(0 < hi - lo <= 39 for lo, hi in pieces)
+    widths = [39] * (len(pieces) - 1)
+    last = channels - 39 * (len(pieces) - 1)
+    k1 = widths + [3 if last <= 3 else 39]
+    k3 = widths + [next(c for c in rc.TABLE_FWD_CHANNELS if c >= last)]
+    assert seen == k1 + k1 + k1 + k3 + k1  # K1, K2, K6, K3, K4
+
+
+def test_wrappers_raise_past_122_channels():
+    """C 123 (a 129-value attribute row) raises in both packages: JAX's
+    pair gather and the port's wrappers, on CPU tensors too, naming the
+    limit; an instantiated width passes `pad_channels` untouched."""
+    attrs = np.random.default_rng(3).uniform(size=(4, 6 + 123)).astype(np.float32)
+    gidx, starts, counts = np.arange(4, dtype=np.int32), np.zeros(1, np.int32), np.full(1, 4, np.int32)
+    bg = np.zeros(123, np.float32)
+    with pytest.raises(ValueError, match="exceeds the 128-lane row"):
+        rp._gather_pairs(jnp.asarray(gidx), jnp.asarray(attrs[:, :2]), jnp.asarray(attrs[:, 2:5]),
+                         jnp.asarray(attrs[:, 5]), jnp.asarray(attrs[:, 6:]), rp.KC)
+    args = (T(gidx), T(starts), T(counts), T(attrs), T(bg), 1, 32)
+    for fn in (rc.composite_pairs_fwd, rc.composite_pairs_fwd2):
+        with pytest.raises(ValueError, match=r"C <= 122, a feature dim of at most 115"):
+            fn(*args)
+    tables = torch.zeros(counts.shape[0], 1, 6 + 123)
+    with pytest.raises(ValueError, match=r"C <= 122"):
+        rc.composite_tables_fwd(T(np.zeros_like(counts)), tables, T(bg), 1, 32)
+    assert rc.pad_channels(rc.TABLE_FWD_CHANNELS, 5)[0] == 7
     x = torch.ones(2, 6 + 3)
-    ck, (padded,) = rc.pad_channels("k", rc.KERNEL_CHANNELS, 3, x)
+    ck, (padded,) = rc.pad_channels(rc.KERNEL_CHANNELS, 3, x)
     assert ck == 3 and padded is x  # an instantiated width is passed through untouched
