@@ -12,7 +12,8 @@ Phases, one JSON line each:
            forward body's dynamic shared memory a CTA)
   k1       the forward kernel against its plain PyTorch version on the card, at
            a mid size (C 39, C 3, and C 23 through the wrapper's zero padding)
-           and at full width (200k Gaussians, 800x800, C = 39): errors, kernel
+           and at full width (200k Gaussians, 800x800, C = 39, and C = 71, F 64:
+           two channel pieces, two launches a call): errors, kernel
            and plain times, the roofline bound on the visits the kernel's cull
            keeps (beside bound_all_visits_ms, every visit charged), and the work
            in warp x row pairs (warp_rows walked, live_warp_rows with a lane that
@@ -20,10 +21,14 @@ Phases, one JSON line each:
            with the SM clocks the kernel spends a live warp-row
   k2       the backward kernel against its plain version on K1's own logt
            and ncomp, random g_out and a nonzero g_alpha, at mid size (C 39,
-           C 3 and C 23) and full width: errors of the per-Gaussian sums,
+           C 3 and C 23) and full width (C 39 and 71): errors of the per-Gaussian sums,
            kernel and plain times, the roofline bound, and the work in warp
            x row pairs (warp_rows walked, live_warp_rows with a live lane)
            with the SM clocks the kernel spends a live warp-row
+  dense_tile  K1 on two dense tiles (2048 live rows a pixel, |out| ~4, where
+           truncated colour sums err most) against its plain version with K1's
+           criterion, the bias of its error, K5 and K3 on the same rows
+           bit-equal to K1, K1's time there
   k5       the two-tile forward against K1 (all four outputs bit-equal) at
            an odd mid tile count (C 39 and C 3, also against the plain
            version) and at full width (625 tiles); its time beside K1's and
@@ -1261,10 +1266,15 @@ def main() -> int:
         check_k1("mid_c23", mid23, time_it=False)
         full_args = k1_inputs(field, alive, bench_camera(WIDTH, HEIGHT, device), cfg)
         full = check_k1("full_width_c39", full_args, time_it=True)
+        wide = widen_inputs(full_args, 71)  # F = 64: two channel pieces of 39 and 32
+        full71 = check_k1("full_width_c71", wide, time_it=True)
         check_k2("mid_c39", mid39, time_it=False)
         check_k2("mid_c3", mid3, time_it=False)
         check_k2("mid_c23", mid23, time_it=False)
         full2 = check_k2("full_width_c39", full_args, time_it=True)
+        full2_71 = check_k2("full_width_c71", wide, time_it=True)
+        del wide
+        dense = dense_tile_phase(device)
         odd39 = k1_inputs(field, alive, bench_camera(400, 288, device), cfg)  # 13 x 9 tiles
         odd3 = narrow_inputs(odd39, 3)
         check_k5("mid_odd_c39", odd39, time_it=False, plain=True)
@@ -1319,19 +1329,25 @@ def main() -> int:
         return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                                     "bound_by", "bound_share")}
 
+    def c71_row(row):
+        return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+
     emit({"kernels": [
-        kernel_row("composite_pairs_fwd", "composite_pairs_fwd",
-                   "rasterize_pallas.py:490 (_fwd_pairs_kernel)", full,
-                   {"serve": serve["k1_launches"], "train": train["launches"]["k1"],
-                    "trainer": trainer["launches_train"]["k1"],
-                    "trainer_render": trainer["launches_render"]["k1"],
-                    "trainer_tp2_render": trainer2["launches_render"]["k1"],
-                    "table_phase_pair_render": table["render_launches"]["k1"],
-                    "table_phase_pair_train": table["train_launches"]["k1"]}),
-        kernel_row("composite_pairs_bwd", "composite_pairs_bwd",
-                   "rasterize_pallas.py:600 (_bwd_pairs_kernel)", full2,
-                   {"train": train["launches"]["k2"], "trainer": trainer["launches_train"]["k2"],
-                    "table_phase_pair_train": table["train_launches"]["k2"]}),
+        {**kernel_row("composite_pairs_fwd", "composite_pairs_fwd",
+                      "rasterize_pallas.py:490 (_fwd_pairs_kernel)", full,
+                      {"serve": serve["k1_launches"], "train": train["launches"]["k1"],
+                       "trainer": trainer["launches_train"]["k1"],
+                       "trainer_render": trainer["launches_render"]["k1"],
+                       "trainer_tp2_render": trainer2["launches_render"]["k1"],
+                       "table_phase_pair_render": table["render_launches"]["k1"],
+                       "table_phase_pair_train": table["train_launches"]["k1"]}),
+         "c71": c71_row(full71), "dense_tile": {k: dense[k] for k in ("max_abs_err", "ms")}},
+        {**kernel_row("composite_pairs_bwd", "composite_pairs_bwd",
+                      "rasterize_pallas.py:600 (_bwd_pairs_kernel)", full2,
+                      {"train": train["launches"]["k2"],
+                       "trainer": trainer["launches_train"]["k2"],
+                       "table_phase_pair_train": table["train_launches"]["k2"]}),
+         "c71": c71_row(full2_71)},
         kernel_row("composite_pairs_fwd2", "composite_pairs_fwd",
                    "rasterize_pallas.py:1059 (_fwd_pairs2_kernel)", full5,
                    {"trainer_tp2": trainer2["launches_train"]["k5"]}),
@@ -1370,6 +1386,93 @@ def narrow_inputs(args, c: int):
     narrow[3] = torch.cat([narrow[3][:, :6], narrow[3][:, 6:6 + c]], 1).contiguous()
     narrow[4] = narrow[4][:c].contiguous()
     return tuple(narrow)
+
+
+def widen_inputs(args, c: int):
+    """The same stream with c colour channels (c > 39: a feature dim over
+    32): the main path's 39 (x), then 1 - x, 0.25 x, 1 - x, ..., cut to c;
+    bg likewise."""
+    import torch
+
+    attrs, bg = args[3], args[4]
+    cols, bgs = [], []
+    while 39 * len(cols) < c:
+        i = len(cols)
+        cols.append(attrs[:, 6:] * 0.5 ** i if i % 2 == 0 else 1.0 - attrs[:, 6:])
+        bgs.append(bg * 0.5 ** i if i % 2 == 0 else 1.0 - bg)
+    wide = torch.cat([attrs[:, :6]] + cols, 1)[:, :6 + c].contiguous()
+    return args[:3] + (wide, torch.cat(bgs)[:c].contiguous()) + args[5:]
+
+
+DENSE_ROWS = 2048
+
+
+def dense_tile_inputs(device, channels: int = 39):
+    """K1's inputs for two dense 32 x 32 tiles, background 0: each walks
+    DENSE_ROWS large faint splats (conic 1e-5, opacity 0.0042: alpha just
+    above 1/255 at every pixel, so every row composites and no pixel is cut
+    before the last), colours of alternating sign by channel with
+    magnitudes in [3.5, 4) on tile 0 and [4, 4.5) on tile 1, so |out| ends
+    near 3.8 and 4.3, on either side of a binade edge. A tile this dense
+    is where truncated colour sums err the most."""
+    import torch
+
+    rng = np.random.default_rng(11)
+    n = 2 * DENSE_ROWS
+    xy = rng.uniform(0.0, 32.0, (n, 2)) + np.repeat([[0.0, 0.0], [32.0, 0.0]], DENSE_ROWS, 0)
+    geo = np.tile([1e-5, 0.0, 1e-5, 0.0042], (n, 1))
+    mag = np.concatenate([rng.uniform(3.5, 4.0, (DENSE_ROWS, channels)),
+                          rng.uniform(4.0, 4.5, (DENSE_ROWS, channels))])
+    colors = mag * np.where(np.arange(channels) % 2 == 0, 1.0, -1.0)
+    attrs = np.concatenate([xy, geo, colors], 1).astype(np.float32)
+
+    def t(x):
+        return torch.as_tensor(x, device=device)
+
+    return (t(np.arange(n, dtype=np.int32)), t(np.array([0, DENSE_ROWS], np.int32)),
+            t(np.full(2, DENSE_ROWS, np.int32)), t(attrs), torch.zeros(channels, device=device),
+            2, 32)
+
+
+def stream_table(args):
+    """K3's inputs (counts, tables, bg, tw, ts): the stream's rows of each
+    tile packed into a (T, max count, 6 + C) table."""
+    import torch
+
+    gidx, starts, counts, attrs, bg, tw, ts = args
+    tables = torch.zeros(counts.shape[0], int(counts.max()), attrs.shape[1], device=attrs.device)
+    for t, (s, n) in enumerate(zip(starts.tolist(), counts.tolist())):
+        tables[t, :n] = attrs[gidx[s: s + n].long()]
+    return counts, tables, bg, tw, ts
+
+
+def dense_tile_phase(device) -> dict:
+    """K1 on two dense tiles (`dense_tile_inputs`: 2048 live rows a pixel,
+    |out| ~4) against the plain version with K1's criterion, the share of
+    the error's mass that lowers |out| beside it, K5 and K3 on the same rows
+    bit-equal to K1; K1's time there."""
+    import torch
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
+
+    args = dense_tile_inputs(device)
+    row = check_k1("dense_tile_c39", args, time_it=False)
+    got = rc._launch_kernel(*args)
+    want = rc.composite_pairs_fwd_plain(*args, count_live=True)
+    k5, k3 = rc._launch_kernel2(*args), rc._launch_table_fwd(*stream_table(args))
+    torch.cuda.synchronize()
+    d = (got[0] - want[0]).double()
+    row = {"phase": "dense_tile", "max_abs_err": row["max_abs_err"],
+           "mean_abs_err": float(d.abs().mean()),
+           "toward_zero": float(-(d * torch.sign(want[0])).sum() / d.abs().sum().clamp(min=1e-300)),
+           "max_abs_out": float(want[0].abs().max()), "min_abs_out": float(want[0].abs().min()),
+           "live_rows": [int(want[4].min()), int(want[4].max())],
+           "k5_bit_equal": all(bool(torch.equal(a, b)) for a, b in zip(k5, got)),
+           "k3_bit_equal": all(bool(torch.equal(a, b)) for a, b in zip(k3, got)),
+           "ms": cuda_ms(lambda: rc._launch_kernel(*args), 20)}
+    emit(row)
+    if not (row["k5_bit_equal"] and row["k3_bit_equal"]) or row["live_rows"][0] != DENSE_ROWS:
+        raise RuntimeError(f"dense_tile: K5 or K3 differs from K1, or a row did not composite: {row}")
+    return row
 
 
 def bench_camera(width: int, height: int, device):

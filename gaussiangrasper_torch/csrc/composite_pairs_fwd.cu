@@ -80,11 +80,14 @@
 // compulsory bytes (the (N, 6 + C) table, pair_gidx, the (T, P, 3 + C) outputs): see PERF.md.
 //
 // Precision. The tensor core adds each m16n8k8 product into its accumulator with truncation,
-// not round-to-nearest, so the colour sums err toward zero by up to about an ulp of the running
-// sum a product, three products (lo hi, hi lo, hi hi) a group of 8 rows. On an NVIDIA H100 80GB
-// HBM3 (700 W), at chip_smoke.py's full-width inputs, K1's out is within 3.2e-5 of the plain
-// version (|out| up to 2.6), 99.9% of the error's mass toward zero; the first design's per-row
-// FMAs were within 9.5e-7 (tests/test_torch_gpu.py, PERF.md).
+// not round-to-nearest. The first tensor-core design kept the running colour sums in the D
+// fragments, so they erred toward zero by up to about an ulp of the running sum a product, three
+// products (lo hi, hi lo, hi hi) a group of 8 rows: on an NVIDIA H100 80GB HBM3 (700 W), within
+// 3.2e-5 of the plain version at chip_smoke.py's full-width inputs (|out| up to 2.6), but 1.8e-4
+// on two dense tiles of 2048 live rows a pixel with |out| ~4 (tests/test_torch_gpu.py
+// dense_tile_args), past the 1e-4 criterion. Now each group's products are summed into a zeroed
+// fragment, whose truncation is relative to that small sum, and added to f32 accumulators with
+// __fadd_rn, unbiased (colour_product; PERF.md has the readings).
 //
 // Measured on that card (chip_smoke.py, CUDA events, median of 20 launches): K1 1.877-1.878 ms
 // at the full-width inputs, where the first design took 2.837-2.993 in the same call; K3 within
@@ -180,8 +183,11 @@ __device__ __forceinline__ void stage_batch(const Rows& rows, size_t first, int 
 
 // acc[pixel][channel] += sum_k w[k][pixel] colour[row k][channel] on the tensor cores, 3xTF32:
 // M the warp's 32 pixels (two m tiles), N the channels (NT n tiles), K the 8 weight rows at
-// w (kBufStride apart); the lane's B rows are lo (fragment row tq) and hi (tq + 4); the
-// accumulators are the D fragments.
+// w (kBufStride apart); the lane's B rows are lo (fragment row tq) and hi (tq + 4). Each n
+// tile's three products go into a zeroed D fragment, which is then added to the f32
+// accumulators in IEEE rounding: the tensor core truncates its sums, and accumulating in the D
+// fragments across groups erred toward zero by up to an ulp of |out| a product, past 1e-4 on a
+// dense tile (see "Precision" above).
 template <int NT>
 __device__ __forceinline__ void colour_product(float (&acc)[2][NT][4], const float* w,
                                                const float2* s_col, int lo, int hi, int lane) {
@@ -201,7 +207,10 @@ __device__ __forceinline__ void colour_product(float (&acc)[2][NT][4], const flo
       const float2 b0 = c0[nt * 8], b1 = c1[nt * 8];
       const uint32_t bh[2] = {__float_as_uint(b0.x), __float_as_uint(b1.x)};
       const uint32_t bl[2] = {__float_as_uint(b0.y), __float_as_uint(b1.y)};
-      mma_3xtf32_split(acc[mt][nt], ah, al, bh, bl);
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_3xtf32_split(d, ah, al, bh, bl);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = __fadd_rn(acc[mt][nt][e], d[e]);
     }
   }
 }

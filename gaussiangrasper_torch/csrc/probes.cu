@@ -3,7 +3,9 @@
 // move row blocks at dynamic, unaligned offsets.
 //
 //   P1 affine_kernel replaces pallas_probe.py:38 `kernel` (the minimal Mosaic
-//      compile-and-run probe): o = 2 x + 1, one thread per element.
+//      compile-and-run probe): o = 2 x + 1. It moves 8 bytes a float and does two operations, so
+//      bytes bound it at any size. Its first design ran one thread an element; now a grid of 8
+//      CTAs an SM strides over float4s (see affine_kernel).
 //   P2 read_at_kernel replaces dma_probe.py:37 `_read_kernel`: block t of the output
 //      (T, 128, 128) is rows [starts[t], starts[t] + 128) of x (rows, 128). The TPU probe proves
 //      `make_async_copy` from HBM at a dynamic, unaligned row offset; the Hopper counterpart is
@@ -42,10 +44,12 @@
 // records the latest block at that start position (a shared atomicMax, 256 positions). Row r0 + i
 // is covered by the blocks starting at positions i + 1 .. i + 128 of that window, so its winner
 // is the larger of a suffix max over the first 128 positions and a prefix max over the last 128:
-// two 7-step scans in shared memory give every row's winner at once, O(T + 128 log 128) a CTA
-// and none a row. Each warp then copies 16 of the rows, 8 at a time: the 8 rows' float4 loads
-// are issued before any store, so their latencies overlap. A winner is kept as t * 256 + its
-// window position, so the row's source offset needs no second read of starts.
+// two scans (warp shuffles, then the warps' partial maxima; four barriers in all) give every
+// row's winner at once, O(T + 256) a CTA and none a row. Each warp then copies 16 of the rows:
+// their 16 float4 loads a lane are issued before any store, so the latencies overlap. A winner is
+// kept as t * 256 + its window position, so the row's source offset needs no second read of
+// starts.
+
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -59,9 +63,33 @@ constexpr int kPieces = kRows / kPieceRows;
 constexpr unsigned kPieceBytes = kPieceRows * kCols * sizeof(float);  // 2 KB
 constexpr int kThreads = 256;
 
-__global__ void affine_kernel(const float* __restrict__ x, int n, float* __restrict__ out) {
+// P1: a grid of whole SMs striding over the float4s of x, each thread loading kUnroll of them
+// before it stores any; the last n % 4 floats (or all of them, where x is not 16-byte aligned) in
+// a scalar tail. The two explicitly rounded operations keep 2 x + 1 bit-equal to the plain version.
+constexpr int kUnroll = 4;
+
+__device__ __forceinline__ float affine(float v) { return __fadd_rn(__fmul_rn(v, 2.f), 1.f); }
+
+__global__ void __launch_bounds__(256) affine_kernel(const float* __restrict__ x, int n, int n4,
+                                                     float* __restrict__ out) {
+  const int stride = gridDim.x * blockDim.x;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = __fadd_rn(__fmul_rn(x[i], 2.f), 1.f);
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  for (int j = i; j < n4; j += kUnroll * stride) {
+    float4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (j + u * stride < n4) v[u] = x4[j + u * stride];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (j + u * stride < n4) {
+        v[u] = make_float4(affine(v[u].x), affine(v[u].y), affine(v[u].z), affine(v[u].w));
+        o4[j + u * stride] = v[u];
+      }
+    }
+  }
+  for (int j = 4 * n4 + i; j < n; j += stride) out[j] = affine(x[j]);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -107,7 +135,8 @@ __global__ void __launch_bounds__(32) read_at_kernel(const float* __restrict__ x
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
-constexpr int kCopyRows = 8;  // rows a warp loads before it stores them
+constexpr int kWarps = kThreads / 32;
+constexpr int kWarpRows = kRows / kWarps;  // output rows a warp copies, all loaded before any store
 
 __global__ void __launch_bounds__(kThreads) write_at_kernel(const float* __restrict__ vals,
                                                             const int32_t* __restrict__ starts,
@@ -115,8 +144,10 @@ __global__ void __launch_bounds__(kThreads) write_at_kernel(const float* __restr
                                                             float* __restrict__ out) {
   // s_win[j]: the latest block starting at row r0 - 128 + j, as t * 256 + j (-1: none)
   __shared__ int s_win[2 * kRows];
+  __shared__ int s_part[kWarps];
   const int r0 = blockIdx.x * kRows;
   const int k = threadIdx.x;  // kThreads = 2 kRows: one thread a window position
+  const int warp = k >> 5, lane = k & 31;
   s_win[k] = -1;
   __syncthreads();
   for (int t = k; t < num_blocks; t += kThreads) {
@@ -124,34 +155,38 @@ __global__ void __launch_bounds__(kThreads) write_at_kernel(const float* __restr
     if (j > 0 && j < 2 * kRows) atomicMax(&s_win[j], t * 2 * kRows + j);
   }
   __syncthreads();
-  // suffix max over positions [0, 128), prefix max over [128, 256)
-  for (int d = 1; d < kRows; d <<= 1) {
-    int v = s_win[k];
-    if (k < kRows && k + d < kRows) v = max(v, s_win[k + d]);
-    if (k >= kRows && k - d >= kRows) v = max(v, s_win[k - d]);
-    __syncthreads();
-    s_win[k] = v;
-    __syncthreads();
+  // suffix max over positions [0, 128) (warps 0-3), prefix max over [128, 256) (warps 4-7):
+  // within each warp by shuffles, then across the warps of each half
+  const bool suffix = k < kRows;
+  int v = s_win[k];
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int down = __shfl_down_sync(0xffffffffu, v, d), up = __shfl_up_sync(0xffffffffu, v, d);
+    if (suffix && lane + d < 32) v = max(v, down);
+    if (!suffix && lane >= d) v = max(v, up);
   }
-  const int warp = k >> 5, lane = k & 31;
-  for (int i0 = warp * (kRows / (kThreads / 32)); i0 < (warp + 1) * (kRows / (kThreads / 32));
-       i0 += kCopyRows) {
-    float4 v[kCopyRows];
-    int dst[kCopyRows];
+  if (lane == (suffix ? 0 : 31)) s_part[warp] = v;
+  __syncthreads();
+  for (int u = suffix ? warp + 1 : kWarps / 2; u < (suffix ? kWarps / 2 : warp); ++u)
+    v = max(v, s_part[u]);
+  s_win[k] = v;
+  __syncthreads();
+  float4 val[kWarpRows];
 #pragma unroll
-    for (int u = 0; u < kCopyRows; ++u) {
-      const int i = i0 + u, r = r0 + i;
-      // row r0 + i: blocks at window positions i + 1 .. i + 128
-      const int w = r < rows ? max(i + 1 < kRows ? s_win[i + 1] : -1, s_win[kRows + i]) : -1;
-      dst[u] = w >= 0 ? r : -1;
-      if (w >= 0) {
-        const int t = w / (2 * kRows), s = r0 - kRows + w % (2 * kRows);
-        v[u] = reinterpret_cast<const float4*>(vals + ((size_t)t * kRows + (r - s)) * kCols)[lane];
-      }
+  for (int u = 0; u < kWarpRows; ++u) {
+    const int i = warp * kWarpRows + u, r = r0 + i;
+    // row r0 + i: blocks at window positions i + 1 .. i + 128
+    const int w = r < rows ? max(i + 1 < kRows ? s_win[i + 1] : -1, s_win[kRows + i]) : -1;
+    if (w >= 0) {
+      const int t = w / (2 * kRows), s = r0 - kRows + w % (2 * kRows);
+      val[u] = reinterpret_cast<const float4*>(vals + ((size_t)t * kRows + (r - s)) * kCols)[lane];
     }
+  }
 #pragma unroll
-    for (int u = 0; u < kCopyRows; ++u)
-      if (dst[u] >= 0) reinterpret_cast<float4*>(out + (size_t)dst[u] * kCols)[lane] = v[u];
+  for (int u = 0; u < kWarpRows; ++u) {
+    const int i = warp * kWarpRows + u, r = r0 + i;
+    const int w = r < rows ? max(i + 1 < kRows ? s_win[i + 1] : -1, s_win[kRows + i]) : -1;
+    if (w >= 0) reinterpret_cast<float4*>(out + (size_t)r * kCols)[lane] = val[u];
   }
 }
 
@@ -163,8 +198,17 @@ __global__ void __launch_bounds__(kThreads) write_at_kernel(const float* __restr
 // P1: out[i] = 2 x[i] + 1 for i < n; x, out float32.
 extern "C" int ggt_probe_affine(const void* x, int n, void* out, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  affine_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, n, (float*)out);
+  int device, sms;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  // float4s where x and out are 16-byte aligned (out is a fresh allocation); a grid of 8 CTAs of
+  // 256 an SM, or fewer for a small x
+  const int n4 = ((uintptr_t)x | (uintptr_t)out) % 16 ? 0 : n / 4;
+  const int work = n4 ? n4 : n;
+  const int blocks = (work + kThreads - 1) / kThreads;
+  const int grid = blocks < 8 * sms ? blocks : 8 * sms;
+  affine_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>((const float*)x, n, n4, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -58,8 +58,10 @@ class InputDataset:
 
     def load_image(self, idx: int) -> np.ndarray:
         """(H, W, 3) float32 in [0, 1] from a PNG or JPEG frame; grey is
-        repeated, alpha composited over white. A 16-bit grey PNG keeps its
-        0-65535 range over 255, as the reference's Pillow array does."""
+        repeated, alpha composited over white. As the reference's Pillow
+        array does: a 16-bit grey PNG keeps its 0-65535 range over 255, a
+        palette PNG loads as its indices over 255, a 1-bit grey one as 0 or
+        1/255, and a CMYK JPEG's fourth channel composites as alpha."""
         img = read_image(self.outputs.image_filenames[idx])
         if img.ndim == 2:
             img = img[..., None].repeat(3, -1)

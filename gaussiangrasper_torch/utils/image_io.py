@@ -5,10 +5,11 @@ The CLIs and the data layer read and write images on machines that have
 neither. A PNG is a signature plus zlib-compressed, per-row filtered
 scanlines in length-prefixed, CRC-checked chunks, which `zlib` and
 `struct` cover. A JPEG is decoded as libjpeg decodes it with its defaults,
-which Pillow uses: the Huffman entropy decoder in Python, then the
-integer "islow" inverse DCT, the fancy (triangular) chroma upsampling and
-the fixed-point YCbCr -> RGB tables, all vectorized in numpy over the
-blocks, so the result lands within 1 of Pillow's per channel.
+which Pillow uses: the Huffman entropy decoder in Python (sequential and
+progressive scans), then the integer "islow" inverse DCT, the fancy
+(triangular) chroma upsampling and the fixed-point YCbCr -> RGB tables,
+all vectorized in numpy over the blocks, so the result lands within 1 of
+Pillow's per channel.
 `read_image` / `image_size` pick the format from the file's signature."""
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from typing import Tuple
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 # Adam7 passes: (first column, first row, column step, row step)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
           (0, 1, 1, 2))
@@ -85,18 +87,32 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _scanlines(raw: bytes, h: int, w: int, ch: int, depth: int) -> np.ndarray:
+    """h filtered scanlines of w pixels: (h, w, bytes a pixel) at depths 8
+    and 16, (h, w, 1) sample values below 8 (packed most significant bit
+    first, each row padded to a whole byte)."""
+    bits = ch * depth
+    rows = _unfilter(raw, h, -(-w * bits // 8), max(1, bits // 8))
+    if depth >= 8:
+        return rows.reshape(h, w, bits // 8)
+    vals = np.unpackbits(rows, axis=1).reshape(h, -1, depth)[:, :w]
+    return (vals << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(-1, dtype=np.uint8)[..., None]
+
+
 def read_png(path: Path) -> np.ndarray:
-    """Read an 8- or 16-bit grey, grey + alpha, RGB or RGBA PNG, plain or
+    """Read a PNG of any colour type and bit depth, plain or
     Adam7-interlaced, as the array Pillow's `np.asarray(Image.open(path))`
     gives: uint8 (H, W), (H, W, 2), (H, W, 3) or (H, W, 4); 16-bit grey as
     uint16 (H, W) (Pillow's I;16), the other 16-bit types as the uint8 of
     each sample's high byte (Pillow's ;16B modes; grey + alpha as RGBA, grey
-    repeated). Anything else raises."""
+    repeated); grey at 1 bit as bool (mode 1), at 2 and 4 bits scaled to 0-255
+    (L;2, L;4: x 85, x 17); a palette image (mode P) as its uint8 (H, W)
+    index array, the palette unapplied."""
     data = Path(path).read_bytes()
     w, h, depth, ctype, interlace = _header(data, path)
-    if depth not in (8, 16) or ctype not in _CHANNELS or interlace not in (0, 1):
-        raise ValueError(f"{path}: only 8- and 16-bit grey / grey+alpha / RGB / RGBA PNGs are "
-                         f"read (bit depth {depth}, colour type {ctype}, interlace {interlace})")
+    if ctype not in _CHANNELS or depth not in _DEPTHS[ctype] or interlace not in (0, 1):
+        raise ValueError(f"{path}: not a valid PNG header (bit depth {depth}, colour type "
+                         f"{ctype}, interlace {interlace})")
     idat, pos = [], 8
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
@@ -107,10 +123,10 @@ def read_png(path: Path) -> np.ndarray:
             break
         pos += 12 + length
     ch = _CHANNELS[ctype]
-    bpp = ch * depth // 8  # bytes a pixel
+    bpp = max(1, ch * depth // 8)  # bytes a pixel (sample values below 8 bits)
     raw = zlib.decompress(b"".join(idat))
     if interlace == 0:
-        img = _unfilter(raw, h, w * bpp, bpp).reshape(h, w, bpp)
+        img = _scanlines(raw, h, w, ch, depth)
     else:
         img = np.zeros((h, w, bpp), np.uint8)
         pos = 0
@@ -118,9 +134,14 @@ def read_png(path: Path) -> np.ndarray:
             pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
             if pw <= 0 or ph <= 0:
                 continue  # an empty pass has no scanlines
-            n = ph * (pw * bpp + 1)
-            img[y0::dy, x0::dx] = _unfilter(raw[pos:pos + n], ph, pw * bpp, bpp).reshape(ph, pw, bpp)
+            n = ph * (-(-pw * ch * depth // 8) + 1)
+            img[y0::dy, x0::dx] = _scanlines(raw[pos:pos + n], ph, pw, ch, depth)
             pos += n
+    if depth < 8:
+        img = img[..., 0]
+        if ctype == 3:
+            return img
+        return img.astype(bool) if depth == 1 else img * np.uint8(255 // ((1 << depth) - 1))
     img = img.reshape(h, w, ch, depth // 8)
     if depth == 8:
         img = img[..., 0]
@@ -156,22 +177,31 @@ def image_size(path: Path) -> Tuple[int, int]:
     raise ValueError(f"{path}: neither a PNG nor a JPEG file")
 
 
-# --- JPEG: baseline and extended-sequential Huffman (SOF0 / SOF1), 8-bit --------------
+# --- JPEG: Huffman-coded 8-bit, sequential or progressive (SOF0 / SOF1 / SOF2) ---------
 
 _ZIGZAG = np.array([
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27,
     20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58,
     59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])  # zigzag index -> natural
 _ZZ = _ZIGZAG.tolist()
+_PROCESS = {3: "lossless", 5: "differential sequential", 6: "differential progressive",
+            7: "differential lossless", 9: "arithmetic-coded sequential",
+            10: "arithmetic-coded progressive", 11: "arithmetic-coded lossless",
+            13: "arithmetic-coded differential sequential",
+            14: "arithmetic-coded differential progressive",
+            15: "arithmetic-coded differential lossless"}
 
 
 def _jpeg_segments(data: bytes, path, frame_only: bool = False) -> dict:
-    """The markers of a JPEG up to its first scan (or, with `frame_only`,
-    its frame header): quantization and Huffman tables, the restart
-    interval, the frame, and the scans with their entropy-coded bytes."""
+    """The markers of a JPEG (or, with `frame_only`, those up to its frame
+    header): quantization and Huffman tables, the restart interval, the
+    frame, whether it is progressive, the JFIF and Adobe markers, and the
+    scans with their spectral selection and successive approximation and
+    their entropy-coded bytes."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{path}: not a JPEG file")
-    out = {"qt": {}, "ht": {}, "restart": 0, "frame": None, "scans": [], "adobe": None}
+    out = {"qt": {}, "ht": {}, "restart": 0, "frame": None, "scans": [], "adobe": None,
+           "jfif": False, "progressive": False}
     pos = 2
     while pos < len(data):
         if data[pos] != 0xFF:
@@ -185,21 +215,21 @@ def _jpeg_segments(data: bytes, path, frame_only: bool = False) -> dict:
         (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
         seg = data[pos + 4:pos + 2 + length]
         pos += 2 + length
-        if marker in (0xC0, 0xC1):  # SOF0 baseline, SOF1 extended sequential, Huffman
+        if marker in (0xC0, 0xC1, 0xC2):  # baseline, extended sequential, progressive; Huffman
             prec, height, width, nc = struct.unpack(">BHHB", seg[:6])
             if prec != 8:
-                raise ValueError(f"{path}: {prec}-bit JPEG samples; only 8-bit are read")
+                raise ValueError(f"{path}: {prec}-bit JPEG samples (12-bit JPEG is not read; "
+                                 "only 8-bit)")
             comps = [dict(id=seg[6 + 3 * i], h=seg[7 + 3 * i] >> 4, v=seg[7 + 3 * i] & 15,
                           tq=seg[8 + 3 * i]) for i in range(nc)]
             out["frame"] = dict(width=width, height=height, comps=comps)
+            out["progressive"] = marker == 0xC2
             if frame_only:
                 return out
-        elif marker == 0xC2 or marker == 0xC6 or marker == 0xCA or marker == 0xCE:
-            raise ValueError(f"{path}: progressive JPEG (SOF{marker - 0xC0}) is not read; "
-                             "re-save it as baseline")
         elif 0xC3 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            raise ValueError(f"{path}: JPEG process SOF{marker - 0xC0} is not read (only "
-                             "baseline and extended-sequential Huffman, SOF0 / SOF1)")
+            raise ValueError(f"{path}: {_PROCESS[marker - 0xC0]} JPEG (SOF{marker - 0xC0}) is not "
+                             "read (only Huffman-coded baseline, extended sequential and "
+                             "progressive: SOF0 / SOF1 / SOF2)")
         elif marker == 0xDB:  # DQT
             i = 0
             while i < len(seg):
@@ -220,6 +250,8 @@ def _jpeg_segments(data: bytes, path, frame_only: bool = False) -> dict:
                 i += 17 + sum(counts)
         elif marker == 0xDD:  # DRI
             (out["restart"],) = struct.unpack(">H", seg[:2])
+        elif marker == 0xE0 and seg[:5] == b"JFIF\x00":
+            out["jfif"] = True
         elif marker == 0xEE and seg[:5] == b"Adobe":
             out["adobe"] = seg[11] if len(seg) > 11 else 0
         elif marker == 0xDA:  # SOS, then the entropy-coded data up to the next real marker
@@ -227,6 +259,7 @@ def _jpeg_segments(data: bytes, path, frame_only: bool = False) -> dict:
                 raise ValueError(f"{path}: scan before the frame header")
             ns = seg[0]
             comps = [(seg[1 + 2 * i], seg[2 + 2 * i] >> 4, seg[2 + 2 * i] & 15) for i in range(ns)]
+            ss, se, a = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
             end = pos
             while True:
                 end = data.find(b"\xff", end)
@@ -238,11 +271,12 @@ def _jpeg_segments(data: bytes, path, frame_only: bool = False) -> dict:
                     end += 1 if nxt == 0xFF else 2
                     continue
                 break
-            out["scans"].append(dict(comps=comps, restart=out["restart"],
-                                     tables=dict(out["ht"]), data=data[pos:end]))
+            out["scans"].append(dict(comps=comps, restart=out["restart"], ss=ss, se=se,
+                                     ah=a >> 4, al=a & 15, tables=dict(out["ht"]),
+                                     data=data[pos:end]))
             pos = end
     if out["frame"] is None:
-        raise ValueError(f"{path}: no baseline frame header (SOF0 / SOF1)")
+        raise ValueError(f"{path}: no Huffman frame header (SOF0 / SOF1 / SOF2)")
     return out
 
 
@@ -273,19 +307,44 @@ def _windows(segment: bytes) -> list:
     return ((trip[pos >> 3] >> (8 - (pos & 7))) & 0xFFFF).tolist()
 
 
-def _decode_scan(scan: dict, frame: dict, path) -> None:
-    """Huffman-decodes one scan into the coefficient lists of its components
-    (component["idx"]: block x 64 + natural index; component["val"]: the
-    quantized value there)."""
+def _scan_kind(scan: dict, progressive: bool, path) -> str:
+    """"sequential", or a progressive scan's kind ("dc_first", "dc_refine",
+    "ac_first", "ac_refine") from its spectral selection (Ss, Se) and
+    successive approximation (Ah, Al); malformed combinations raise."""
+    if not progressive:
+        return "sequential"
+    ss, se = scan["ss"], scan["se"]
+    if ss == 0:
+        if se != 0:
+            raise ValueError(f"{path}: corrupt progressive JPEG (a DC scan with Se {se})")
+        return "dc_refine" if scan["ah"] else "dc_first"
+    if se < ss or se > 63 or len(scan["comps"]) != 1:
+        raise ValueError(f"{path}: corrupt progressive JPEG (an AC scan over bands {ss}-{se} "
+                         f"of {len(scan['comps'])} components)")
+    return "ac_refine" if scan["ah"] else "ac_first"
+
+
+def _decode_scan(scan: dict, frame: dict, progressive: bool, path) -> None:
+    """Huffman-decodes one scan into the coefficients of its components
+    (component["coef"]: block x 64 + natural index -> the quantized value),
+    as libjpeg's jdhuff.c (sequential) and jdphuff.c (progressive: DC first
+    and refine, AC first with end-of-band runs, AC refine with its
+    correction bits) decode them."""
+    kind = _scan_kind(scan, progressive, path)
     by_id = {c["id"]: c for c in frame["comps"]}
+    need_dc, need_ac = kind in ("sequential", "dc_first"), kind in ("sequential", "ac_first",
+                                                                   "ac_refine")
     comps = []
     for cid, td, ta in scan["comps"]:
-        if cid not in by_id or (0, td) not in scan["tables"] or (1, ta) not in scan["tables"]:
+        if cid not in by_id or (need_dc and (0, td) not in scan["tables"]) \
+                or (need_ac and (1, ta) not in scan["tables"]):
             raise ValueError(f"{path}: scan names a missing component or Huffman table")
-        comps.append(by_id[cid])
-        comps[-1]["decode"] = (*scan["tables"][(0, td)], *scan["tables"][(1, ta)],
-                               comps[-1]["idx"].append, comps[-1]["val"].append)
-    # each unit (MCU) a list of its blocks: (component, first coefficient, tables, sinks)
+        c = by_id[cid]
+        comps.append(c)
+        none = ([], [])
+        c["decode"] = (*(scan["tables"][(0, td)] if need_dc else none),
+                       *(scan["tables"][(1, ta)] if need_ac else none), c["coef"])
+    # each unit (MCU) a list of its blocks: (component, first coefficient, tables, coefficients)
     if len(comps) == 1:  # non-interleaved: the component's own blocks in raster order
         c = comps[0]
         units = [[(0, (by * c["bw"] + bx) * 64, *c["decode"])]
@@ -297,50 +356,188 @@ def _decode_scan(scan: dict, frame: dict, path) -> None:
     interval = scan["restart"] or len(units)
     # the entropy-coded pieces between RSTn markers (a stuffed 0xFF is followed by 0x00)
     pieces = re.split(rb"\xff[\xd0-\xd7]", scan["data"])
-    zz = _ZZ
+    decode = {"sequential": _sequential, "dc_first": _dc_first, "dc_refine": _dc_refine,
+              "ac_first": _ac_first, "ac_refine": _ac_refine}[kind]
     for s, start in enumerate(range(0, len(units), interval)):
         if s >= len(pieces):
             raise ValueError(f"{path}: corrupt JPEG (too few restart intervals)")
         win = _windows(pieces[s])
-        nbits = len(win) - 17
-        pos = 0
-        pred = [0] * len(comps)
-        for unit in units[start:start + interval]:
-            for i, base, dcl, dcs, acl, acs, put_idx, put_val in unit:
+        # the DC predictions and the end-of-band run restart with each interval
+        pos = decode(units[start:start + interval], win, scan, len(comps), path)
+        if pos > len(win) - 17:
+            raise ValueError(f"{path}: corrupt JPEG (the scan data ends early)")
+
+
+def _bad_code(path):
+    return ValueError(f"{path}: corrupt JPEG (bad Huffman code)")
+
+
+def _sequential(units, win, scan, ncomp, path) -> int:
+    """A baseline / extended-sequential interval: each block's DC difference
+    and its run-length coded AC coefficients. Returns the bits read."""
+    zz, pos, pred = _ZZ, 0, [0] * ncomp
+    for unit in units:
+        for i, base, dcl, dcs, acl, acs, coef in unit:
+            w = win[pos]
+            length = dcl[w]
+            if length == 0:
+                raise _bad_code(path)
+            t = dcs[w]
+            pos += length
+            if t:
+                v = win[pos] >> (16 - t)
+                pos += t
+                pred[i] += v if v >> (t - 1) else v - (1 << t) + 1
+            coef[base] = pred[i]
+            k = 1
+            while k < 64:
                 w = win[pos]
-                length = dcl[w]
+                length = acl[w]
                 if length == 0:
-                    raise ValueError(f"{path}: corrupt JPEG (bad Huffman code)")
-                t = dcs[w]
+                    raise _bad_code(path)
+                rs = acs[w]
                 pos += length
-                if t:
-                    v = win[pos] >> (16 - t)
-                    pos += t
-                    pred[i] += v if v >> (t - 1) else v - (1 << t) + 1
-                put_idx(base)
-                put_val(pred[i])
-                k = 1
-                while k < 64:
-                    w = win[pos]
-                    length = acl[w]
-                    if length == 0:
-                        raise ValueError(f"{path}: corrupt JPEG (bad Huffman code)")
-                    rs = acs[w]
-                    pos += length
-                    t = rs & 15
-                    if t == 0:
-                        if rs != 0xF0:
-                            break  # end of block
-                        k += 16
-                        continue
-                    k += rs >> 4
-                    v = win[pos] >> (16 - t)
-                    pos += t
-                    put_idx(base + zz[k])
-                    put_val(v if v >> (t - 1) else v - (1 << t) + 1)
+                t = rs & 15
+                if t == 0:
+                    if rs != 0xF0:
+                        break  # end of block
+                    k += 16
+                    continue
+                k += rs >> 4
+                v = win[pos] >> (16 - t)
+                pos += t
+                coef[base + zz[k]] = v if v >> (t - 1) else v - (1 << t) + 1
+                k += 1
+    return pos
+
+
+def _dc_first(units, win, scan, ncomp, path) -> int:
+    """A progressive DC first scan: the DC difference, the coefficient set
+    to the prediction shifted left by Al."""
+    pos, pred, al = 0, [0] * ncomp, scan["al"]
+    for unit in units:
+        for i, base, dcl, dcs, _, _, coef in unit:
+            w = win[pos]
+            length = dcl[w]
+            if length == 0:
+                raise _bad_code(path)
+            t = dcs[w]
+            pos += length
+            if t:
+                v = win[pos] >> (16 - t)
+                pos += t
+                pred[i] += v if v >> (t - 1) else v - (1 << t) + 1
+            coef[base] = pred[i] << al
+    return pos
+
+
+def _dc_refine(units, win, scan, ncomp, path) -> int:
+    """A progressive DC refinement scan: one raw bit a block, OR-ed in at Al."""
+    pos, p1 = 0, 1 << scan["al"]
+    for unit in units:
+        for _, base, _, _, _, _, coef in unit:
+            if win[pos] >> 15:
+                coef[base] |= p1
+            pos += 1
+    return pos
+
+
+def _ac_first(units, win, scan, ncomp, path) -> int:
+    """A progressive AC first scan over bands [Ss, Se] of one component:
+    run-length coded values shifted left by Al, ZRL, and end-of-band runs
+    (EOBr: 2^r + r appended bits blocks whose band is all zero)."""
+    zz, pos, eobrun = _ZZ, 0, 0
+    ss, se, al = scan["ss"], scan["se"], scan["al"]
+    for unit in units:
+        _, base, _, _, acl, acs, coef = unit[0]
+        if eobrun:
+            eobrun -= 1
+            continue
+        k = ss
+        while k <= se:
+            w = win[pos]
+            length = acl[w]
+            if length == 0:
+                raise _bad_code(path)
+            rs = acs[w]
+            pos += length
+            r, t = rs >> 4, rs & 15
+            if t:
+                k += r
+                if k > se:
+                    raise ValueError(f"{path}: corrupt JPEG (a run past the band)")
+                v = win[pos] >> (16 - t)
+                pos += t
+                coef[base + zz[k]] = (v if v >> (t - 1) else v - (1 << t) + 1) << al
+                k += 1
+            elif r == 15:
+                k += 16
+            else:
+                eobrun = (1 << r) - 1  # this block's band ends here
+                if r:
+                    eobrun += win[pos] >> (16 - r)
+                    pos += r
+                break
+    return pos
+
+
+def _ac_refine(units, win, scan, ncomp, path) -> int:
+    """A progressive AC refinement scan over bands [Ss, Se] of one
+    component, as libjpeg's decode_mcu_AC_refine: each newly nonzero
+    coefficient (+-2^Al, its sign a raw bit) after r zero ones, a correction
+    bit for every already-nonzero coefficient passed (1: its magnitude grows
+    by 2^Al), and end-of-band runs whose blocks take correction bits only."""
+    zz, pos, eobrun = _ZZ, 0, 0
+    ss, se = scan["ss"], scan["se"]
+    p1, m1 = 1 << scan["al"], -1 << scan["al"]
+    for unit in units:
+        _, base, _, _, acl, acs, coef = unit[0]
+        k = ss
+        if eobrun == 0:
+            while k <= se:
+                w = win[pos]
+                length = acl[w]
+                if length == 0:
+                    raise _bad_code(path)
+                rs = acs[w]
+                pos += length
+                r, s = rs >> 4, rs & 15
+                if s:
+                    s = p1 if win[pos] >> 15 else m1
+                    pos += 1
+                elif r != 15:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += win[pos] >> (16 - r)
+                        pos += r
+                    break  # the rest of the band: the end-of-band pass below
+                # pass the nonzero coefficients (a correction bit each) and r zero ones
+                while k <= se:
+                    z = base + zz[k]
+                    if coef[z]:
+                        if win[pos] >> 15 and not coef[z] & p1:
+                            coef[z] += p1 if coef[z] >= 0 else m1
+                        pos += 1
+                    else:
+                        if r == 0:
+                            break  # the zero coefficient that becomes nonzero
+                        r -= 1
                     k += 1
-            if pos > nbits:
-                raise ValueError(f"{path}: corrupt JPEG (the scan data ends early)")
+                if s:
+                    if k > se:
+                        raise ValueError(f"{path}: corrupt JPEG (a run past the band)")
+                    coef[base + zz[k]] = s
+                k += 1
+        if eobrun:
+            while k <= se:
+                z = base + zz[k]
+                if coef[z]:
+                    if win[pos] >> 15 and not coef[z] & p1:
+                        coef[z] += p1 if coef[z] >= 0 else m1
+                    pos += 1
+                k += 1
+            eobrun -= 1
+    return pos
 
 
 # libjpeg's jidctint.c (jpeg_idct_islow): 13-bit fixed-point constants
@@ -425,18 +622,41 @@ def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
+def _colour_space(seg: dict, path) -> str:
+    """The components' colour space as libjpeg reads it: grey; for three,
+    YCbCr under a JFIF marker, else RGB under an Adobe marker with
+    transform 0 (or, with neither, component ids 'R', 'G', 'B'), else
+    YCbCr; for four, YCCK under an Adobe marker with a transform other than
+    0, else CMYK."""
+    comps = seg["frame"]["comps"]
+    if len(comps) == 1:
+        return "grey"
+    if len(comps) == 3:
+        if seg["jfif"]:
+            return "ycbcr"
+        if seg["adobe"] is not None:
+            return "rgb" if seg["adobe"] == 0 else "ycbcr"
+        return "rgb" if [c["id"] for c in comps] == [82, 71, 66] else "ycbcr"
+    if len(comps) == 4:
+        return "cmyk" if seg["adobe"] in (None, 0) else "ycck"
+    raise ValueError(f"{path}: {len(comps)}-component JPEGs are not read (1, 3 or 4 are)")
+
+
 def read_jpeg(path: Path) -> np.ndarray:
-    """Read a baseline or extended-sequential (SOF0 / SOF1) 8-bit Huffman
-    JPEG, grey or YCbCr with 4:4:4, 4:2:2 or 4:2:0 sampling, restart
-    intervals and any size, as uint8 (H, W) or (H, W, 3) RGB: Pillow's
-    `np.asarray(Image.open(path))` to within 1 per channel. Progressive,
-    lossless, arithmetic-coded, 12-bit, CMYK and Adobe-RGB files raise."""
+    """Read an 8-bit Huffman-coded JPEG, baseline, extended sequential or
+    progressive (SOF0 / SOF1 / SOF2), with any sampling factors the
+    upsampler takes (4:4:4, 4:2:2, 4:2:0), restart intervals and any size,
+    as Pillow's `np.asarray(Image.open(path))` gives it to within 1 per
+    channel: uint8 (H, W) grey, (H, W, 3) RGB (YCbCr converted, Adobe RGB
+    as stored), or (H, W, 4) for four components, which Pillow opens as
+    CMYK with Adobe's inverted polarity: 255 - each stored plane (CMYK), or
+    the RGB of the first three and 255 - K (YCCK). Lossless, differential,
+    arithmetic-coded and 12-bit files raise, naming the process."""
     data = Path(path).read_bytes()
     seg = _jpeg_segments(data, path)
     frame = seg["frame"]
     comps = frame["comps"]
-    if len(comps) not in (1, 3) or (len(comps) == 3 and seg["adobe"] == 0):
-        raise ValueError(f"{path}: only grey and YCbCr JPEGs are read ({len(comps)} components)")
+    space = _colour_space(seg, path)
     hmax = max(c["h"] for c in comps)
     vmax = max(c["v"] for c in comps)
     width, height = frame["width"], frame["height"]
@@ -445,24 +665,30 @@ def read_jpeg(path: Path) -> np.ndarray:
     for c in comps:
         c["bw"], c["bh"] = frame["mcux"] * c["h"], frame["mcuy"] * c["v"]
         c["width"], c["height"] = -(-width * c["h"] // hmax), -(-height * c["v"] // vmax)
-        c["idx"], c["val"] = [], []
+        c["coef"] = [0] * (c["bw"] * c["bh"] * 64)
         if c["tq"] not in seg["qt"]:
             raise ValueError(f"{path}: missing quantization table {c['tq']}")
     if not seg["scans"]:
         raise ValueError(f"{path}: no scan")
     for scan in seg["scans"]:
-        _decode_scan(scan, frame, path)
+        _decode_scan(scan, frame, seg["progressive"], path)
     planes = []
     for c in comps:
-        coef = np.zeros(c["bw"] * c["bh"] * 64, np.int64)
-        coef[np.asarray(c["idx"], np.int64)] = c["val"]
-        coef = coef.reshape(c["bh"], c["bw"], 8, 8) * seg["qt"][c["tq"]].reshape(8, 8)
-        pix = _idct_islow(coef).transpose(0, 2, 1, 3).reshape(8 * c["bh"], 8 * c["bw"])
+        coef = np.asarray(c["coef"], np.int64).reshape(c["bh"], c["bw"], 8, 8)
+        pix = _idct_islow(coef * seg["qt"][c["tq"]].reshape(8, 8))
+        pix = pix.transpose(0, 2, 1, 3).reshape(8 * c["bh"], 8 * c["bw"])
         planes.append((pix[:c["height"], :c["width"]], hmax // c["h"], vmax // c["v"]))
-    if len(planes) == 1:
+    if space == "grey":
         return np.ascontiguousarray(planes[0][0][:height, :width])
     full = [_upsample(p, h, v, path)[:height, :width] for p, h, v in planes]
-    return _ycc_to_rgb(*full)
+    if space == "rgb":
+        return np.stack(full, -1).astype(np.uint8)
+    if space == "cmyk":
+        return (255 - np.stack(full, -1)).astype(np.uint8)
+    rgb = _ycc_to_rgb(*full[:3])
+    if space == "ycbcr":
+        return rgb
+    return np.concatenate([rgb, (255 - full[3]).astype(np.uint8)[..., None]], -1)  # ycck
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:

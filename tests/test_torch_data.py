@@ -124,12 +124,17 @@ def test_png_reader_rejects_other_formats(tmp_path):
     Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 1000).save(tmp_path / "d16.png")
     np.testing.assert_array_equal(read_png(tmp_path / "d16.png"),  # 16-bit is read now
                                   np.asarray(Image.open(tmp_path / "d16.png")))
-    Image.fromarray(np.eye(8, dtype=bool)).save(tmp_path / "d1.png")  # 1-bit grey
-    with pytest.raises(ValueError, match="8- and 16-bit"):
-        read_png(tmp_path / "d1.png")
+    Image.fromarray(np.eye(8, dtype=bool)).save(tmp_path / "d1.png")  # 1-bit grey: read now
+    np.testing.assert_array_equal(read_png(tmp_path / "d1.png"),
+                                  np.asarray(Image.open(tmp_path / "d1.png")))
     Image.fromarray(np.zeros((8, 8), np.uint8)).convert("P").save(tmp_path / "pal.png")
-    with pytest.raises(ValueError, match="colour type"):
-        read_png(tmp_path / "pal.png")
+    np.testing.assert_array_equal(read_png(tmp_path / "pal.png"),  # palette: its indices
+                                  np.asarray(Image.open(tmp_path / "pal.png")))
+    data = bytearray((tmp_path / "d1.png").read_bytes())
+    data[24] = 3  # IHDR bit depth 3: no PNG has it
+    (tmp_path / "d3.png").write_bytes(bytes(data))
+    with pytest.raises(ValueError, match="bit depth 3, colour type 0"):
+        read_png(tmp_path / "d3.png")
     (tmp_path / "x.png").write_bytes(b"not a png at all, not at all")
     with pytest.raises(ValueError, match="not a PNG"):
         read_png(tmp_path / "x.png")

@@ -31,7 +31,7 @@ from gaussiangrasper_tpu.ops.oracle import render_oracle as j_oracle
 from gaussiangrasper_tpu.ops.rasterize import RasterizeConfig as JConfig
 from gaussiangrasper_tpu.ops.rasterize import bin_gaussians as j_bin
 from tests.test_torch_core import H, W, T, close, make_scene, project_both
-from tests.test_torch_gpu import tensor_core_fwd
+from tests.test_torch_gpu import dense_tile_args, precision_reading, tensor_core_fwd
 
 BIN_CASES = {
     "plain": dict(n=300, cfg={}),
@@ -498,6 +498,34 @@ def test_k1_warp_row_counts():
     assert 0 < work["products"] < work["live_warp_rows"] <= work["kept_warp_rows"] \
         < work["warp_rows"]
     assert work["kept_visits"] < 32 * work["kept_warp_rows"]
+
+
+def test_k1_colour_sums_on_a_dense_tile_emulated():
+    """The CPU half of the dense-tile check (`dense_tile_args`: 2048 live
+    rows a pixel, |out| ~4): the plain version within 1e-4 of JAX's
+    `_call_fwd_pairs` in interpret mode; the tensor cores' sums emulated
+    (`tensor_core_fwd`) as the first tensor-core K1 took them, each product
+    truncated into the running sum ("rz"), err past 1e-4, all toward zero
+    (the card showed the same); as K1 takes them now, each group's products
+    into a zeroed sum added in IEEE f32 ("group"), within 1e-4 of the plain
+    version and of JAX."""
+    args = dense_tile_args("cpu")
+    gidx, starts, counts, attrs, bg, tw, ts = (a.numpy() if torch.is_tensor(a) else a for a in args)
+    kr = -(-attrs.shape[0] // rp.KC) * rp.KC
+    pair_attrs = rp._gather_pairs(jnp.asarray(gidx), jnp.asarray(attrs[:, :2]),
+                                  jnp.asarray(attrs[:, 2:5]), jnp.asarray(attrs[:, 5]),
+                                  jnp.asarray(attrs[:, 6:]), kr)
+    ref = torch.as_tensor(np.asarray(rp._call_fwd_pairs(
+        jnp.asarray(starts), jnp.asarray(counts), pair_attrs, jnp.asarray(bg)[None], tw, ts,
+        starts.shape[0], attrs.shape[1] - 6, kr, interpret=True)[0]))
+    want = rc.composite_pairs_fwd_plain(*args)[0]
+    assert 3.5 < float(want.abs().min()) and float(want.abs().max()) < 4.5
+    assert float((want - ref).abs().max()) <= 1e-4
+    rz = precision_reading(tensor_core_fwd(args, "rz")[0], want)
+    assert rz["max_abs"] > 1e-4 and rz["toward_zero"] > 0.99
+    group = tensor_core_fwd(args, "group")[0]
+    assert precision_reading(group, want)["max_abs"] <= 1e-4
+    assert float((group - ref).abs().max()) <= 1e-4
 
 
 def patch_kernels_with_plain(monkeypatch, seen):
