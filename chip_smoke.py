@@ -296,10 +296,32 @@ def check_k1(label: str, args, time_it: bool) -> dict:
         row.update(k1_bound(args, want[3], want[4], work))
         row.update(warp_row_work(work["warp_rows"], work["live_warp_rows"], row["ms"]),
                    kept_warp_rows=work["kept_warp_rows"], products=work["products"])
+        if row["channels"] > rc.KERNEL_CHANNELS[-1]:
+            row["piece_kernel_ms"] = piece_kernel_ms(args, bwd=False)
     emit(row)
     if not finite or err > K1_ERR_MAX or dn_max > 1 or share > K1_NCOMP_SHARE_MAX:
         raise RuntimeError(f"k1 {label}: kernel disagrees with its plain version: {row}")
     return row
+
+
+def piece_kernel_ms(args, bwd: bool) -> list:
+    """K1's (or, with `bwd`, K2's) launch alone on each channel piece, its
+    inputs cut and padded beforehand: the wrapper's time past their sum is
+    the cutting, padding and joining."""
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
+
+    attrs, bg = args[3], args[4]
+    times = []
+    for lo, hi in rc.channel_pieces(attrs.shape[1] - 6):
+        piece = rc._piece(attrs, lo, hi)
+        if bwd:
+            _, (a, b, g) = rc.pad_channels(rc.KERNEL_CHANNELS, hi - lo, piece, bg[lo:hi],
+                                           args[5][..., lo:hi].contiguous())
+            times.append(cuda_ms(lambda: rc._kernel_bwd(*args[:3], a, b, g, *args[6:], False), 20))
+        else:
+            _, (a, b) = rc.pad_channels(rc.KERNEL_CHANNELS, hi - lo, piece, bg[lo:hi])
+            times.append(cuda_ms(lambda: rc._kernel_fwd(*args[:3], a, b, *args[5:], False), 20))
+    return times
 
 
 def device_profile(fn, top: int = 8) -> dict:
@@ -449,6 +471,8 @@ def check_k2(label: str, k1_args, time_it: bool) -> dict:
         row.update(k2_bound(args, live))
         _, rows, live_rows = rc.composite_pairs_bwd_plain(*args, count_warp_rows=True)
         row.update(warp_row_work(rows, live_rows, row["ms"]))
+        if c > rc.KERNEL_CHANNELS[-1]:
+            row["piece_kernel_ms"] = piece_kernel_ms(args, bwd=True)
     emit(row)
     if not bool(torch.isfinite(got).all()) or max(errs.values()) > K2_ERR_MAX \
             or min(scales.values()) <= 0.0:
@@ -1330,7 +1354,8 @@ def main() -> int:
                                     "bound_by", "bound_share")}
 
     def c71_row(row):
-        return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+        return {k: row[k] for k in ("max_abs_err", "ms", "piece_kernel_ms", "plain_ms", "bound_ms",
+                                    "bound_by")}
 
     emit({"kernels": [
         {**kernel_row("composite_pairs_fwd", "composite_pairs_fwd",

@@ -38,16 +38,16 @@
 // P3's design. The first design ran one CTA a block (3 CTAs on 3 of 132 SMs at the probe's
 // shape), each warp loading one row and then storing it, row after row (two dependent global
 // latencies a row), and before each row it scanned every later start in global memory: O(T) a
-// row, O(128 T^2) in all. Now each CTA owns 128 output rows [r0, r0 + 128), so the grid spreads
-// over the output (rows / 128 CTAs). The CTA reads the T starts once, coalesced, and for each
-// block that starts in (r0 - 128, r0 + 128), the blocks that can cover one of its rows, it
-// records the latest block at that start position (a shared atomicMax, 256 positions). Row r0 + i
-// is covered by the blocks starting at positions i + 1 .. i + 128 of that window, so its winner
-// is the larger of a suffix max over the first 128 positions and a prefix max over the last 128:
-// two scans (warp shuffles, then the warps' partial maxima; four barriers in all) give every
-// row's winner at once, O(T + 256) a CTA and none a row. Each warp then copies 16 of the rows:
-// their 16 float4 loads a lane are issued before any store, so the latencies overlap. A winner is
-// kept as t * 256 + its window position, so the row's source offset needs no second read of
+// row, O(128 T^2) in all. Now each CTA owns 32 output rows [r0, r0 + 32), so the grid spreads
+// over the output (rows / 32 CTAs: 16 at the probe's 512 rows). The CTA reads the T starts once,
+// coalesced, 8 loads in flight a thread, and for each block that starts in (r0 - 128, r0 + 32),
+// the blocks that can cover one of its rows, it records the latest block at that start position
+// (a shared atomicMax over 160 positions). Row r0 + i is covered by the blocks at window
+// positions i + 1 .. i + 128, so its winner is the larger of a suffix max over the first 128
+// positions and a prefix max over the last 32: warp shuffles, then the warps' partial maxima
+// (four barriers in all), give every row's winner at once, O(T + 160) a CTA and none a row. Each
+// warp then copies 4 of the rows, their 4 float4 loads a lane issued before any store. A winner
+// is kept as t * 160 + its window position, so the row's source offset needs no second read of
 // starts.
 
 #include <cuda_runtime.h>
@@ -136,58 +136,76 @@ __global__ void __launch_bounds__(32) read_at_kernel(const float* __restrict__ x
 }
 
 constexpr int kWarps = kThreads / 32;
-constexpr int kWarpRows = kRows / kWarps;  // output rows a warp copies, all loaded before any store
+constexpr int kOwnRows = 32;                 // output rows a P3 CTA owns
+constexpr int kWindow = kRows + kOwnRows;    // start positions that can cover one of them
+constexpr int kWarpRows = kOwnRows / kWarps;  // rows a warp copies, all loaded before any store
+constexpr int kScanLoads = 8;                // starts a thread loads before its atomics
 
 __global__ void __launch_bounds__(kThreads) write_at_kernel(const float* __restrict__ vals,
                                                             const int32_t* __restrict__ starts,
                                                             int num_blocks, int rows,
                                                             float* __restrict__ out) {
-  // s_win[j]: the latest block starting at row r0 - 128 + j, as t * 256 + j (-1: none)
-  __shared__ int s_win[2 * kRows];
-  __shared__ int s_part[kWarps];
-  const int r0 = blockIdx.x * kRows;
-  const int k = threadIdx.x;  // kThreads = 2 kRows: one thread a window position
+  // s_win[j]: the latest block starting at row r0 - 128 + j, as t * kWindow + j (-1: none)
+  __shared__ int s_win[kWindow];
+  __shared__ int s_part[kWindow / 32];
+  const int r0 = blockIdx.x * kOwnRows;
+  const int k = threadIdx.x;
   const int warp = k >> 5, lane = k & 31;
-  s_win[k] = -1;
+  if (k < kWindow) s_win[k] = -1;
   __syncthreads();
-  for (int t = k; t < num_blocks; t += kThreads) {
-    const int j = starts[t] - (r0 - kRows);
-    if (j > 0 && j < 2 * kRows) atomicMax(&s_win[j], t * 2 * kRows + j);
-  }
-  __syncthreads();
-  // suffix max over positions [0, 128) (warps 0-3), prefix max over [128, 256) (warps 4-7):
-  // within each warp by shuffles, then across the warps of each half
-  const bool suffix = k < kRows;
-  int v = s_win[k];
+  for (int t0 = 0; t0 < num_blocks; t0 += kThreads * kScanLoads) {
+    int j[kScanLoads];
 #pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int down = __shfl_down_sync(0xffffffffu, v, d), up = __shfl_up_sync(0xffffffffu, v, d);
-    if (suffix && lane + d < 32) v = max(v, down);
-    if (!suffix && lane >= d) v = max(v, up);
+    for (int u = 0; u < kScanLoads; ++u) {
+      const int t = t0 + u * kThreads + k;
+      j[u] = t < num_blocks ? starts[t] - (r0 - kRows) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kScanLoads; ++u)
+      if (j[u] > 0 && j[u] < kWindow)
+        atomicMax(&s_win[j[u]], (t0 + u * kThreads + k) * kWindow + j[u]);
   }
-  if (lane == (suffix ? 0 : 31)) s_part[warp] = v;
   __syncthreads();
-  for (int u = suffix ? warp + 1 : kWarps / 2; u < (suffix ? kWarps / 2 : warp); ++u)
-    v = max(v, s_part[u]);
-  s_win[k] = v;
+  // row r0 + i is covered by the blocks at window positions i + 1 .. i + 128: its winner is the
+  // larger of a suffix max over positions [0, 128) (warps 0-3) and a prefix max over [128,
+  // kWindow) (the next warp), each within its warps by shuffles, then across them
+  if (k < kWindow) {
+    const bool suffix = k < kRows;
+    int v = s_win[k];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int down = __shfl_down_sync(0xffffffffu, v, d);
+      const int up = __shfl_up_sync(0xffffffffu, v, d);
+      if (suffix && lane + d < 32) v = max(v, down);
+      if (!suffix && lane >= d) v = max(v, up);
+    }
+    if (lane == (suffix ? 0 : 31)) s_part[warp] = v;
+    s_win[k] = v;
+  }
+  __syncthreads();
+  if (k < kWindow) {
+    int v = s_win[k];
+    for (int u = k < kRows ? warp + 1 : kRows / 32; u < (k < kRows ? kRows / 32 : warp); ++u)
+      v = max(v, s_part[u]);
+    s_win[k] = v;
+  }
   __syncthreads();
   float4 val[kWarpRows];
+  int src[kWarpRows];
 #pragma unroll
   for (int u = 0; u < kWarpRows; ++u) {
     const int i = warp * kWarpRows + u, r = r0 + i;
-    // row r0 + i: blocks at window positions i + 1 .. i + 128
     const int w = r < rows ? max(i + 1 < kRows ? s_win[i + 1] : -1, s_win[kRows + i]) : -1;
+    src[u] = w;
     if (w >= 0) {
-      const int t = w / (2 * kRows), s = r0 - kRows + w % (2 * kRows);
+      const int t = w / kWindow, s = r0 - kRows + w % kWindow;
       val[u] = reinterpret_cast<const float4*>(vals + ((size_t)t * kRows + (r - s)) * kCols)[lane];
     }
   }
 #pragma unroll
-  for (int u = 0; u < kWarpRows; ++u) {
-    const int i = warp * kWarpRows + u, r = r0 + i;
-    const int w = r < rows ? max(i + 1 < kRows ? s_win[i + 1] : -1, s_win[kRows + i]) : -1;
-    if (w >= 0) reinterpret_cast<float4*>(out + (size_t)r * kCols)[lane] = val[u];
-  }
+  for (int u = 0; u < kWarpRows; ++u)
+    if (src[u] >= 0)
+      reinterpret_cast<float4*>(out + (size_t)(r0 + warp * kWarpRows + u) * kCols)[lane] = val[u];
 }
 
 }  // namespace
@@ -226,10 +244,10 @@ extern "C" int ggt_probe_read_at(const void* x, const void* starts, int num_bloc
 // (rows, 128) float32, of which only the rows some block covers are written.
 extern "C" int ggt_probe_write_at(const void* vals, const void* starts, int num_blocks, int rows,
                                   void* out, void* stream) {
-  // a winner is kept as t * 256 + a window position in an int
-  if (num_blocks <= 0 || num_blocks > INT_MAX / (2 * kRows) || rows < kRows)
+  // a winner is kept as t * kWindow + a window position in an int
+  if (num_blocks <= 0 || num_blocks > INT_MAX / kWindow || rows < kRows)
     return (int)cudaErrorInvalidValue;
-  write_at_kernel<<<(rows + kRows - 1) / kRows, kThreads, 0, (cudaStream_t)stream>>>(
+  write_at_kernel<<<(rows + kOwnRows - 1) / kOwnRows, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)vals, (const int32_t*)starts, num_blocks, rows, (float*)out);
   return (int)cudaGetLastError();
 }
