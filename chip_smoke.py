@@ -315,11 +315,11 @@ def piece_kernel_ms(args, bwd: bool) -> list:
     for lo, hi in rc.channel_pieces(attrs.shape[1] - 6):
         piece = rc._piece(attrs, lo, hi)
         if bwd:
-            _, (a, b, g) = rc.pad_channels(rc.KERNEL_CHANNELS, hi - lo, piece, bg[lo:hi],
-                                           args[5][..., lo:hi].contiguous())
+            a, b, g = rc.pad_channels(rc.KERNEL_CHANNELS, hi - lo, piece, bg[lo:hi],
+                                      args[5][..., lo:hi].contiguous())
             times.append(cuda_ms(lambda: rc._kernel_bwd(*args[:3], a, b, g, *args[6:], False), 20))
         else:
-            _, (a, b) = rc.pad_channels(rc.KERNEL_CHANNELS, hi - lo, piece, bg[lo:hi])
+            a, b = rc.pad_channels(rc.KERNEL_CHANNELS, hi - lo, piece, bg[lo:hi])
             times.append(cuda_ms(lambda: rc._kernel_fwd(*args[:3], a, b, *args[5:], False), 20))
     return times
 
@@ -1459,13 +1459,15 @@ def dense_tile_inputs(device, channels: int = 39):
             2, 32)
 
 
-def stream_table(args):
+def stream_table(args, kt=None):
     """K3's inputs (counts, tables, bg, tw, ts): the stream's rows of each
-    tile packed into a (T, max count, 6 + C) table."""
+    tile packed into a (T, kt, 6 + C) table, kt the largest count unless
+    given."""
     import torch
 
     gidx, starts, counts, attrs, bg, tw, ts = args
-    tables = torch.zeros(counts.shape[0], int(counts.max()), attrs.shape[1], device=attrs.device)
+    kt = int(counts.max()) if kt is None else kt
+    tables = torch.zeros(counts.shape[0], kt, attrs.shape[1], device=attrs.device)
     for t, (s, n) in enumerate(zip(starts.tolist(), counts.tolist())):
         tables[t, :n] = attrs[gidx[s: s + n].long()]
     return counts, tables, bg, tw, ts

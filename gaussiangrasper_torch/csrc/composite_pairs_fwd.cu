@@ -68,7 +68,8 @@
 // gather each batch through pair_gidx, K3 reads rows [t K, t K + count) of the packed table. The
 // TPU kernel walks padded 128-row chunks with triangular-matmul prefix sums; the walk here is
 // bounded by the count, so the table needs no padding. K3 is instantiated for C = 3, 7 (the
-// kernel probe's width) and 39, K1 / K5 for 3 and 39; the wrapper zero-pads other widths.
+// kernel probe's width) and 39, K1 / K5 for 3 and 39; the wrappers cut wider colours into
+// pieces of at most 39 channels, one launch each, and zero-pad each piece to one of these.
 //
 // Bound on this card (H100 SXM: 67 TFLOP/s f32 outside the tensor cores, 495 TFLOP/s dense TF32
 // on them, so 165 for an f32-grade 3xTF32 product; 3.35 TB/s). Each pair-pixel visit that a
@@ -90,12 +91,14 @@
 // __fadd_rn, unbiased (colour_product; PERF.md has the readings).
 //
 // Measured on that card (chip_smoke.py, CUDA events, median of 20 launches): K1 1.877-1.878 ms
-// at the full-width inputs, where the first design took 2.837-2.993 in the same call; K3 within
-// 1-2% of K1; K5 in two-CTA clusters, 198 of which fit the card (45 of the eight-CTA clusters
-// that held both tiles' parts, 10% slower than K1), within 3% of K1. The design variants timed
-// against this one (one CTA of 1024 threads a tile, two of 512, 64-row batches, 32 x 1 warps,
-// no cull, a cp.async double-buffered staging), ptxas's registers (79-80), spills (24 bytes at
-// C = 39) and shared memory are in PERF.md.
+// at the full-width inputs with the colour sums kept in the D fragments, where the first design
+// took 2.837-2.993 in the same call; with each group's products added in IEEE f32, 2.006-2.105
+// beside 1.916-1.937 for the D-fragment sums in one call (+5%). K3 within 1-4% of K1; K5 in
+// two-CTA clusters, 198 of which fit the card (45 of the eight-CTA clusters that held both
+// tiles' parts, 10% slower than K1), within 3% of K1. The design variants timed against this
+// one (one CTA of 1024 threads a tile, two of 512, 64-row batches, 32 x 1 warps, no cull, a
+// cp.async double-buffered staging), ptxas's registers (80), spills (44 bytes at C = 39) and
+// shared memory are in PERF.md.
 
 #include <cuda_runtime.h>
 #include <limits.h>

@@ -26,14 +26,16 @@
 // Bound on this card (H100 SXM, 3.35 TB/s): at the probes' own shapes each probe moves a few
 // hundred KB at most (P1 8 KB, P2 and P3 192 KB of blocks each way), at most 0.12 us by bytes,
 // far below a kernel launch, so each sits at the launch floor there. chip_smoke.py also times P1
-// on 2^26 floats (512 MB moved, 0.16 ms by bytes) and P3 on 2048 overlapping blocks into 2^17
-// rows (the covered rows read once and written once), where bytes decide. Measured by
-// chip_smoke.py (profiler device time over 50 calls) on an NVIDIA H100 80GB HBM3 at 700.00 W at
-// the probes' shapes: P1 0.95-1.06 us; P2 1.12-1.29 us beside its library call
-// (x.unfold(0, 128, 1).mT[starts]) at 1.20-1.38 us; P3's first design 4.30-4.70 us. P2's first
-// design took 2.43-2.56 us on the same card: three CTAs, each one 64 KB bulk copy, a wait, then
-// 256 threads storing the block, so 192 KB went through 3 of 132 SMs with the load and the store
-// in series. Cut into 2 KB pieces, the copies run on 96 SMs at once. PERF.md has the rest.
+// on 2^26 floats (512 MB moved, 0.160 ms by bytes) and P3 on 2048 overlapping blocks into 2^17
+// rows (the 113,855 covered rows read once and written once, 0.0348 ms), where bytes decide.
+// Measured by chip_smoke.py (profiler device time) on an NVIDIA H100 80GB HBM3 at 700.00 W: P1
+// 1.21-1.22 us at the probe's shape, 0.179-0.189 ms on 2^26 floats (85-90% of the bound; the
+// first design, one thread an element, 0.231, and torch.add 0.207-0.216); P2 1.12-1.29 us beside
+// its library call (x.unfold(0, 128, 1).mT[starts]) at 1.20-1.38 us; P3 2.04-2.25 us at the
+// probe's shape (the first design 4.30-4.96), 41.3-42.8 us on 2048 blocks (81-84%). P2's first
+// design took 2.43-2.56 us: three CTAs, each one 64 KB bulk copy, a wait, then 256 threads
+// storing the block, so 192 KB went through 3 of 132 SMs with the load and the store in series.
+// Cut into 2 KB pieces, the copies run on 96 SMs at once. PERF.md has the rest.
 //
 // P3's design. The first design ran one CTA a block (3 CTAs on 3 of 132 SMs at the probe's
 // shape), each warp loading one row and then storing it, row after row (two dependent global

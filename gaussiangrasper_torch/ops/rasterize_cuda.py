@@ -92,16 +92,16 @@ def channel_pieces(c: int):
 
 
 def pad_channels(built, c: int, *xs):
-    """(ck, xs): ck the smallest instantiated channel count in `built` at
-    or above c (<= 39), and each x (its last dimension ending in the c colour
-    channels: attrs, tables, bg, g_out) zero-padded to ck there. Zero
-    channels composite to zero and take zero gradient, and <c, g> gains
-    only zero terms, so the kernel's first c channels and the geometric
-    gradients are those of the unpadded inputs."""
+    """Each x (its last dimension ending in the c <= 39 colour channels:
+    attrs, tables, bg, g_out) zero-padded there to the smallest
+    instantiated channel count in `built` at or above c. Zero channels
+    composite to zero and take zero gradient, and <c, g> gains only zero
+    terms, so the kernel's first c channels and the geometric gradients are
+    those of the unpadded inputs."""
     ck = next(k for k in built if k >= c)
     if ck == c:
-        return ck, xs
-    return ck, tuple(torch.nn.functional.pad(x, (0, ck - c)).contiguous() for x in xs)
+        return xs
+    return tuple(torch.nn.functional.pad(x, (0, ck - c)).contiguous() for x in xs)
 
 
 def _piece(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
@@ -120,7 +120,7 @@ def fwd_pieces(kernel, built, rows: torch.Tensor, bg: torch.Tensor):
     and ncomp are the same."""
     res = []
     for lo, hi in channel_pieces(rows.shape[-1] - 6):
-        _, (r, b) = pad_channels(built, hi - lo, _piece(rows, lo, hi), bg[lo:hi])
+        r, b = pad_channels(built, hi - lo, _piece(rows, lo, hi), bg[lo:hi])
         out, *rest = kernel(r, b)
         res.append((_crop(out, hi - lo), *rest))
     return res
@@ -144,8 +144,8 @@ def bwd_pieces(kernel, rows: torch.Tensor, bg: torch.Tensor, g_out: torch.Tensor
     the colour columns are each piece's own."""
     grads = []
     for i, (lo, hi) in enumerate(channel_pieces(rows.shape[-1] - 6)):
-        _, (r, b, g) = pad_channels(KERNEL_CHANNELS, hi - lo, _piece(rows, lo, hi), bg[lo:hi],
-                                    g_out[..., lo:hi].contiguous())
+        r, b, g = pad_channels(KERNEL_CHANNELS, hi - lo, _piece(rows, lo, hi), bg[lo:hi],
+                               g_out[..., lo:hi].contiguous())
         grads.append(_crop(kernel(r, b, g, g_alpha if i == 0 else torch.zeros_like(g_alpha)),
                            6 + hi - lo))
     if len(grads) == 1:

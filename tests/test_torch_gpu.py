@@ -539,12 +539,10 @@ def test_chunked_table_widths_match_plain(cuda_device):
 
 
 def _table_of(args, kt):
-    """The stream args' rows packed into a (T, kt, 6 + C) table."""
-    gidx, starts, counts, attrs, bg, tw, ts = args
-    tables = torch.zeros(counts.shape[0], kt, attrs.shape[1], device=attrs.device)
-    for t, (s, n) in enumerate(zip(starts.tolist(), counts.tolist())):
-        tables[t, :n] = attrs[gidx[s: s + n].long()]
-    return counts, tables, bg, tw, ts
+    """The stream args' rows packed into a (T, kt, 6 + C) table (chip_smoke.py's)."""
+    import chip_smoke
+
+    return chip_smoke.stream_table(args, kt)
 
 
 def _assert_fwd_close(got, want):

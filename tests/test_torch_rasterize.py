@@ -515,7 +515,7 @@ def test_k1_colour_sums_on_a_dense_tile_emulated():
     pair_attrs = rp._gather_pairs(jnp.asarray(gidx), jnp.asarray(attrs[:, :2]),
                                   jnp.asarray(attrs[:, 2:5]), jnp.asarray(attrs[:, 5]),
                                   jnp.asarray(attrs[:, 6:]), kr)
-    ref = torch.as_tensor(np.asarray(rp._call_fwd_pairs(
+    ref = torch.tensor(np.asarray(rp._call_fwd_pairs(
         jnp.asarray(starts), jnp.asarray(counts), pair_attrs, jnp.asarray(bg)[None], tw, ts,
         starts.shape[0], attrs.shape[1] - 6, kr, interpret=True)[0]))
     want = rc.composite_pairs_fwd_plain(*args)[0]
@@ -663,7 +663,8 @@ def test_wrappers_raise_past_122_channels():
     tables = torch.zeros(counts.shape[0], 1, 6 + 123)
     with pytest.raises(ValueError, match=r"C <= 122"):
         rc.composite_tables_fwd(T(np.zeros_like(counts)), tables, T(bg), 1, 32)
-    assert rc.pad_channels(rc.TABLE_FWD_CHANNELS, 5)[0] == 7
+    (padded,) = rc.pad_channels(rc.TABLE_FWD_CHANNELS, 5, torch.ones(2, 6 + 5))
+    assert padded.shape == (2, 6 + 7) and not padded[:, 11:].any()
     x = torch.ones(2, 6 + 3)
-    ck, (padded,) = rc.pad_channels(rc.KERNEL_CHANNELS, 3, x)
-    assert ck == 3 and padded is x  # an instantiated width is passed through untouched
+    (padded,) = rc.pad_channels(rc.KERNEL_CHANNELS, 3, x)
+    assert padded is x  # an instantiated width is passed through untouched
