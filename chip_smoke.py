@@ -66,7 +66,8 @@ Phases, one JSON line each:
            profiler over 50 calls (CUDA events around one call time the host);
            then P1 on 2^26 floats and P3 on 2048 overlapping blocks into 2^17
            rows, where bytes decide (p1_large, p3_large: exact, timed over 20
-           calls, with the bound and its share)
+           calls, with the bound and its share); the allocator's cache is
+           emptied after it, before the trainers
   train    the full-width train step (bench field grown to capacity 400k,
            bench camera, bench batch shapes, seeded fea_up), steps 4000 to
            4099 and a refine step with every launch count set to 0 just
@@ -313,13 +314,12 @@ def piece_kernel_ms(args, bwd: bool) -> list:
     attrs, bg = args[3], args[4]
     times = []
     for lo, hi in rc.channel_pieces(attrs.shape[1] - 6):
-        piece = rc._piece(attrs, lo, hi)
+        width = rc.channel_width(rc.KERNEL_CHANNELS, hi - lo)
+        a, b = rc.cut_channels(attrs, lo, hi, width), rc.cut_channels(bg, lo, hi, width, 0)
         if bwd:
-            a, b, g = rc.pad_channels(rc.KERNEL_CHANNELS, hi - lo, piece, bg[lo:hi],
-                                      args[5][..., lo:hi].contiguous())
+            g = rc.cut_channels(args[5], lo, hi, width, 0)
             times.append(cuda_ms(lambda: rc._kernel_bwd(*args[:3], a, b, g, *args[6:], False), 20))
         else:
-            a, b = rc.pad_channels(rc.KERNEL_CHANNELS, hi - lo, piece, bg[lo:hi])
             times.append(cuda_ms(lambda: rc._kernel_fwd(*args[:3], a, b, *args[5:], False), 20))
     return times
 
@@ -1324,6 +1324,9 @@ def main() -> int:
     train = train_phase(device, cfg)
     table = table_phase(device, cfg)
     probes = probes_phase(device)
+    # the large probe shapes' ~1 GB and the earlier phases' blocks, cached by
+    # the allocator, are released before the trainers
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         from gaussiangrasper_torch.data.synthetic import generate_tabletop
 

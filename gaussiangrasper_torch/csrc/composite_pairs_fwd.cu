@@ -81,24 +81,14 @@
 // compulsory bytes (the (N, 6 + C) table, pair_gidx, the (T, P, 3 + C) outputs): see PERF.md.
 //
 // Precision. The tensor core adds each m16n8k8 product into its accumulator with truncation,
-// not round-to-nearest. The first tensor-core design kept the running colour sums in the D
-// fragments, so they erred toward zero by up to about an ulp of the running sum a product, three
-// products (lo hi, hi lo, hi hi) a group of 8 rows: on an NVIDIA H100 80GB HBM3 (700 W), within
-// 3.2e-5 of the plain version at chip_smoke.py's full-width inputs (|out| up to 2.6), but 1.8e-4
-// on two dense tiles of 2048 live rows a pixel with |out| ~4 (tests/test_torch_gpu.py
-// dense_tile_args), past the 1e-4 criterion. Now each group's products are summed into a zeroed
-// fragment, whose truncation is relative to that small sum, and added to f32 accumulators with
-// __fadd_rn, unbiased (colour_product; PERF.md has the readings).
+// not round-to-nearest, so a running sum kept in the D fragments errs toward zero by up to about
+// an ulp of that sum a product, three products (lo hi, hi lo, hi hi) a group of 8 rows: on a
+// dense tile (thousands of live rows, |out| ~4) that passes the 1e-4 criterion. So each group's
+// products are summed into a zeroed fragment, whose truncation is relative to that small sum,
+// and added to the f32 accumulators with __fadd_rn, which rounds to nearest (colour_product).
 //
-// Measured on that card (chip_smoke.py, CUDA events, median of 20 launches): K1 1.877-1.878 ms
-// at the full-width inputs with the colour sums kept in the D fragments, where the first design
-// took 2.837-2.993 in the same call; with each group's products added in IEEE f32, 2.006-2.105
-// beside 1.916-1.937 for the D-fragment sums in one call (+5%). K3 within 1-4% of K1; K5 in
-// two-CTA clusters, 198 of which fit the card (45 of the eight-CTA clusters that held both
-// tiles' parts, 10% slower than K1), within 3% of K1. The design variants timed against this
-// one (one CTA of 1024 threads a tile, two of 512, 64-row batches, 32 x 1 warps, no cull, a
-// cp.async double-buffered staging), ptxas's registers (80), spills (44 bytes at C = 39) and
-// shared memory are in PERF.md.
+// Times, ptxas's registers and spills, shared memory, cluster occupancy and the design variants
+// timed against this one are in PERF.md §6.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -188,9 +178,7 @@ __device__ __forceinline__ void stage_batch(const Rows& rows, size_t first, int 
 // M the warp's 32 pixels (two m tiles), N the channels (NT n tiles), K the 8 weight rows at
 // w (kBufStride apart); the lane's B rows are lo (fragment row tq) and hi (tq + 4). Each n
 // tile's three products go into a zeroed D fragment, which is then added to the f32
-// accumulators in IEEE rounding: the tensor core truncates its sums, and accumulating in the D
-// fragments across groups erred toward zero by up to an ulp of |out| a product, past 1e-4 on a
-// dense tile (see "Precision" above).
+// accumulators in IEEE rounding, since the tensor core truncates its sums (see "Precision").
 template <int NT>
 __device__ __forceinline__ void colour_product(float (&acc)[2][NT][4], const float* w,
                                                const float2* s_col, int lo, int hi, int lane) {

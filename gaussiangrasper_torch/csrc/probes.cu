@@ -4,8 +4,8 @@
 //
 //   P1 affine_kernel replaces pallas_probe.py:38 `kernel` (the minimal Mosaic
 //      compile-and-run probe): o = 2 x + 1. It moves 8 bytes a float and does two operations, so
-//      bytes bound it at any size. Its first design ran one thread an element; now a grid of 8
-//      CTAs an SM strides over float4s (see affine_kernel).
+//      bytes bound it at any size: a grid of 8 CTAs an SM strides over float4s, or, where x fits
+//      one wave of that grid, each thread takes one float4 (see affine_kernel).
 //   P2 read_at_kernel replaces dma_probe.py:37 `_read_kernel`: block t of the output
 //      (T, 128, 128) is rows [starts[t], starts[t] + 128) of x (rows, 128). The TPU probe proves
 //      `make_async_copy` from HBM at a dynamic, unaligned row offset; the Hopper counterpart is
@@ -24,33 +24,21 @@
 //      the caller allocated them. See "P3's design" below.
 //
 // Bound on this card (H100 SXM, 3.35 TB/s): at the probes' own shapes each probe moves a few
-// hundred KB at most (P1 8 KB, P2 and P3 192 KB of blocks each way), at most 0.12 us by bytes,
-// far below a kernel launch, so each sits at the launch floor there. chip_smoke.py also times P1
-// on 2^26 floats (512 MB moved, 0.160 ms by bytes) and P3 on 2048 overlapping blocks into 2^17
-// rows (the 113,855 covered rows read once and written once, 0.0348 ms), where bytes decide.
-// Measured by chip_smoke.py (profiler device time) on an NVIDIA H100 80GB HBM3 at 700.00 W: P1
-// 1.21-1.22 us at the probe's shape, 0.179-0.189 ms on 2^26 floats (85-90% of the bound; the
-// first design, one thread an element, 0.231, and torch.add 0.207-0.216); P2 1.12-1.29 us beside
-// its library call (x.unfold(0, 128, 1).mT[starts]) at 1.20-1.38 us; P3 2.04-2.25 us at the
-// probe's shape (the first design 4.30-4.96), 41.3-42.8 us on 2048 blocks (81-84%). P2's first
-// design took 2.43-2.56 us: three CTAs, each one 64 KB bulk copy, a wait, then 256 threads
-// storing the block, so 192 KB went through 3 of 132 SMs with the load and the store in series.
-// Cut into 2 KB pieces, the copies run on 96 SMs at once. PERF.md has the rest.
+// hundred KB at most, far less than a kernel launch takes, so each sits at the launch floor
+// there. chip_smoke.py also times P1 on 2^26 floats and P3 on 2048 overlapping blocks into 2^17
+// rows, where bytes decide, and computes each bound from its run's bytes. The times are in
+// PERF.md §6.
 //
-// P3's design. The first design ran one CTA a block (3 CTAs on 3 of 132 SMs at the probe's
-// shape), each warp loading one row and then storing it, row after row (two dependent global
-// latencies a row), and before each row it scanned every later start in global memory: O(T) a
-// row, O(128 T^2) in all. Now each CTA owns 32 output rows [r0, r0 + 32), so the grid spreads
-// over the output (rows / 32 CTAs: 16 at the probe's 512 rows). The CTA reads the T starts once,
-// coalesced, 8 loads in flight a thread, and for each block that starts in (r0 - 128, r0 + 32),
-// the blocks that can cover one of its rows, it records the latest block at that start position
-// (a shared atomicMax over 160 positions). Row r0 + i is covered by the blocks at window
-// positions i + 1 .. i + 128, so its winner is the larger of a suffix max over the first 128
-// positions and a prefix max over the last 32: warp shuffles, then the warps' partial maxima
-// (four barriers in all), give every row's winner at once, O(T + 160) a CTA and none a row. Each
-// warp then copies 4 of the rows, their 4 float4 loads a lane issued before any store. A winner
-// is kept as t * 160 + its window position, so the row's source offset needs no second read of
-// starts.
+// P3's design. Each CTA owns 32 output rows [r0, r0 + 32), so the grid spreads over the output
+// (rows / 32 CTAs), and no row scans the starts. The CTA reads the T starts once, coalesced, 8
+// loads in flight a thread, and for each block that starts in (r0 - 128, r0 + 32), the blocks
+// that can cover one of its rows, it records the latest block at that start position (a shared
+// atomicMax over 160 positions). Row r0 + i is covered by the blocks at window positions i + 1 ..
+// i + 128, so its winner is the larger of a suffix max over the first 128 positions and a prefix
+// max over the last 32: warp shuffles, then the warps' partial maxima (four barriers in all),
+// give every row's winner at once, O(T + 160) a CTA and none a row. Each warp then copies 4 of
+// the rows, their 4 float4 loads a lane issued before any store. A winner is kept as t * 160 +
+// its window position, so the row's source offset needs no second read of starts.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -65,31 +53,38 @@ constexpr int kPieces = kRows / kPieceRows;
 constexpr unsigned kPieceBytes = kPieceRows * kCols * sizeof(float);  // 2 KB
 constexpr int kThreads = 256;
 
-// P1: a grid of whole SMs striding over the float4s of x, each thread loading kUnroll of them
-// before it stores any; the last n % 4 floats (or all of them, where x is not 16-byte aligned) in
-// a scalar tail. The two explicitly rounded operations keep 2 x + 1 bit-equal to the plain version.
+// P1: with kStride, a grid of whole SMs striding over the float4s of x, each thread loading
+// kUnroll of them before it stores any; without, one float4 a thread. The last n % 4 floats (or
+// all of them, where x is not 16-byte aligned) in a scalar tail. The two explicitly rounded
+// operations keep 2 x + 1 bit-equal to the plain version.
 constexpr int kUnroll = 4;
 
 __device__ __forceinline__ float affine(float v) { return __fadd_rn(__fmul_rn(v, 2.f), 1.f); }
 
+__device__ __forceinline__ float4 affine4(float4 v) {
+  return make_float4(affine(v.x), affine(v.y), affine(v.z), affine(v.w));
+}
+
+template <bool kStride>
 __global__ void __launch_bounds__(256) affine_kernel(const float* __restrict__ x, int n, int n4,
                                                      float* __restrict__ out) {
   const int stride = gridDim.x * blockDim.x;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const float4* x4 = reinterpret_cast<const float4*>(x);
   float4* o4 = reinterpret_cast<float4*>(out);
+  if (!kStride) {
+    if (i < n4) o4[i] = affine4(x4[i]);
+    if (4 * n4 + i < n) out[4 * n4 + i] = affine(x[4 * n4 + i]);
+    return;
+  }
   for (int j = i; j < n4; j += kUnroll * stride) {
     float4 v[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
       if (j + u * stride < n4) v[u] = x4[j + u * stride];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (j + u * stride < n4) {
-        v[u] = make_float4(affine(v[u].x), affine(v[u].y), affine(v[u].z), affine(v[u].w));
-        o4[j + u * stride] = v[u];
-      }
-    }
+    for (int u = 0; u < kUnroll; ++u)
+      if (j + u * stride < n4) o4[j + u * stride] = affine4(v[u]);
   }
   for (int j = 4 * n4 + i; j < n; j += stride) out[j] = affine(x[j]);
 }
@@ -218,17 +213,24 @@ __global__ void __launch_bounds__(kThreads) write_at_kernel(const float* __restr
 // P1: out[i] = 2 x[i] + 1 for i < n; x, out float32.
 extern "C" int ggt_probe_affine(const void* x, int n, void* out, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  int device, sms;
+  static int sms[64];  // each device's SM count, read at its first launch
+  int device;
   cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess && device >= 64) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && !sms[device])
+    err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  // float4s where x and out are 16-byte aligned (out is a fresh allocation); a grid of 8 CTAs of
-  // 256 an SM, or fewer for a small x
+  // float4s where x and out are 16-byte aligned (out is a fresh allocation); a thread a float4
+  // where that fits one wave of 8 CTAs of 256 an SM, else that wave striding over them
   const int n4 = ((uintptr_t)x | (uintptr_t)out) % 16 ? 0 : n / 4;
   const int work = n4 ? n4 : n;
   const int blocks = (work + kThreads - 1) / kThreads;
-  const int grid = blocks < 8 * sms ? blocks : 8 * sms;
-  affine_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>((const float*)x, n, n4, (float*)out);
+  if (blocks <= 8 * sms[device])
+    affine_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>((const float*)x, n, n4,
+                                                                        (float*)out);
+  else
+    affine_kernel<true><<<8 * sms[device], kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)x, n, n4, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -65,8 +65,8 @@ rounded up to this. The port reproduces that count exactly."""
 KERNEL_CHANNELS = (3, 39)
 """Channel counts the kernels are instantiated for (rgb; rgb + 32-d feature
 + depth + normal). The wrappers cut the C colour channels into pieces of at
-most 39 (`channel_pieces`), zero-pad each piece up to the next of these
-(`pad_channels`) and launch the kernel once a piece."""
+most 39 (`channel_pieces`), write each piece zero-padded up to the next of
+these (`cut_channels`) and launch the kernel once a piece."""
 
 TABLE_FWD_CHANNELS = (3, 7, 39)
 """K3's channel counts: KERNEL_CHANNELS and the kernel probe's C = 7."""
@@ -91,71 +91,77 @@ def channel_pieces(c: int):
     return [(lo, min(lo + step, c)) for lo in range(0, c, step)] or [(0, c)]
 
 
-def pad_channels(built, c: int, *xs):
-    """Each x (its last dimension ending in the c <= 39 colour channels:
-    attrs, tables, bg, g_out) zero-padded there to the smallest
-    instantiated channel count in `built` at or above c. Zero channels
-    composite to zero and take zero gradient, and <c, g> gains only zero
-    terms, so the kernel's first c channels and the geometric gradients are
-    those of the unpadded inputs."""
-    ck = next(k for k in built if k >= c)
-    if ck == c:
-        return xs
-    return tuple(torch.nn.functional.pad(x, (0, ck - c)).contiguous() for x in xs)
+def channel_width(built, c: int) -> int:
+    """The smallest instantiated channel count in `built` at or above c."""
+    return next(k for k in built if k >= c)
 
 
-def _piece(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-    """x (..., 6 + C) with colour channels [lo, hi) alone after the 6
-    geometric columns; x itself where that is all of them."""
-    if lo == 0 and hi == x.shape[-1] - 6:
+def cut_channels(x: torch.Tensor, lo: int, hi: int, width: int, lead: int = 6) -> torch.Tensor:
+    """x (..., lead + C) as (..., lead + width): its `lead` leading columns
+    (attrs and tables: the 6 geometric ones; bg and g_out: none), then its
+    colour channels [lo, hi), then zeros up to `width`, written once into
+    a new buffer; x itself where that is all of x. Zero channels composite
+    to zero and take zero gradient, and <c, g> gains only zero terms, so
+    the kernel's first hi - lo channels and the geometric gradients are
+    those of the piece alone."""
+    n = hi - lo
+    if lo == 0 and n == width == x.shape[-1] - lead:
         return x
-    return torch.cat([x[..., :6], x[..., 6 + lo:6 + hi]], -1)
+    y = torch.empty(x.shape[:-1] + (lead + width,), dtype=x.dtype, device=x.device)
+    y[..., :lead] = x[..., :lead]
+    y[..., lead:lead + n] = x[..., lead + lo:lead + hi]
+    y[..., lead + n:] = 0
+    return y
 
 
 def fwd_pieces(kernel, built, rows: torch.Tensor, bg: torch.Tensor):
     """The forward in channel pieces: for each (lo, hi) of `channel_pieces`,
-    kernel(rows', bg') on the piece's rows and bg, zero-padded to a width in
-    `built`, gives (out, alpha, logt, ncomp); out is cut back to the piece.
-    The weights depend on the geometry alone, so every piece's alpha, logt
-    and ncomp are the same."""
-    res = []
-    for lo, hi in channel_pieces(rows.shape[-1] - 6):
-        r, b = pad_channels(built, hi - lo, _piece(rows, lo, hi), bg[lo:hi])
-        out, *rest = kernel(r, b)
-        res.append((_crop(out, hi - lo), *rest))
-    return res
-
-
-def _join_fwd(pieces):
-    """(out, alpha, logt, ncomp): the pieces' outs side by side, the first
-    piece's alpha, logt and ncomp."""
-    out = pieces[0][0] if len(pieces) == 1 else torch.cat([p[0] for p in pieces], -1)
-    return (out,) + tuple(pieces[0][1:])
+    kernel(rows', bg') on the piece's rows and bg (`cut_channels`, to a
+    width in `built`) gives (out, alpha, logt, ncomp). Returns the pieces'
+    outs side by side (..., C) and each piece's (alpha, logt, ncomp): the
+    weights depend on the geometry alone, so these are the same for every
+    piece."""
+    c = rows.shape[-1] - 6
+    pieces, weights, joined = channel_pieces(c), [], None
+    for lo, hi in pieces:
+        width = channel_width(built, hi - lo)
+        out, *rest = kernel(cut_channels(rows, lo, hi, width), cut_channels(bg, lo, hi, width, 0))
+        weights.append(tuple(rest))
+        if len(pieces) == 1 and width == c:
+            joined = out
+            break
+        if joined is None:
+            joined = torch.empty(out.shape[:-1] + (c,), dtype=out.dtype, device=out.device)
+        joined[..., lo:hi] = out[..., :hi - lo]
+    return joined, weights
 
 
 def bwd_pieces(kernel, rows: torch.Tensor, bg: torch.Tensor, g_out: torch.Tensor,
                g_alpha: torch.Tensor) -> torch.Tensor:
     """The backward in channel pieces: kernel(rows', bg', g_out', g_alpha')
-    on each piece (zero-padded to a width in KERNEL_CHANNELS) gives its
-    (..., 6 + C') gradients, cut back to the piece. Every gradient is linear
-    in (g_out, g_alpha) and <c, g> and <bg, g_out> are sums over channels,
-    so the geometric columns 0-5 are the sum over pieces, with g_alpha given
-    to the first piece only (zeros to the others: its term counts once), and
+    on each piece (`cut_channels`, to a width in KERNEL_CHANNELS) gives its
+    (..., 6 + width) gradients. Every gradient is linear in (g_out,
+    g_alpha) and <c, g> and <bg, g_out> are sums over channels, so the
+    geometric columns 0-5 are the sum over pieces, with g_alpha given to
+    the first piece only (zeros to the others: its term counts once), and
     the colour columns are each piece's own."""
-    grads = []
-    for i, (lo, hi) in enumerate(channel_pieces(rows.shape[-1] - 6)):
-        r, b, g = pad_channels(KERNEL_CHANNELS, hi - lo, _piece(rows, lo, hi), bg[lo:hi],
-                               g_out[..., lo:hi].contiguous())
-        grads.append(_crop(kernel(r, b, g, g_alpha if i == 0 else torch.zeros_like(g_alpha)),
-                           6 + hi - lo))
-    if len(grads) == 1:
-        return grads[0]
-    return torch.cat([sum(g[..., :6] for g in grads)] + [g[..., 6:] for g in grads], -1)
-
-
-def _crop(x: torch.Tensor, width: int) -> torch.Tensor:
-    """x's last dimension cut back to `width` (the padded channels dropped)."""
-    return x if x.shape[-1] == width else x[..., :width].contiguous()
+    c = rows.shape[-1] - 6
+    pieces, grads, ga = channel_pieces(c), None, g_alpha
+    for i, (lo, hi) in enumerate(pieces):
+        width = channel_width(KERNEL_CHANNELS, hi - lo)
+        g = kernel(cut_channels(rows, lo, hi, width), cut_channels(bg, lo, hi, width, 0),
+                   cut_channels(g_out, lo, hi, width, 0), ga)
+        if len(pieces) == 1 and width == c:
+            return g
+        if grads is None:
+            grads = torch.empty(g.shape[:-1] + (6 + c,), dtype=g.dtype, device=g.device)
+            grads[..., :6] = g[..., :6]
+        else:
+            grads[..., :6] += g[..., :6]
+        grads[..., 6 + lo:6 + hi] = g[..., 6:6 + hi - lo]
+        if i == 0 and len(pieces) > 1:
+            ga = torch.zeros_like(g_alpha)
+    return grads
 
 
 def tiles_per_instance(value) -> int:
@@ -365,9 +371,10 @@ def _launch_kernel(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int, two_t
     channel piece (`fwd_pieces`)."""
     if ts * ts > 1024:
         raise ValueError(f"tile_size {ts}: one thread per pixel needs ts*ts <= 1024")
-    return _join_fwd(fwd_pieces(
+    out, weights = fwd_pieces(
         lambda a, b: _kernel_fwd(pair_gidx, starts, counts, a, b, tw, ts, two_tile),
-        KERNEL_CHANNELS, attrs, bg))
+        KERNEL_CHANNELS, attrs, bg)
+    return (out,) + weights[0]
 
 
 def _kernel_fwd(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int, two_tile: bool):
@@ -710,8 +717,9 @@ def _launch_table_fwd(counts, tables, bg, tw: int, ts: int):
     """K3 at any C <= MAX_CHANNELS: one launch a channel piece (`fwd_pieces`)."""
     if ts * ts > 1024:
         raise ValueError(f"tile_size {ts}: one thread per pixel needs ts*ts <= 1024")
-    return _join_fwd(fwd_pieces(lambda t, b: _kernel_table_fwd(counts, t, b, tw, ts),
-                                TABLE_FWD_CHANNELS, tables, bg))
+    out, weights = fwd_pieces(lambda t, b: _kernel_table_fwd(counts, t, b, tw, ts),
+                              TABLE_FWD_CHANNELS, tables, bg)
+    return (out,) + weights[0]
 
 
 def _kernel_table_fwd(counts, tables, bg, tw: int, ts: int):

@@ -339,7 +339,7 @@ def _assert_pieces_agree(pieces):
     """alpha, logt and ncomp bit-equal across the channel pieces' launches."""
     assert len(pieces) > 1
     for p in pieces[1:]:
-        for name, a, b in zip(("alpha", "logt", "ncomp"), p[1:], pieces[0][1:]):
+        for name, a, b in zip(("alpha", "logt", "ncomp"), p, pieces[0]):
             assert torch.equal(a, b), name
 
 
@@ -354,8 +354,9 @@ def test_chunked_widths_match_plain(cuda_device, channels):
     gidx, starts, counts, attrs, bg, tw, ts = args
     want = rc.composite_pairs_fwd_plain(*args)
     for two_tile in (False, True):
-        pieces = rc.fwd_pieces(lambda a, b: rc._kernel_fwd(gidx, starts, counts, a, b, tw, ts,
-                                                           two_tile), rc.KERNEL_CHANNELS, attrs, bg)
+        _, pieces = rc.fwd_pieces(lambda a, b: rc._kernel_fwd(gidx, starts, counts, a, b, tw,
+                                                              ts, two_tile),
+                                  rc.KERNEL_CHANNELS, attrs, bg)
         assert len(pieces) == len(rc.channel_pieces(channels))
         _assert_pieces_agree(pieces)
         fn = rc.composite_pairs_fwd2 if two_tile else rc.composite_pairs_fwd
@@ -520,7 +521,7 @@ def test_chunked_table_widths_match_plain(cuda_device):
     args = _widen(_k1_args(cuda_device, 39, 0.95), 71)
     targs = _table_of(args, int(args[2].max()))
     counts, tables, bg, tw, ts = targs
-    pieces = rc.fwd_pieces(lambda t, b: rc._kernel_table_fwd(counts, t, b, tw, ts),
+    _, pieces = rc.fwd_pieces(lambda t, b: rc._kernel_table_fwd(counts, t, b, tw, ts),
                            rc.TABLE_FWD_CHANNELS, tables, bg)
     _assert_pieces_agree(pieces)
     got = rc.composite_tables_fwd(*targs)
@@ -773,6 +774,7 @@ def test_k1_colour_sums_err_as_the_tensor_cores_round(cuda_device, inputs):
     print("k1_precision", inputs, json.dumps(readings))
     assert readings["kernel"]["max_abs"] <= 1e-4
     assert readings["emulated_rz"]["toward_zero"] > 0.5
+    assert abs(readings["emulated_rn"]["toward_zero"]) < 0.5
     assert readings["kernel"]["mean_abs"] <= 0.5 * readings["emulated_rz"]["mean_abs"]
     assert readings["kernel"]["toward_zero"] < 0.9
 
@@ -800,6 +802,7 @@ def test_k1_colour_sums_on_a_dense_tile(cuda_device):
     assert int(want[4].min()) == 2048 and 3.5 < readings["min_abs_out"]
     assert readings["max_abs_out"] < 4.5
     assert readings["kernel"]["max_abs"] <= 1e-4
+    assert abs(readings["emulated_rn"]["toward_zero"]) < 0.5
     for other in (k5, k3):
         for name, a, b in zip(("out", "alpha", "logt", "ncomp"), other, got):
             assert torch.equal(a, b), name

@@ -506,7 +506,8 @@ def test_k1_colour_sums_on_a_dense_tile_emulated():
     `_call_fwd_pairs` in interpret mode; the tensor cores' sums emulated
     (`tensor_core_fwd`) as the first tensor-core K1 took them, each product
     truncated into the running sum ("rz"), err past 1e-4, all toward zero
-    (the card showed the same); as K1 takes them now, each group's products
+    (the card showed the same), where rounding to nearest ("rn") leaves no
+    such bias; as K1 takes them now, each group's products
     into a zeroed sum added in IEEE f32 ("group"), within 1e-4 of the plain
     version and of JAX."""
     args = dense_tile_args("cpu")
@@ -523,6 +524,7 @@ def test_k1_colour_sums_on_a_dense_tile_emulated():
     assert float((want - ref).abs().max()) <= 1e-4
     rz = precision_reading(tensor_core_fwd(args, "rz")[0], want)
     assert rz["max_abs"] > 1e-4 and rz["toward_zero"] > 0.99
+    assert abs(precision_reading(tensor_core_fwd(args, "rn")[0], want)["toward_zero"]) < 0.5
     group = tensor_core_fwd(args, "group")[0]
     assert precision_reading(group, want)["max_abs"] <= 1e-4
     assert float((group - ref).abs().max()) <= 1e-4
@@ -649,7 +651,8 @@ def test_chunked_wrappers_match_unchunked_plain_and_jax(channels, monkeypatch):
 def test_wrappers_raise_past_122_channels():
     """C 123 (a 129-value attribute row) raises in both packages: JAX's
     pair gather and the port's wrappers, on CPU tensors too, naming the
-    limit; an instantiated width passes `pad_channels` untouched."""
+    limit; `cut_channels` pads a piece and passes an instantiated width
+    through untouched."""
     attrs = np.random.default_rng(3).uniform(size=(4, 6 + 123)).astype(np.float32)
     gidx, starts, counts = np.arange(4, dtype=np.int32), np.zeros(1, np.int32), np.full(1, 4, np.int32)
     bg = np.zeros(123, np.float32)
@@ -663,8 +666,11 @@ def test_wrappers_raise_past_122_channels():
     tables = torch.zeros(counts.shape[0], 1, 6 + 123)
     with pytest.raises(ValueError, match=r"C <= 122"):
         rc.composite_tables_fwd(T(np.zeros_like(counts)), tables, T(bg), 1, 32)
-    (padded,) = rc.pad_channels(rc.TABLE_FWD_CHANNELS, 5, torch.ones(2, 6 + 5))
-    assert padded.shape == (2, 6 + 7) and not padded[:, 11:].any()
+    x = torch.arange(2 * (6 + 5), dtype=torch.float32).reshape(2, 6 + 5)
+    padded = rc.cut_channels(x, 0, 5, rc.channel_width(rc.TABLE_FWD_CHANNELS, 5))
+    assert padded.shape == (2, 6 + 7) and torch.equal(padded[:, :11], x)
+    assert not padded[:, 11:].any()
+    piece = rc.cut_channels(x, 2, 4, 3)  # geometric columns, channels 2-3, one zero
+    assert torch.equal(piece[:, :8], torch.cat([x[:, :6], x[:, 8:10]], 1)) and not piece[:, 8].any()
     x = torch.ones(2, 6 + 3)
-    (padded,) = rc.pad_channels(rc.KERNEL_CHANNELS, 3, x)
-    assert padded is x  # an instantiated width is passed through untouched
+    assert rc.cut_channels(x, 0, 3, rc.channel_width(rc.KERNEL_CHANNELS, 3)) is x  # untouched
