@@ -2,9 +2,9 @@
 package's configs/methods.py, the `gaussian-splatting` entry).
 
 The JAX package's NeRF zoo and generfacto are not ported yet: their names
-raise NotImplementedError (ROADMAP.md, Queue 1 item 7), as do several
+raise NotImplementedError (ROADMAP.md, Queue 1 item 4), as do several
 `--data` dirs (multi-scene training) and `--mesh` (sharded training),
-Queue 1 item 6.
+Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -25,10 +25,10 @@ def _gaussian_splatting(args):
 
     if len(args.data) > 1:
         raise NotImplementedError("multi-scene training (several --data dirs) is not ported to "
-                                  "gaussiangrasper_torch yet (ROADMAP.md, Queue 1 item 6)")
+                                  "gaussiangrasper_torch yet (ROADMAP.md, Queue 1 item 3)")
     if getattr(args, "mesh", None):
         raise NotImplementedError("--mesh (sharded training) is not ported to "
-                                  "gaussiangrasper_torch yet (ROADMAP.md, Queue 1 item 6)")
+                                  "gaussiangrasper_torch yet (ROADMAP.md, Queue 1 item 3)")
     model = GaussianSplatConfig(
         feature_dim=args.feature_dim,
         sh_degree=args.sh_degree,
@@ -69,7 +69,7 @@ METHODS: Dict[str, Callable] = {"gaussian-splatting": _gaussian_splatting}
 def get_method(name: str) -> Callable:
     if name in NOT_PORTED:
         raise NotImplementedError(f"method {name!r} is not ported to gaussiangrasper_torch yet "
-                                  "(ROADMAP.md, Queue 1 item 7: the NeRF zoo)")
+                                  "(ROADMAP.md, Queue 1 item 4: the NeRF zoo)")
     if name not in METHODS:
         raise KeyError(f"unknown method {name!r}; have {sorted(METHODS)}")
     return METHODS[name]

@@ -50,3 +50,26 @@ def random_quats(uniforms: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def rotmat_to_quat(rot: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotations -> (..., 4) unit quaternions, w >= 0.
+    Shepperd's method without branches: all four candidates, the one with
+    the largest pivot kept (the first on ties, as `jnp.argmax` and
+    `torch.argmax` both take it)."""
+    m00, m01, m02 = rot[..., 0, 0], rot[..., 0, 1], rot[..., 0, 2]
+    m10, m11, m12 = rot[..., 1, 0], rot[..., 1, 1], rot[..., 1, 2]
+    m20, m21, m22 = rot[..., 2, 0], rot[..., 2, 1], rot[..., 2, 2]
+    tr = m00 + m11 + m22
+    # each candidate is 4 * component * q, scaled by its pivot 4 * component^2
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+    pivots = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22,
+                          1.0 - m00 - m11 + m22], dim=-1)
+    best = torch.argmax(pivots, dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)  # (..., 4 candidates, 4)
+    q = torch.gather(cands, -2, best[..., None, None].expand(*best.shape, 1, 4))[..., 0, :]
+    q = normalize(q)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)

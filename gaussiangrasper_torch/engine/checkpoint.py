@@ -16,7 +16,8 @@ convert them through `weights.state_from_numpy` (serving) or
 A training checkpoint is one torch.save file `<dir>/step_{:09d}.pt` holding
 the whole `TrainState`: step, field, alive, fea_up, every optimizer
 group's moments, count and accumulator, the densify stats and the state of
-the split-noise generator.
+the split-noise generator (reseeded from its seed when the checkpoint is
+loaded on the other device type).
 """
 
 from __future__ import annotations
@@ -143,7 +144,14 @@ def load_checkpoint(path: Path, device=None) -> TrainState:
     dev = torch.device(device or "cpu")
     to = lambda tree: optim.tree_map(lambda x: x.to(dev), tree)  # noqa: E731
     generator = torch.Generator(device=dev)
-    generator.set_state(payload["generator"])
+    saved = payload["generator"]
+    if saved.numel() == generator.get_state().numel():
+        generator.set_state(saved)
+    else:
+        # saved on the other device type (CPU mt19937 / CUDA Philox states
+        # differ): both states begin with the seed, and the two draw
+        # different streams anyway, so the stream restarts from that seed
+        generator.manual_seed(int.from_bytes(bytes(saved[:8].tolist()), "little"))
     return TrainState(
         step=int(payload["step"]),
         field=GaussianParams(*(payload["field"][k].to(dev) for k in FIELD_KEYS)),

@@ -10,7 +10,7 @@ work is in `train_state.train_step` / `train_state.refine_step`.
 
 Not ported yet (each raises NotImplementedError): the live viewer
 (`viewer_port`) and the device trace (`profiler="trace"`), ROADMAP.md Queue 1
-item 8; camera pose optimization (`pose_opt_mode != "off"`), Queue 1 item 6.
+item 5; camera pose optimization (`pose_opt_mode != "off"`), Queue 1 item 1.
 """
 
 from __future__ import annotations
@@ -80,13 +80,13 @@ def check_supported(cfg: TrainerConfig) -> None:
     """Raise for the options the port does not run yet."""
     if cfg.viewer_port is not None:
         raise NotImplementedError("the live training viewer is not ported to gaussiangrasper_torch "
-                                  "yet (ROADMAP.md, Queue 1 item 8)")
+                                  "yet (ROADMAP.md, Queue 1 item 5)")
     if cfg.profiler != "none":
         raise NotImplementedError(f"profiler={cfg.profiler!r} is not ported to "
-                                  "gaussiangrasper_torch yet (ROADMAP.md, Queue 1 item 8)")
+                                  "gaussiangrasper_torch yet (ROADMAP.md, Queue 1 item 5)")
     if cfg.model.pose_opt_mode != "off":
         raise NotImplementedError(f"pose_opt_mode={cfg.model.pose_opt_mode!r}: camera pose "
-                                  "optimization is not ported yet (ROADMAP.md, Queue 1 item 6)")
+                                  "optimization is not ported yet (ROADMAP.md, Queue 1 item 1)")
 
 
 def _downscale_factor(cfg: GaussianSplatConfig, step: int) -> int:

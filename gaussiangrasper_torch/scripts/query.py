@@ -8,6 +8,8 @@ with fea_up, and scores it against text embeddings with the LERF relevancy
 
 Text embeddings come from --text-embedding (.npy of (512,) or (Q, 512)).
 For each view v and query q it writes view<v>_q<q>.npy and a grayscale png.
+The run is a serving run (checkpoint.pt and cameras.npz) or a trainer run
+(its latest checkpoint and its capture's cameras, as the JAX CLI reads it).
 
     python -m gaussiangrasper_torch.scripts.query --run-dir RUN \
         --text-embedding q.npy [--canonical-embedding c.npy] [--device cpu]
@@ -22,8 +24,8 @@ import numpy as np
 import torch
 
 from gaussiangrasper_torch._device import full_f32, resolve_device
-from gaussiangrasper_torch.engine.checkpoint import load_cameras, load_run
-from gaussiangrasper_torch.scripts.render import lift, render_view
+from gaussiangrasper_torch.engine.checkpoint import CHECKPOINT, load_cameras, load_run
+from gaussiangrasper_torch.scripts.render import lift, load_trainer_run, render_view
 from gaussiangrasper_torch.utils.image_io import write_png
 
 
@@ -42,7 +44,7 @@ def relevancy_map(clip_map: torch.Tensor, query: torch.Tensor,
 
 
 def main(argv=None) -> None:
-    p = argparse.ArgumentParser(description="CLIP-query a serving run")
+    p = argparse.ArgumentParser(description="CLIP-query a serving or trainer run")
     p.add_argument("--run-dir", type=Path, required=True)
     p.add_argument("--text", type=str, default=None)
     p.add_argument("--text-embedding", type=Path, default=None,
@@ -61,8 +63,11 @@ def main(argv=None) -> None:
                              "available here; pass --text-embedding with a precomputed .npy")
         raise SystemExit("give --text-embedding")
     device = resolve_device(args.device)
-    cfg, state, _ = load_run(args.run_dir, device)
-    cams, _ = load_cameras(args.run_dir, device)
+    if (args.run_dir / CHECKPOINT).exists():
+        cfg, state, _ = load_run(args.run_dir, device)
+        cams, _ = load_cameras(args.run_dir, device)
+    else:
+        cfg, state, _, cams, _ = load_trainer_run(args.run_dir, max(args.views) + 1, device)
     out_dir = args.output or (args.run_dir / "query")
     out_dir.mkdir(parents=True, exist_ok=True)
 

@@ -16,7 +16,7 @@ views whose ground truth cameras.npz holds.
     python -m gaussiangrasper_torch.scripts.render --run-dir RUN [--device cpu]
 
 Camera-path trajectories (--traj interpolate / spiral) are not ported yet
-(ROADMAP.md, Queue 1 item 8) and raise.
+(ROADMAP.md, Queue 1 item 5) and raise.
 """
 
 from __future__ import annotations
@@ -111,7 +111,7 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     if args.traj != "dataset":
         raise NotImplementedError(f"--traj {args.traj}: camera paths are not ported to "
-                                  "gaussiangrasper_torch yet (ROADMAP.md, Queue 1 item 8)")
+                                  "gaussiangrasper_torch yet (ROADMAP.md, Queue 1 item 5)")
 
     device = resolve_device(args.device)
     if (args.run_dir / CHECKPOINT).exists():

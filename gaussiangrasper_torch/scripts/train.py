@@ -27,8 +27,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="live training viewer (not ported yet: raises)")
     p.add_argument("--mesh", type=str, default=None,
                    help="'dp,gauss' device mesh for sharded training (not ported yet: raises)")
-    p.add_argument("--tile-shard", type=str, default="auto", choices=("auto", "on", "off"),
-                   help="tile-sharded compositing over the mesh's gauss axis (with --mesh)")
     p.add_argument("--output-dir", type=Path, default=Path("outputs"))
     p.add_argument("--experiment-name", type=str, default="gaussian-splatting")
     p.add_argument("--max-iterations", type=int, default=30000)

@@ -806,3 +806,124 @@ def test_k1_colour_sums_on_a_dense_tile(cuda_device):
     for other in (k5, k3):
         for name, a, b in zip(("out", "alpha", "logt", "ncomp"), other, got):
             assert torch.equal(a, b), name
+
+
+@pytest.fixture
+def trained_run(cuda_device, tmp_path):
+    """A 64x48 tabletop run trained two steps on the card (tile 16 and K
+    1024, tests/test_e2e_tabletop.py's raster setting, which the CPU path
+    runs in seconds), its moved-object capture, the object's points (taken
+    1.2x about the sphere's centre, so the seeds on its surface fall inside
+    their hull) and the move."""
+    from gaussiangrasper_torch.data.synthetic import SPHERES, generate_tabletop, move_object
+    from gaussiangrasper_torch.engine.trainer import TrainerConfig, make_trainer
+    from gaussiangrasper_torch.ops.rasterize import RasterizeConfig
+
+    kw = dict(width=64, height=48, n_views=4, feature_downscale=2)
+    scene = generate_tabletop(tmp_path / "scene", **kw)
+    after, obj = move_object(tmp_path / "after", **kw)
+    centre = SPHERES[1][0]
+    np.save(tmp_path / "obj.npy", centre + 1.2 * (obj - centre))
+    move = np.eye(4)
+    move[:3, 3] = (-0.55, 0.45, 0.0)
+    np.save(tmp_path / "move.npy", move)
+    model = GaussianSplatConfig(feature_dim=16, sh_degree=1, raster=RasterizeConfig(
+        tile_size=16, max_gaussians_per_tile=1024, tile_chunk=4, max_tiles_per_gaussian=16))
+    trainer = make_trainer(TrainerConfig(data=scene, output_dir=tmp_path / "out", max_iterations=2,
+                                         capacity=4096, model=model), device=cuda_device)
+    trainer.setup()
+    trainer.train()
+    return tmp_path, trainer.config.run_dir, after
+
+
+@pytest.mark.gpu
+def test_update_cli_on_the_card_matches_cpu(cuda_device, trained_run):
+    """`ggt-torch-update` for 3 fine-tune iterations on the card and on the
+    CPU path from one saved state: one K1 and one K2 launch a step on the
+    card, the same Gaussians moved, losses within 1e-3 relative, the densify
+    stats (K2's xy gradient norms summed) within test_torch_edit's 1e-3
+    relative, every group's Adam first moments within K2's criterion (1e-4
+    of the leaf's max) and every parameter within a hundredth of its
+    group's Adam step (lr). On an H100 the run reads 1.5e-5, 2e-6 and
+    1.8e-4 lr; a K2 whose colour gradients are 1% too large fails the
+    moments' bound, one that drops the opacity gradient the loss's (`-s`
+    prints the readings)."""
+    import shutil
+
+    from gaussiangrasper_torch.engine import checkpoint as ckpt
+    from gaussiangrasper_torch.engine import train_state
+    from gaussiangrasper_torch.scripts import update
+
+    root, run, after = trained_run
+    step = train_state.train_step
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        run_dev = root / f"run_{dev}"
+        shutil.copytree(run, run_dev)
+        losses = []
+
+        def recorded(*a, **k):
+            out = step(*a, **k)
+            losses.append(float(out[1]["loss"]))
+            return out
+
+        before = (rc.composite_pairs_fwd.launches, rc.composite_pairs_bwd.launches)
+        train_state.train_step = recorded
+        try:
+            update.main(["--run-dir", str(run_dev), "--edit-object", str(root / "obj.npy"),
+                         "--transform-npy", str(root / "move.npy"), "--after-data", str(after),
+                         "--max-iterations", "3", "--device", dev])
+        finally:
+            train_state.train_step = step
+        launches = (rc.composite_pairs_fwd.launches - before[0],
+                    rc.composite_pairs_bwd.launches - before[1])
+        ckpts = run_dev / "edit" / "checkpoints"
+        runs[dev] = (losses, launches, ckpt.load_checkpoint(ckpts / "step_000000000.pt"),
+                     ckpt.load_checkpoint(ckpts / "step_009999999.pt"))
+    (gl, glaunch, g0, gs), (cl, claunch, c0, cs) = runs["cuda"], runs["cpu"]
+    readings = {"loss_rel": max(abs(a - b) / abs(b) for a, b in zip(gl, cl))}
+    for name, a, b in zip(cs.stats._fields, gs.stats, cs.stats):
+        readings[f"stats_{name}_rel"] = float(((a - b).abs() / (b.abs() + 1e-6)).max())
+    for name in cs.opt:
+        for i, (a, b) in enumerate(zip(optim.leaves(gs.opt[name].mu),
+                                       optim.leaves(cs.opt[name].mu))):
+            top = b.abs().max().clamp_min(1e-30)
+            readings[f"mu_{name}{i}_of_max"] = float((a - b).abs().max() / top)
+    for leaf, group in optim.FIELD_GROUP_OF.items():
+        lr = optim.DEFAULT_GROUPS[group].lr_init
+        d = (getattr(gs.field, leaf) - getattr(cs.field, leaf)).abs().max() / lr
+        readings[f"param_{leaf}_over_lr"] = float(d)
+    print("update_on_the_card", json.dumps(readings))
+    assert glaunch == (3, 3) and claunch == (0, 0)
+    assert len(gl) == 3 and all(np.isfinite(gl))
+    assert readings["loss_rel"] <= 1e-3, (gl, cl)
+    for leaf in ("means", "quats"):
+        torch.testing.assert_close(getattr(g0.field, leaf), getattr(c0.field, leaf), atol=1e-6,
+                                   rtol=0)
+    assert torch.equal(gs.alive, cs.alive)
+    for name, a, b in zip(cs.stats._fields, gs.stats, cs.stats):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-3, msg=name)
+    for name in cs.opt:
+        for a, b in zip(optim.leaves(gs.opt[name].mu), optim.leaves(cs.opt[name].mu)):
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
+    for leaf in optim.FIELD_GROUP_OF:
+        assert readings[f"param_{leaf}_over_lr"] <= 1e-2, leaf
+
+
+@pytest.mark.gpu
+def test_export_clis_on_the_card(cuda_device, trained_run):
+    """`ggt-torch-export` on the card writes the bytes the CPU path writes;
+    `export_pointcloud` renders each view through K1 once."""
+    from gaussiangrasper_torch.scripts import export_ply, export_pointcloud
+
+    root, run, _ = trained_run
+    card = export_ply.main(["--run-dir", str(run), "--output", str(root / "card.ply")])
+    host = export_ply.main(["--run-dir", str(run), "--output", str(root / "cpu.ply"),
+                            "--device", "cpu"])
+    assert card.read_bytes() == host.read_bytes()
+    before = rc.composite_pairs_fwd.launches
+    export_pointcloud.main(["--run-dir", str(run), "--num-views", "3", "--mesh",
+                            "--tsdf-resolution", "32"])
+    assert rc.composite_pairs_fwd.launches - before == 3
+    data = (run / "pointcloud_mesh.ply").read_bytes()
+    assert data.startswith(b"ply\n") and b"element face " in data

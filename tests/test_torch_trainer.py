@@ -171,13 +171,13 @@ def test_train_cli_runs_resumes_and_renders(scene, tmp_path):
     assert all(np.isfinite(r["psnr"]) and "depth_mae" in r and "psnr_masked" in r
                for r in metrics["results"]["per_view"])
     assert np.load(run / "renders" / "clip" / "00000_fea.npy").shape == (48, 64, 512)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         t_render_cli.main(["--run-dir", str(run), "--traj", "spiral", "--device", "cpu"])
 
 
 def test_unported_options_raise(scene, tmp_path, monkeypatch):
     common = ["--data", str(scene), "--output-dir", str(tmp_path), *CLI_ARGS]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         get_method("nerfacto")
     with pytest.raises(KeyError):
         get_method("no-such-method")
