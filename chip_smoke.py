@@ -96,6 +96,19 @@ Phases, one JSON line each:
            sphere 1) over ten trainer seeds, each a train and a grasp: no
            more seeds may miss it than miss it in the JAX package (ROADMAP.md
            queue 3, F4)
+  capture  trainer's tabletop rewritten through an OPENCV lens (k1 -0.08,
+           k2 0.02, p1 5e-4, p2 -5e-4; `distort_frame` on the host), the
+           poses of views 1-7 moved by 0.5 degrees and 5 mm, trained by
+           `Trainer` with pose_opt_mode "SO3xR3" at trainer's settings:
+           undistortion ms a view, the new K, view 0 undistorted on the
+           card against the CPU path (bit-equal), ms a step beside
+           trainer's, losses, the pose deltas after steps 99 / 199 / 299,
+           K1 / K2 launches from 0
+  pose     tests/test_pose_opt.py's recovery at full width (the bench
+           field and camera) in SO3xR3 and SE3 with that test's bar, the
+           residual rotation and translation; the first step's delta
+           gradient on a mid-size field, card against the CPU path, within
+           POSE_GRAD_RTOL / POSE_GRAD_COS_MIN
 Then the kernels line (nine kernels), the nvidia-smi line and, last, the
 ok line. Any
 failure exits non-zero without the ok line. Without a card, or outside a
@@ -1169,6 +1182,301 @@ def trainer_phase(scene: Path, out_dir: Path, label: str, tp: int) -> dict:
     return row
 
 
+CAPTURE_LENS = (-0.08, 0.02, 5e-4, -5e-4)  # OpenCV k1, k2, p1, p2 of the capture phase
+CAPTURE_POSE_NOISE = (0.5, 0.005)  # degrees and scene units (5 mm) for views 1-7
+POSE_PERTURB = (0.06, -0.04, 0.0, 0.0, 0.0, 0.02)  # tests/test_pose_opt.py's perturbation
+POSE_STEPS, POSE_LR = 60, 1e-2
+POSE_GRAD_FIELD = (20_000, 400, 300)  # Gaussians (the bench field's first), width, height
+# The delta gradient through K1 / K2 against the CPU plain path: a sum over
+# every Gaussian's projected centre and conic, in float32, in another order
+# (and K2's products in 3xTF32). The CPU path's own spread, the field's rows
+# reversed so that every sum runs in another order, is ~2e-7 of the largest
+# entry (PERF.md §6); the bound is K2's per-Gaussian criterion, every
+# entry within 1e-4 of the largest, 500 times that spread, with the norm
+# within 1e-4 and a cosine of at least 1 - 1e-6. The phase prints the CPU's
+# and the card's own spread beside the reading.
+POSE_GRAD_RTOL = 1e-4
+POSE_GRAD_COS_MIN = 1.0 - 1e-6
+
+
+def distort_frame(img: np.ndarray, fx: float, fy: float, cx: float, cy: float,
+                  lens) -> np.ndarray:
+    """The uint8 frame a camera with OpenCV's lens (k1, k2, p1, p2) and the
+    same K would have taken of the scene `img` shows through a pinhole: each
+    distorted pixel's ray is found by 20 fixed-point iterations of the lens
+    model (OpenCV's undistortPoints, run longer), and `img` is sampled there
+    bilinearly, 0 outside it, in float64 numpy on the host."""
+    k1, k2, p1, p2 = lens
+    h, w = img.shape[:2]
+    v, u = np.mgrid[0:h, 0:w].astype(np.float64)
+    xd, yd = (u - cx) / fx, (v - cy) / fy
+    x, y = xd.copy(), yd.copy()
+    for _ in range(20):
+        r2 = x * x + y * y
+        radial = 1.0 + k1 * r2 + k2 * r2 * r2
+        x = (xd - (2 * p1 * x * y + p2 * (r2 + 2 * x * x))) / radial
+        y = (yd - (p1 * (r2 + 2 * y * y) + 2 * p2 * x * y)) / radial
+    sx, sy = fx * x + cx, fy * y + cy
+    x0, y0 = np.floor(sx).astype(np.int64), np.floor(sy).astype(np.int64)
+    ax, ay = (sx - x0)[..., None], (sy - y0)[..., None]
+    src = img.astype(np.float64)
+
+    def tap(yy, xx):
+        ok = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+        return np.where(ok[..., None], src[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)], 0.0)
+
+    out = (1 - ay) * ((1 - ax) * tap(y0, x0) + ax * tap(y0, x0 + 1)) \
+        + ay * ((1 - ax) * tap(y0 + 1, x0) + ax * tap(y0 + 1, x0 + 1))
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def distorted_capture(scene: Path, out: Path, seed: int = 5) -> Path:
+    """`scene` (the trainer phase's tabletop) as a capture through an
+    OPENCV lens: its frames rewritten by `distort_frame` with CAPTURE_LENS,
+    the coefficients in transforms.json, and the poses of views 1-7 moved
+    on their right by a seeded rotation of CAPTURE_POSE_NOISE[0] degrees
+    about a random axis and a translation of CAPTURE_POSE_NOISE[1] along a
+    random direction. Depth, normal, masks, features and the seed points
+    are the pinhole scene's (linked, not copied)."""
+    from gaussiangrasper_torch.utils.image_io import read_png, write_png
+
+    out.mkdir()
+    for sub in ("depths", "normals", "masks", "boundary_mask", "features", "sparse"):
+        (out / sub).symlink_to(scene / sub)
+    (out / "images").mkdir()
+    meta = json.loads((scene / "transforms.json").read_text())
+    rng = np.random.default_rng(seed)
+    for i, frame in enumerate(meta["frames"]):
+        write_png(out / frame["file_path"], distort_frame(
+            read_png(scene / frame["file_path"]), meta["fl_x"], meta["fl_y"], meta["cx"],
+            meta["cy"], CAPTURE_LENS))
+        if i == 0:
+            continue
+        axis = rng.standard_normal(3)
+        axis /= np.linalg.norm(axis)
+        angle = math.radians(CAPTURE_POSE_NOISE[0])
+        k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+        rot = np.eye(3) + math.sin(angle) * k + (1 - math.cos(angle)) * k @ k
+        step = rng.standard_normal(3)
+        c2w = np.array(frame["transform_matrix"], np.float64)
+        c2w[:3, 3] += c2w[:3, :3] @ (CAPTURE_POSE_NOISE[1] * step / np.linalg.norm(step))
+        c2w[:3, :3] = c2w[:3, :3] @ rot
+        frame["transform_matrix"] = c2w.tolist()
+    meta.update(dict(zip(("k1", "k2", "p1", "p2"), CAPTURE_LENS)))
+    (out / "transforms.json").write_text(json.dumps(meta))
+    return out
+
+
+def capture_phase(scene: Path, tmp: Path, trainer_row: dict, device) -> dict:
+    """A lens-distorted capture trained with pose optimization: the
+    tabletop rewritten by `distorted_capture`, then `Trainer` with
+    model.pose_opt_mode "SO3xR3" (the JAX train CLI has no pose flag, so
+    neither has the port's) at the trainer phase's settings: 300 steps,
+    capacity 400k, C 39. Every view is undistorted once on the card as the
+    datamanager caches it (timed a view); view 0 is undistorted again on
+    the card and on the CPU from the same bytes, which must agree bit for
+    bit; the pose deltas' max |value| is read after steps 99, 199 and 299
+    (camera_opt updates at step % 100 == 99), finite and nonzero after 99;
+    K1 / K2 launches counted from 0 just before the trainer is built."""
+    import torch
+    from gaussiangrasper_torch.data import manager
+    from gaussiangrasper_torch.data.undistort import undistort
+    from gaussiangrasper_torch.engine import train_state
+    from gaussiangrasper_torch.engine.trainer import TrainerConfig, make_trainer
+    from gaussiangrasper_torch.models.model import GaussianSplatConfig
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
+
+    t0 = time.perf_counter()
+    cap = distorted_capture(scene, tmp / "capture")
+    data_s = time.perf_counter() - t0
+    kernels = {"k1": rc.composite_pairs_fwd, "k2": rc.composite_pairs_bwd}
+    view_ms, steps, deltas = [], [], {}
+    undistort_image = manager.undistort_image
+
+    def timed_undistort(img, cam, device=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = undistort_image(img, cam, device)
+        torch.cuda.synchronize()
+        view_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    timed_step = timed_train_step(train_state.train_step, steps)
+
+    def step_and_read(state, cam, batch, cfg, *a, **k):
+        new, metrics = timed_step(state, cam, batch, cfg, *a, **k)
+        if new.step % 100 == 0:
+            deltas[str(new.step - 1)] = float(new.pose.abs().max())
+        return new, metrics
+
+    config = TrainerConfig(data=cap, output_dir=tmp / "capture_run", max_iterations=TRAINER_STEPS,
+                           steps_per_save=TRAINER_STEPS, capacity=CAPACITY,
+                           model=GaussianSplatConfig(pose_opt_mode="SO3xR3"))
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    train_step, manager.undistort_image = train_state.train_step, timed_undistort
+    train_state.train_step = step_and_read
+    t0 = time.perf_counter()
+    try:
+        trainer = make_trainer(config, device=device)
+        trainer.setup()
+        trainer.train()
+    finally:
+        train_state.train_step, manager.undistort_image = train_step, undistort_image
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+
+    dm = trainer.dm
+    cam0, new0 = dm.outputs.cameras[0], dm.cameras[0]
+    raw = (dm.dataset.get_data(0)["image"] * 255).astype(np.uint8)
+    card, _ = undistort_image(raw, cam0, device)
+    cpu, cpu_cam = undistort_image(raw, cam0, "cpu")
+    cached = dm.view_data(0)["image"]
+    k = np.array([[cam0.fx, 0, cam0.cx], [0, cam0.fy, cam0.cy], [0, 0, 1]])
+    raw_d = torch.as_tensor(raw, device=device)
+    device_ms = cuda_ms(lambda: undistort(raw_d, k, cam0.distortion, fisheye=False), 10)
+    by_width = {w: [ms for w2, ms, _, _ in steps if w2 == w] for w in (WIDTH // 2, WIDTH)}
+    ms = {f"{w}x{w}": float(np.median(v)) for w, v in by_width.items()}
+    losses = [loss for _, _, loss, _ in steps]
+    row = {"phase": "capture", "lens": dict(zip(("k1", "k2", "p1", "p2"), CAPTURE_LENS)),
+           "pose_noise_deg_units": CAPTURE_POSE_NOISE, "data_s": data_s, "wall_s": wall_s,
+           "undistort_ms_per_view_cached": view_ms, "undistort_device_ms": device_ms,
+           "new_k": {"fx": new0.fx, "fy": new0.fy, "cx": new0.cx, "cy": new0.cy},
+           "old_k": {"fx": cam0.fx, "fy": cam0.fy, "cx": cam0.cx, "cy": cam0.cy},
+           "view0_card_vs_cpu_differing_px": int((card != cpu).any(-1).sum()),
+           "view0_cached_equals_cpu": bool(np.array_equal(cached, cpu.astype(np.float32) / 255.0)),
+           "steps": len(steps), "ms_per_step_median": ms,
+           "trainer_phase_ms_per_step_median": trainer_row["ms_per_step_median"],
+           "loss_first_last": [losses[0], losses[-1]],
+           "pose_delta_max_abs_after_step": deltas, "launches": launches}
+    emit(row)
+    if launches != {"k1": TRAINER_STEPS, "k2": TRAINER_STEPS}:
+        raise RuntimeError(f"capture: launches {launches}")
+    if row["view0_card_vs_cpu_differing_px"] or not row["view0_cached_equals_cpu"] \
+            or (cpu_cam.fx, cpu_cam.cy) != (new0.fx, new0.cy):
+        raise RuntimeError("capture: view 0 undistorted on the card differs from the CPU path")
+    if len(view_ms) != TRAINER_SCENE["n_views"] or new0.fx == cam0.fx or new0.distortion.any():
+        raise RuntimeError(f"capture: {len(view_ms)} views undistorted, K {row['new_k']}")
+    if sorted(deltas) != ["199", "299", "99"] or not all(
+            math.isfinite(v) and v > 0 for v in deltas.values()):
+        raise RuntimeError(f"capture: pose deltas {deltas}")
+    if len(steps) != TRAINER_STEPS or not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise RuntimeError(f"capture: {len(steps)} steps, losses {losses[::50]}")
+    return row
+
+
+def pose_recovery(field, alive, cam, mode: str, steps: int):
+    """tests/test_pose_opt.py's recovery on (field, cam): render the target
+    at `cam`, start from `cam` moved by POSE_PERTURB, run Adam(POSE_LR) on
+    the delta alone for `steps` steps. Returns (losses, the final delta,
+    the first step's gradient, the moved camera, each step's host ms)."""
+    import dataclasses
+
+    import torch
+    from gaussiangrasper_torch.core.pose_opt import apply_pose_delta
+    from gaussiangrasper_torch.models.model import GaussianSplatConfig, render
+
+    cfg = GaussianSplatConfig(pose_opt_mode=mode)
+    dev = cam.camera_to_world.device
+    with torch.no_grad():
+        target = render(field, alive, cam, STEP, cfg)["rgb"]
+    moved = dataclasses.replace(cam, camera_to_world=apply_pose_delta(
+        cam.camera_to_world, torch.tensor(POSE_PERTURB, device=dev), "SO3xR3"))
+    delta = torch.zeros(6, device=dev, requires_grad=True)
+    opt = torch.optim.Adam([delta], lr=POSE_LR)
+    losses, ms, first = [], [], None
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = torch.mean((render(field, alive, moved, STEP, cfg, pose_delta=delta)["rgb"]
+                           - target) ** 2)
+        opt.zero_grad()
+        loss.backward()
+        if first is None:
+            first = delta.grad.detach().clone()
+        opt.step()
+        losses.append(float(loss.detach()))  # synchronizes: the step's time ends here
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return losses, delta.detach(), first, moved, ms
+
+
+def pose_phase(device) -> dict:
+    """Pose recovery through K1 / K2 at full width (the bench field, 200k
+    Gaussians, 800x800, C 39, the bench camera) in "SO3xR3" and "SE3", with
+    tests/test_pose_opt.py's bar in each: the final loss under 0.2x the
+    first and a translation delta above 1e-3; the residual rotation
+    (degrees) and translation of the recovered pose against the unperturbed
+    one. Then the first step's delta gradient on a mid-size field (the bench
+    field's first 20k Gaussians at 400x300) on the card against the CPU
+    plain path from the same inputs, held to POSE_GRAD_RTOL and
+    POSE_GRAD_COS_MIN; the CPU's and the card's own spread (the field's
+    rows reversed) are printed beside it."""
+    import torch
+    from gaussiangrasper_torch.core.pose_opt import apply_pose_delta
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
+
+    kernels = {"k1": rc.composite_pairs_fwd, "k2": rc.composite_pairs_bwd}
+    field, alive = bench_field(N_FULL, seed=0, device=device)
+    cam = bench_camera(WIDTH, HEIGHT, device)
+    rows = {}
+    for mode in ("SO3xR3", "SE3"):
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        losses, delta, _, moved, step_ms = pose_recovery(field, alive, cam, mode, POSE_STEPS)
+        final = apply_pose_delta(moved.camera_to_world, delta, mode).cpu().double().numpy()
+        cos = np.clip((np.trace(final[:, :3]) - 1.0) / 2.0, -1.0, 1.0)
+        rows[mode] = {"loss_first_last": [losses[0], losses[-1]],
+                      "loss_ratio": losses[-1] / losses[0], "delta": delta.cpu().tolist(),
+                      "residual_rotation_deg": math.degrees(math.acos(cos)),
+                      "residual_translation": float(np.linalg.norm(final[:, 3])),
+                      "ms_per_step_median": float(np.median(step_ms)),
+                      "ms_first_step": step_ms[0],
+                      "launches": {n: k.launches for n, k in kernels.items()},
+                      "bar_met": bool(losses[-1] < 0.2 * losses[0]
+                                      and float(delta[:3].abs().max()) > 1e-3)}
+    # the first step's gradient, card vs CPU, on a mid-size field
+    n_mid, w_mid, h_mid = POSE_GRAD_FIELD
+    mid = field._replace(**{k: v[:n_mid] for k, v in field._asdict().items()})
+    mid_alive = alive[:n_mid]
+    rev = mid._replace(**{k: v.flip(0) for k, v in mid._asdict().items()})
+    grads = {}
+    for name, f, dev in (("card", mid, device), ("card_reversed", rev, device),
+                         ("cpu", mid, "cpu"), ("cpu_reversed", rev, "cpu")):
+        f = f._replace(**{k: v.to(dev) for k, v in f._asdict().items()})
+        c = bench_camera(w_mid, h_mid, dev)
+        grads[name] = pose_recovery(f, mid_alive.to(dev), c, "SO3xR3", 1)[2].cpu().double()
+
+    def compare(a, b):
+        a, b = grads[a], grads[b]
+        return {"cos": float(a @ b / (a.norm() * b.norm())),
+                "norm_rel": float(abs(a.norm() - b.norm()) / b.norm()),
+                "max_rel": float((a - b).abs().max() / b.abs().max())}
+
+    grad = {"field": {"gaussians": n_mid, "width": w_mid, "height": h_mid},
+            "cpu": grads["cpu"].tolist(), "card": grads["card"].tolist(),
+            "card_vs_cpu": compare("card", "cpu"),
+            "cpu_spread_reversed": compare("cpu_reversed", "cpu"),
+            "card_spread_reversed": compare("card_reversed", "card"),
+            "bound": {"cos_min": POSE_GRAD_COS_MIN, "max_rel": POSE_GRAD_RTOL,
+                      "norm_rel": POSE_GRAD_RTOL}}
+    row = {"phase": "pose", "gaussians": N_FULL, "width": WIDTH, "height": HEIGHT,
+           "perturbation": POSE_PERTURB, "steps": POSE_STEPS, "lr": POSE_LR,
+           "modes": rows, "first_step_gradient": grad}
+    emit(row)
+    want = {"k1": POSE_STEPS + 1, "k2": POSE_STEPS}
+    for mode, r in rows.items():
+        if not r["bar_met"] or r["launches"] != want:
+            raise RuntimeError(f"pose {mode}: {r}")
+    g = grad["card_vs_cpu"]
+    if g["cos"] < POSE_GRAD_COS_MIN or g["norm_rel"] > POSE_GRAD_RTOL \
+            or g["max_rel"] > POSE_GRAD_RTOL:
+        raise RuntimeError(f"pose: the card's delta gradient against the CPU's {g}")
+    return row
+
+
 EDIT_STEPS = 580  # the reference's fine-tune, the update CLI's default
 EDIT_DELTA = (-0.55, 0.45, 0.0)  # move_object's move of sphere 1
 
@@ -1705,6 +2013,11 @@ def main() -> int:
             raise RuntimeError(f"trainer_tp2: step-0 loss {l2[0]} != {l1[0]}")
         torch.cuda.empty_cache()
         edit = edit_phase(scene, Path(tmp) / "tp1" / "gaussian-splatting", Path(tmp))
+        shutil.rmtree(Path(tmp) / "tp1")
+        torch.cuda.empty_cache()
+        capture = capture_phase(scene, Path(tmp), trainer, device)
+    torch.cuda.empty_cache()
+    pose = pose_phase(device)
     torch.cuda.empty_cache()
     e2e = e2e_small_phase()
 
@@ -1735,6 +2048,8 @@ def main() -> int:
                        "table_phase_pair_train": table["train_launches"]["k1"],
                        **{f"edit_{n}": edit["launches"][n]["k1"] for n in
                           ("update", "export_pointcloud", "export_texture", "psnr_renders")},
+                       "capture": capture["launches"]["k1"],
+                       **{f"pose_{m}": pose["modes"][m]["launches"]["k1"] for m in pose["modes"]},
                        **{f"e2e_small_{n}": e2e["launches"][n]["k1"]
                           for n in ("train", "query", "grasp_sweep", "update")}}),
          "c71": c71_row(full71), "dense_tile": {k: dense[k] for k in ("max_abs_err", "ms")}},
@@ -1744,6 +2059,8 @@ def main() -> int:
                        "trainer": trainer["launches_train"]["k2"],
                        "table_phase_pair_train": table["train_launches"]["k2"],
                        "edit_update": edit["launches"]["update"]["k2"],
+                       "capture": capture["launches"]["k2"],
+                       **{f"pose_{m}": pose["modes"][m]["launches"]["k2"] for m in pose["modes"]},
                        **{f"e2e_small_{n}": e2e["launches"][n]["k2"]
                           for n in ("train", "grasp_sweep", "update")}}),
          "c71": c71_row(full2_71)},

@@ -17,7 +17,8 @@ import numpy as np
 @dataclass
 class ParsedCamera:
     """Host-side per-view camera (numpy; becomes core.cameras.Camera on
-    device). Nonzero distortion is not handled yet: the datamanager raises."""
+    device). Nonzero distortion is consumed by the one-time undistortion
+    cache (data/manager.undistort_image)."""
 
     fx: float
     fy: float

@@ -15,9 +15,11 @@ to the device with non-blocking copies; `host_batch` and `to_device` split
 the two halves so a prefetch thread can prepare host batches while the main
 thread issues the copies (`data/prefetch.py`).
 
-A camera with nonzero distortion raises NotImplementedError: the JAX
-package undistorts it with OpenCV, which the port has not replaced yet
-(ROADMAP.md, Queue 1 item 1).
+A view with lens distortion is undistorted once, when it is cached, on the
+manager's device (`undistort_image`, OpenCV's functions in torch:
+`data/undistort.py`); its camera takes the new intrinsics and zero
+distortion. Only the image is resampled: depth, normal, valid_mask and
+sam_mask stay in the original camera's frame, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from gaussiangrasper_torch._device import resolve_device
 from gaussiangrasper_torch.core.cameras import Camera
 from gaussiangrasper_torch.data.dataparsers.base import DataparserOutputs, ParsedCamera
 from gaussiangrasper_torch.data.dataset import InputDataset
+from gaussiangrasper_torch.data.undistort import undistort
 
 VIEW_KEYS = ("image", "depth", "normal", "valid_mask", "sam_mask")
 """Per-view arrays cached in host memory and copied every step."""
@@ -44,6 +47,25 @@ class SamplerConfig:
     pairs_per_group: int = 800  # contrastive pairs per id
     num_points: int = 1000      # CLIP distillation pixels
     clip_dim: int = 512
+
+
+def undistort_image(img: np.ndarray, cam: ParsedCamera,
+                    device=None) -> Tuple[np.ndarray, ParsedCamera]:
+    """A uint8 view undistorted on `device` (default cpu) and its camera
+    with the new intrinsics and zero distortion; views without distortion
+    come back as they are. The JAX package's undistort_image, OpenCV's
+    perspective (getOptimalNewCameraMatrix alpha 0 + undistort) and fisheye
+    (estimateNewCameraMatrixForUndistortRectify balance 0 +
+    initUndistortRectifyMap + remap) branches."""
+    if not np.any(cam.distortion):
+        return img, cam
+    k = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]], np.float64)
+    src = torch.from_numpy(np.ascontiguousarray(img)).to(torch.device(device or "cpu"))
+    out, newk = undistort(src, k, cam.distortion, fisheye=cam.camera_type == "fisheye")
+    cam2 = dataclasses.replace(
+        cam, fx=float(newk[0, 0]), fy=float(newk[1, 1]), cx=float(newk[0, 2]),
+        cy=float(newk[1, 2]), distortion=np.zeros(6))
+    return out.cpu().numpy(), cam2
 
 
 class FullImageDatamanager:
@@ -91,12 +113,14 @@ class FullImageDatamanager:
 
     def _load(self, idx: int) -> Dict[str, np.ndarray]:
         if idx not in self._cache:
+            data = self.dataset.get_data(idx)
             cam = self.cameras[idx]
             if np.any(cam.distortion):
-                raise NotImplementedError(
-                    f"view {idx} has lens distortion {cam.distortion.tolist()}: undistortion is "
-                    "not ported to gaussiangrasper_torch yet (ROADMAP.md, Queue 1 item 1)")
-            data = self.dataset.get_data(idx)
+                # the uint8 round trip truncates, as the JAX package's does
+                img, self.cameras[idx] = undistort_image(
+                    (data["image"] * 255).astype(np.uint8), cam, self.device)
+                data["image"] = img.astype(np.float32) / 255.0
+                self._cams.pop(idx, None)
             # ids outside the validity mask never get sampled
             data["sam_mask"] = np.where(data["valid_mask"], data["sam_mask"], -1).astype(np.int32)
             self._cache[idx] = data

@@ -14,10 +14,12 @@ convert them through `weights.state_from_numpy` (serving) or
 `weights.train_state_from_numpy` (training) in a process that has both.
 
 A training checkpoint is one torch.save file `<dir>/step_{:09d}.pt` holding
-the whole `TrainState`: step, field, alive, fea_up, every optimizer
-group's moments, count and accumulator, the densify stats and the state of
+the whole `TrainState`: step, field, alive, fea_up, the camera pose deltas
+(when pose optimization is on), every optimizer group's moments, count and
+accumulator ("camera_opt" among them), the densify stats and the state of
 the split-noise generator (reseeded from its seed when the checkpoint is
-loaded on the other device type).
+loaded on the other device type). A checkpoint without pose deltas loads
+with `pose` None.
 """
 
 from __future__ import annotations
@@ -122,6 +124,7 @@ def save_checkpoint(ckpt_dir: Path, state: TrainState, step: Optional[int] = Non
                        "accum": _cpu(st.accum)} for name, st in state.opt.items()},
         "stats": {k: v.cpu() for k, v in zip(DensifyStats._fields, state.stats)},
         "generator": state.generator.get_state(),
+        "pose": None if state.pose is None else state.pose.detach().cpu(),
     }, path)
     if keep_only_latest:
         for p in ckpt_dir.glob("step_*.pt"):
@@ -161,4 +164,5 @@ def load_checkpoint(path: Path, device=None) -> TrainState:
                                        to(st["accum"])) for name, st in payload["opt"].items()},
         stats=DensifyStats(*(payload["stats"][k].to(dev) for k in DensifyStats._fields)),
         generator=generator,
+        pose=None if payload.get("pose") is None else payload["pose"].to(dev),
     )

@@ -84,17 +84,23 @@ class GroupOptState(NamedTuple):
 
 
 def to_groups(state: Dict[str, Any]) -> Dict[str, Any]:
-    """{'field': GaussianParams, 'fea_up': dict} -> the named parameter groups."""
+    """{'field': GaussianParams, 'fea_up': dict, optional 'pose':
+    (num_cameras, 6) deltas} -> the named parameter groups."""
     field = state["field"]
     groups = {g: getattr(field, leaf) for leaf, g in FIELD_GROUP_OF.items()}
     groups["up_net"] = state["fea_up"]
+    if state.get("pose") is not None:
+        groups["camera_opt"] = state["pose"]
     return groups
 
 
 def from_groups(groups: Dict[str, Any], template: Dict[str, Any]) -> Dict[str, Any]:
     field: GaussianParams = template["field"]._replace(
         **{leaf: groups[g] for leaf, g in FIELD_GROUP_OF.items()})
-    return {"field": field, "fea_up": groups["up_net"]}
+    out = {"field": field, "fea_up": groups["up_net"]}
+    if "camera_opt" in groups:
+        out["pose"] = groups["camera_opt"]
+    return out
 
 
 def init_opt_state(state: Dict[str, Any],

@@ -21,6 +21,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from gaussiangrasper_torch.core.transforms import normalize, quat_to_rotmat
+from gaussiangrasper_torch.engine.optimizers import FIELD_GROUP_OF
 from gaussiangrasper_torch.models.gaussian_field import GaussianParams
 
 
@@ -158,7 +159,11 @@ def refine(
         out = torch.where(receives.reshape((c,) + (1,) * (leaf.ndim - 1)), 0.0, leaf)
         return torch.zeros_like(out) if name == "opacity" and reset_on else out
 
-    new_adam = {name: (mu_nu if name == "up_net" else tuple(clean(name, x) for x in mu_nu))
+    # only the field groups' moments are per Gaussian: up_net's and
+    # camera_opt's stay (the JAX package cleans camera_opt's too and raises
+    # on their (num_cameras, 6) shape: ROADMAP.md, F6)
+    field_groups = set(FIELD_GROUP_OF.values())
+    new_adam = {name: (tuple(clean(name, x) for x in mu_nu) if name in field_groups else mu_nu)
                 for name, mu_nu in adam_groups.items()}
     new_stats = DensifyStats.zeros(c, field.means.device) if past_warmup else stats
     return new_field, new_alive, new_adam, new_stats

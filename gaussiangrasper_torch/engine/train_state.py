@@ -2,11 +2,12 @@
 JAX package's engine/train_state.py).
 
 `train_step` runs the whole iteration eagerly: loss, gradients of every
-parameter group and of the screen-space probe in one backward (the probe's
-gradient feeds the densification statistics), then the grouped Adam
-update with accumulation. `refine_step` is the densify / cull / reset pass
-the host loop calls every `refine_every` steps. Both return a new state
-and leave their input's tensors untouched.
+parameter group (the camera pose deltas' too, when the state has them) and
+of the screen-space probe in one backward (the probe's gradient feeds the
+densification statistics), then the grouped Adam update with
+accumulation. `refine_step` is the densify / cull / reset pass the host
+loop calls every `refine_every` steps. Both return a new state and leave
+their input's tensors untouched.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ class TrainState:
     opt: Dict[str, optim.GroupOptState]     # per-group Adam moments, count, accumulator
     stats: DensifyStats
     generator: torch.Generator              # draws the split noise of refine_step
+    pose: Optional[torch.Tensor] = None     # (num_cameras, 6) pose deltas, or None
 
     @property
     def num_alive(self) -> torch.Tensor:
@@ -40,13 +42,15 @@ class TrainState:
 
 def init_train_state(field: GaussianParams, alive: torch.Tensor, fea_up: Dict[str, torch.Tensor],
                      group_cfgs: Dict[str, optim.GroupConfig] = optim.DEFAULT_GROUPS,
-                     seed: int = 0) -> TrainState:
+                     seed: int = 0, pose: Optional[torch.Tensor] = None) -> TrainState:
+    """`pose`: (num_cameras, 6) deltas, trained in the "camera_opt" group."""
     dev = field.means.device
     return TrainState(
         step=0, field=field, alive=alive, fea_up=dict(fea_up),
-        opt=optim.init_opt_state({"field": field, "fea_up": fea_up}, group_cfgs),
+        opt=optim.init_opt_state({"field": field, "fea_up": fea_up, "pose": pose}, group_cfgs),
         stats=DensifyStats.zeros(field.capacity, dev),
         generator=torch.Generator(device=dev).manual_seed(seed),
+        pose=pose,
     )
 
 
@@ -79,23 +83,27 @@ def train_step(state: TrainState, camera: Camera, batch: Dict[str, torch.Tensor]
     are device tensors (no host sync)."""
     field = GaussianParams(*(x.detach().requires_grad_(True) for x in state.field))
     fea_up = {k: v.detach().requires_grad_(True) for k, v in state.fea_up.items()}
+    pose = None if state.pose is None else state.pose.detach().requires_grad_(True)
     probe = torch.zeros(state.field.capacity, 2, dtype=field.means.dtype,
                         device=field.means.device, requires_grad=True)
-    model_state = {"field": field, "fea_up": fea_up}
+    model_state = {"field": field, "fea_up": fea_up, "pose": pose}
     total, aux = train_loss(model_state, state.alive, camera, batch, state.step, cfg, probe=probe)
 
-    leaves = list(field) + list(fea_up.values()) + [probe]
+    extra = [probe] if pose is None else [pose, probe]
+    leaves = list(field) + list(fea_up.values()) + extra
     grad_list = torch.autograd.grad(total, leaves, allow_unused=True)
     grad_list = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grad_list)]
-    n_field = len(field)
+    n_field, n_fea = len(field), len(fea_up)
     grads = {"field": GaussianParams(*grad_list[:n_field]),
-             "fea_up": dict(zip(fea_up, grad_list[n_field:-1]))}
+             "fea_up": dict(zip(fea_up, grad_list[n_field:n_field + n_fea])),
+             "pose": None if pose is None else grad_list[-2]}
     probe_grad = grad_list[-1]
 
     stats = accumulate_stats(state.stats, probe_grad, aux["radii"].detach(),
                              camera.width, camera.height)
     new_model, new_opt = optim.apply_updates_grouped(
-        {"field": state.field, "fea_up": state.fea_up}, grads, state.opt, state.step, group_cfgs)
+        {"field": state.field, "fea_up": state.fea_up, "pose": state.pose}, grads, state.opt,
+        state.step, group_cfgs)
 
     metrics = {
         "loss": total.detach(),
@@ -109,7 +117,8 @@ def train_step(state: TrainState, camera: Camera, batch: Dict[str, torch.Tensor]
            for name, g in optim.to_groups(grads).items()},
     }
     new_state = dataclasses.replace(state, step=state.step + 1, field=new_model["field"],
-                                    fea_up=new_model["fea_up"], opt=new_opt, stats=stats)
+                                    fea_up=new_model["fea_up"], opt=new_opt, stats=stats,
+                                    pose=new_model.get("pose"))
     return new_state, metrics
 
 

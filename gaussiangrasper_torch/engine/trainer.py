@@ -3,14 +3,16 @@
 `Trainer.setup` initializes the field from the dataparser's seed points (or
 at random), the `fea_up` MLP and the optimizer state; `Trainer.train` runs
 the loop: a batch from the datamanager (prefetched by a worker thread),
-the coarse-to-fine downscale on the device, `train_step`, the non-finite
-check every 10 steps, `refine_step` every `refine_every` steps, metrics
-and a checkpoint every `steps_per_save` steps and at the end. All device
-work is in `train_state.train_step` / `train_state.refine_step`.
+the coarse-to-fine downscale on the device, the view's index (`cam_idx`,
+which picks its pose delta when `model.pose_opt_mode` is not "off"),
+`train_step`, the non-finite check every 10 steps, `refine_step` every
+`refine_every` steps, metrics and a checkpoint every `steps_per_save` steps
+and at the end. All device work is in `train_state.train_step` /
+`train_state.refine_step`.
 
 Not ported yet (each raises NotImplementedError): the live viewer
 (`viewer_port`) and the device trace (`profiler="trace"`), ROADMAP.md Queue 1
-item 5; camera pose optimization (`pose_opt_mode != "off"`), Queue 1 item 1.
+item 5.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from gaussiangrasper_torch.core.cameras import Camera
+from gaussiangrasper_torch.core.pose_opt import init_pose_deltas
 from gaussiangrasper_torch.data.manager import FullImageDatamanager, SamplerConfig
 from gaussiangrasper_torch.engine import checkpoint as ckpt
 from gaussiangrasper_torch.engine import train_state
@@ -84,9 +87,6 @@ def check_supported(cfg: TrainerConfig) -> None:
     if cfg.profiler != "none":
         raise NotImplementedError(f"profiler={cfg.profiler!r} is not ported to "
                                   "gaussiangrasper_torch yet (ROADMAP.md, Queue 1 item 5)")
-    if cfg.model.pose_opt_mode != "off":
-        raise NotImplementedError(f"pose_opt_mode={cfg.model.pose_opt_mode!r}: camera pose "
-                                  "optimization is not ported yet (ROADMAP.md, Queue 1 item 1)")
 
 
 def _downscale_factor(cfg: GaussianSplatConfig, step: int) -> int:
@@ -184,7 +184,10 @@ class Trainer:
             for name, shape in (("weight", (d_out, d_in)), ("bias", (d_out,))):
                 fea_up[f"layers.{i}.{name}"] = torch.as_tensor(
                     _uniform(gen, shape, -bound, bound), device=self.device)
-        state = init_train_state(field, alive, fea_up, seed=cfg.seed)
+        pose = None
+        if mcfg.pose_opt_mode != "off":
+            pose = init_pose_deltas(len(self.dm), device=self.device)
+        state = init_train_state(field, alive, fea_up, seed=cfg.seed, pose=pose)
 
         if cfg.load_dir is not None:
             path = ckpt.latest_checkpoint(cfg.load_dir)
@@ -241,9 +244,11 @@ class Trainer:
         try:
             for step in range(start, cfg.max_iterations):
                 t_wait = time.perf_counter()
-                _, cam, batch = source.next_train()
+                cam_idx, cam, batch = source.next_train()
                 self.data_wait_s.append(time.perf_counter() - t_wait)
                 cam_s, batch_s = downscale_batch(batch, cam, _downscale_factor(mcfg, step))
+                if state.pose is not None:
+                    batch_s = dict(batch_s, cam_idx=cam_idx)
                 state, metrics = train_state.train_step(state, cam_s, batch_s, mcfg)
                 self.state = state
 

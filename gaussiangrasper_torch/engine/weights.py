@@ -9,7 +9,7 @@ accumulator are transposed into `FeaUp.state_dict()` layout."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -49,11 +49,13 @@ def train_state_from_numpy(field_arrays: Mapping[str, np.ndarray], alive: np.nda
                            fea_up_arrays: Mapping[str, np.ndarray],
                            opt_arrays: Mapping[str, Mapping[str, Any]],
                            stats_arrays: Mapping[str, np.ndarray], step: int,
-                           seed: int = 0, device=None) -> TrainState:
+                           seed: int = 0, device=None,
+                           pose: Optional[np.ndarray] = None) -> TrainState:
     """opt_arrays: group name -> {"mu", "nu", "count", "accum"} (the JAX
     GroupOptState's adam.mu / adam.nu / adam.count and accum; the up_net
-    entries are {w{i}, b{i}} dicts); stats_arrays: grad_norm_sum,
-    vis_counts, max_radii."""
+    entries are {w{i}, b{i}} dicts; "camera_opt" when there are pose
+    deltas); stats_arrays: grad_norm_sum, vis_counts, max_radii; pose: the
+    JAX state's (num_cameras, 6) deltas, or None."""
     def leaf(x):
         return torch.tensor(np.asarray(x, np.float32), device=device)
 
@@ -73,4 +75,5 @@ def train_state_from_numpy(field_arrays: Mapping[str, np.ndarray], alive: np.nda
         opt=opt,
         stats=DensifyStats(*(leaf(stats_arrays[k]) for k in DensifyStats._fields)),
         generator=torch.Generator(device=dev).manual_seed(seed),
+        pose=None if pose is None else leaf(pose),
     )

@@ -18,6 +18,7 @@ import torch
 from gaussiangrasper_torch._device import full_f32
 from gaussiangrasper_torch.core import sh
 from gaussiangrasper_torch.core.cameras import Camera, view_matrix
+from gaussiangrasper_torch.core.pose_opt import apply_pose_delta
 from gaussiangrasper_torch.core.transforms import quat_to_rotmat
 from gaussiangrasper_torch.models import losses
 from gaussiangrasper_torch.models.efd import mlp_apply
@@ -120,13 +121,18 @@ def render(
     *,
     crop_mask: Optional[torch.Tensor] = None,
     probe: Optional[torch.Tensor] = None,
+    pose_delta: Optional[torch.Tensor] = None,
     compositor: Optional[Callable[..., Dict[str, Any]]] = None,
 ) -> Dict[str, Any]:
     """Render rgb / feature / depth / normal maps for one camera. Returns
     per-channel images, alpha, the projection and the binning stats.
-    `compositor(proj, colors, opacities, bg, width, height, raster_config)`
-    replaces `rasterize_projected`."""
+    `pose_delta` (6,) adjusts the camera's pose (`cfg.pose_opt_mode`)
+    before anything is projected; `compositor(proj, colors, opacities, bg,
+    width, height, raster_config)` replaces `rasterize_projected`."""
     F = cfg.feature_dim
+    if pose_delta is not None and cfg.pose_opt_mode != "off":
+        camera = dataclasses.replace(camera, camera_to_world=apply_pose_delta(
+            camera.camera_to_world, pose_delta, cfg.pose_opt_mode))
     proj, colors, opac, bg = render_inputs(field, alive, camera, step, cfg, crop_mask, probe)
     composite = compositor if compositor is not None else rasterize_projected
     out = composite(proj, colors, opac, bg, camera.width, camera.height, cfg.raster)
@@ -154,16 +160,20 @@ def train_loss(
     compositor: Optional[Callable[..., Dict[str, Any]]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Total training loss and aux outputs. `state` holds "field"
-    (GaussianParams) and "fea_up" (`mlp_apply` params).
+    (GaussianParams), "fea_up" (`mlp_apply` params) and, with pose
+    optimization, "pose" ((num_cameras, 6) deltas; the batch's "cam_idx"
+    picks the row).
 
     batch: image (H, W, 3), depth (H, W), normal (H, W, 3), valid_mask
     (H, W) bool, pair_a / pair_b (G, P, 2) int (row, col), pair_valid
     (G, P), group_valid (G,), points (S, 2) int, point_valid (S,),
     gt_clip (S, 512)."""
-    if cfg.pose_opt_mode != "off":
-        raise NotImplementedError("pose optimization (core/pose_opt.py) is not ported yet")
     field: GaussianParams = state["field"]
-    outs = render(field, alive, camera, step, cfg, probe=probe, compositor=compositor)
+    pose_delta = None
+    if state.get("pose") is not None and "cam_idx" in batch:
+        pose_delta = state["pose"][batch["cam_idx"]]
+    outs = render(field, alive, camera, step, cfg, probe=probe, pose_delta=pose_delta,
+                  compositor=compositor)
 
     gt_img = batch["image"]
     valid = batch["valid_mask"]

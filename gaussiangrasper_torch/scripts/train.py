@@ -21,8 +21,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data", type=Path, required=True, nargs="+",
                    help="scene dir (several dirs, multi-scene training, are not ported yet)")
     p.add_argument("--dataparser", type=str, default="auto",
-                   help="named dataparser (colmap, nerfstudio, dnerf, phototourism) or "
-                        "'auto' to detect from the directory layout")
+                   help="named dataparser (colmap, nerfstudio, blender, instant-ngp, minimal, "
+                        "scannet, sdfstudio, arkitscenes, dnerf, phototourism, nuscenes, "
+                        "dycheck, sitcoms3d, nerfosr, phototourism-raw) or 'auto' to detect "
+                        "from the directory layout")
     p.add_argument("--viewer-port", type=int, default=None,
                    help="live training viewer (not ported yet: raises)")
     p.add_argument("--mesh", type=str, default=None,

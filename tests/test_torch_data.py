@@ -225,11 +225,16 @@ def test_colmap_parser_matches_jax(scene, name, tmp_path):
 
 
 def test_unported_parsers_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        t_resolve(tmp_path, "scannet")
+    """Every named parser is ported now: the one that raises is the JAX
+    package's own stub, phototourism-raw, with its SystemExit; the other
+    names and markers resolve to their parsers, as in the JAX package."""
+    with pytest.raises(SystemExit, match="image downloads"):
+        t_resolve(tmp_path, "phototourism-raw").parse()
+    for name in ("scannet", "auto"):
+        assert type(t_resolve(tmp_path, name)).__name__ == type(j_resolve(tmp_path, name)).__name__
     (tmp_path / "meta_data.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="sdfstudio"):
-        t_resolve(tmp_path)
+    assert type(t_resolve(tmp_path)).__name__ == "SdfstudioParser"
+    assert type(j_resolve(tmp_path)).__name__ == "SdfstudioParser"
     with pytest.raises(KeyError):
         t_resolve(tmp_path, "no-such-parser")
 
@@ -276,10 +281,17 @@ def test_datamanager_draws_match_jax(scene, branch, monkeypatch):
 
 
 def test_datamanager_raises_on_distortion(scene, tmp_path):
+    """A view with lens distortion no longer raises: the datamanager
+    undistorts it once, as the JAX package's does (tests/test_torch_undistort.py
+    holds the stages against OpenCV)."""
     root = _colmap_scene(scene, tmp_path / "colmap",
                          model="OPENCV", params=np.array([50.0, 52.0, 31.5, 24.0, 0.1, 0, 0, 0]))
-    with pytest.raises(NotImplementedError, match="distortion"):
-        TDM(t_resolve(root).parse(), device="cpu")
+    tdm = TDM(t_resolve(root).parse(), device="cpu")
+    jdm = JDM(j_resolve(root).parse())
+    for i in range(VIEWS):
+        np.testing.assert_array_equal(tdm.view_data(i)["image"], jdm._load(i)["image"])
+        assert tdm.cameras[i].fx == jdm.cameras[i].fx != 50.0
+        assert not tdm.cameras[i].distortion.any()
 
 
 def test_native_library_builds_outside_the_package():
@@ -323,9 +335,55 @@ def test_downscale_batch_matches_jax_cv2(d, size):
     assert cam1 is tcam and b1 is tb
 
 
-def test_port_imports_no_jax_pillow_opencv():
-    """The data layer and trainer import in a process where jax,
-    gaussiangrasper_tpu, PIL, cv2 and sklearn cannot be imported."""
+GUARDED_RUN = """
+import json
+from pathlib import Path
+import numpy as np
+from gaussiangrasper_torch.data.dataparsers.base import ParsedCamera
+from gaussiangrasper_torch.data.dataparsers.zoo import PARSERS, resolve_parser
+from gaussiangrasper_torch.data.manager import undistort_image
+from gaussiangrasper_torch.data.synthetic import generate_tabletop
+from gaussiangrasper_torch.engine.trainer import TrainerConfig, make_trainer
+from gaussiangrasper_torch.models.model import GaussianSplatConfig
+from gaussiangrasper_torch.ops.rasterize import RasterizeConfig
+from tests.test_torch_dataparsers import LAYOUTS, build
+
+tmp = Path(sys.argv[1])
+for name in LAYOUTS:  # every parser the port gained, on its fixture layout
+    root = build(name, tmp / name)
+    for kw in LAYOUTS[name][2]:
+        assert PARSERS[name](root, **kw).parse().cameras, name
+try:
+    PARSERS["phototourism-raw"](tmp).parse()
+except SystemExit:
+    pass
+img = np.random.default_rng(0).integers(0, 256, (24, 32, 3), dtype=np.uint8)
+for kind, d in (("perspective", [-0.1, 0.02, 1e-3, 0, 0, 0]), ("fisheye", [0.05, 0, 0, 0, 0.01, 0])):
+    cam = ParsedCamera(28.0, 29.0, 16.0, 12.0, 32, 24, np.eye(4)[:3], np.array(d), kind)
+    out, cam2 = undistort_image(img, cam)
+    assert out.shape == img.shape and cam2.fx != cam.fx, kind
+# two pose-optimization train steps on a capture with lens distortion
+scene = generate_tabletop(tmp / "scene", width=32, height=24, n_views=2, feature_downscale=2,
+                          seed_points=200)
+meta = json.loads((scene / "transforms.json").read_text())
+(scene / "transforms.json").write_text(json.dumps({**meta, "k1": -0.05, "p1": 1e-3}))
+model = GaussianSplatConfig(feature_dim=8, sh_degree=1, pose_opt_mode="SO3xR3",
+                            raster=RasterizeConfig(tile_size=16, max_gaussians_per_tile=256))
+trainer = make_trainer(TrainerConfig(data=scene, output_dir=tmp / "out", max_iterations=2,
+                                     steps_per_save=2, capacity=512, model=model), device="cpu")
+assert type(resolve_parser(scene)).__name__ == "TransformsJsonParser"
+state = trainer.train()
+assert state.step == 2 and state.pose.shape == (2, 6) and trainer.dm.cameras[0].fx != meta["fl_x"]
+assert float(state.opt["camera_opt"].accum.abs().max()) > 0
+"""
+
+
+def test_port_imports_no_jax_pillow_opencv(tmp_path):
+    """The data layer and trainer import, and run, in a process where jax,
+    gaussiangrasper_tpu, PIL, cv2 and sklearn cannot be imported: every
+    dataparser on its fixture layout, undistort_image in both branches and
+    two pose-optimization train steps on a distorted capture (an import
+    made inside a function would otherwise slip past)."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -336,8 +394,9 @@ def test_port_imports_no_jax_pillow_opencv():
         "import gaussiangrasper_torch.scripts.train, gaussiangrasper_torch.scripts.render\n"
         "import gaussiangrasper_torch.data.synthetic, gaussiangrasper_torch.data.prefetch\n"
         "import gaussiangrasper_torch.scripts.common, gaussiangrasper_torch.utils.writer\n"
+        + GUARDED_RUN
     )
     root = Path(__file__).resolve().parent.parent
-    res = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
-                         timeout=120)
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=root,
+                         capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

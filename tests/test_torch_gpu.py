@@ -927,3 +927,37 @@ def test_export_clis_on_the_card(cuda_device, trained_run):
     assert rc.composite_pairs_fwd.launches - before == 3
     data = (run / "pointcloud_mesh.ply").read_bytes()
     assert data.startswith(b"ply\n") and b"element face " in data
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,coeffs", [
+    ("perspective", [-0.08, 0.02, 5e-4, -5e-4, 0.0, 0.0]),
+    ("perspective", [-0.35, 0.12, 0.0, 0.0, -0.02, 0.0]),
+    ("fisheye", [0.05, 0.01, 0.0, 0.0, -3e-3, 1e-3]),
+])
+@pytest.mark.parametrize("size", [(83, 61), (800, 800)])
+def test_undistort_on_the_card_matches_cpu(cuda_device, kind, coeffs, size):
+    """`undistort_image` on the card against the CPU path from the same
+    bytes: every map is float64 arithmetic of single IEEE operations, so
+    the perspective branch (fixed-point remap) is bit-equal; the fisheye
+    branch's atan may round a last bit otherwise on the card, which can
+    move a float32 map entry by one step: there at most 1e-3 of the pixels
+    may differ, by one grey level."""
+    from gaussiangrasper_torch.data.dataparsers.base import ParsedCamera
+    from gaussiangrasper_torch.data.manager import undistort_image
+
+    w, h = size
+    img = np.random.default_rng(w).integers(0, 256, (h, w, 3), dtype=np.uint8)
+    cam = ParsedCamera(0.9 * w, 0.93 * w, w / 2 + 1.3, h / 2 - 0.7, w, h, np.eye(4)[:3],
+                       np.array(coeffs), kind)
+    card, card_cam = undistort_image(img, cam, cuda_device)
+    host, host_cam = undistort_image(img, cam, "cpu")
+    assert (card_cam.fx, card_cam.fy, card_cam.cx, card_cam.cy) == \
+        (host_cam.fx, host_cam.fy, host_cam.cx, host_cam.cy)
+    diff = np.abs(card.astype(int) - host.astype(int))
+    print("undistort_card_vs_cpu", kind, size, json.dumps(
+        {"differing_share": float((diff > 0).mean()), "max_diff": int(diff.max())}))
+    if kind == "perspective":
+        np.testing.assert_array_equal(card, host)
+    else:
+        assert (diff > 0).mean() <= 1e-3 and diff.max() <= 1

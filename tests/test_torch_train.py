@@ -293,13 +293,32 @@ def test_train_loss_terms_and_grads_match_jax():
 
 
 def test_train_loss_pose_opt_raises():
+    """Pose optimization no longer raises: with a "pose" leaf and the
+    batch's cam_idx, train_loss gives the JAX package's loss and delta
+    gradient (tests/test_torch_pose_opt.py holds the rest)."""
     field, alive = make_field(0)
-    _, tcfg = configs(pose_opt_mode="SE3")
-    _, tcam = cameras()
-    with pytest.raises(NotImplementedError, match="pose"):
-        t_train_loss({"field": tfield_of(field), "fea_up": params_from_numpy(fea_up_arrays())},
-                     torch.as_tensor(alive), tcam,
-                     {k: torch.as_tensor(v) for k, v in make_batch().items()}, 0, tcfg)
+    jcfg, tcfg = configs(pose_opt_mode="SE3")
+    jcam, tcam = cameras()
+    batch = make_batch()
+    fea = fea_up_arrays()
+    pose = np.random.default_rng(3).normal(scale=0.02, size=(2, 6)).astype(np.float32)
+
+    def f(p):
+        jb = {**{k: jnp.asarray(v) for k, v in batch.items()}, "cam_idx": jnp.asarray(1)}
+        ms = {"field": jfield_of(field), "fea_up": {k: jnp.asarray(v) for k, v in fea.items()},
+              "pose": p}
+        return j_train_loss(ms, jnp.asarray(alive), jcam, jb, 0, jcfg)[0]
+
+    jtotal, jg = jax.jit(jax.value_and_grad(f))(jnp.asarray(pose))
+    tpose = torch.as_tensor(pose).requires_grad_(True)
+    total, _ = t_train_loss({"field": tfield_of(field), "fea_up": params_from_numpy(fea),
+                             "pose": tpose}, torch.as_tensor(alive), tcam,
+                            {**{k: torch.as_tensor(v) for k, v in batch.items()}, "cam_idx": 1},
+                            0, tcfg)
+    close(total, jtotal, atol=1e-6, rtol=1e-4, msg="total")
+    (g,) = torch.autograd.grad(total, [tpose])
+    close_scaled(g, jg, 1e-4, msg="pose")
+    assert float(g[1].abs().min()) > 0 and not g[0].any()
 
 
 # --- optimizer ------------------------------------------------------------------
