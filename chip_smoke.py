@@ -109,6 +109,24 @@ Phases, one JSON line each:
            residual rotation and translation; the first step's delta
            gradient on a mid-size field, card against the CPU path, within
            POSE_GRAD_RTOL / POSE_GRAD_COS_MIN
+  sharded_split  the tile-sharded compositor split four ways in one process
+           at full width (the bench field and camera, C 39): shard halves,
+           torch.cat for the all-gathers, band halves through K1 / K2;
+           image and alpha bit-equal to rasterize_projected's, per-Gaussian
+           gradients within K2's criterion, the gather stats, each band's
+           stream rows, K1 / K2 launches (four each), the split's render
+           and backward ms beside the unsharded path's
+  sharded_train  `ggt-torch-train --mesh 1,1 --tile-shard on` (a real NCCL
+           world of one rank) on trainer's tabletop for 200 steps (refines
+           at 100 and 200, the gather budget derived again after each),
+           then the render CLI on the run: step-0 loss beside trainer's
+           (within STEP0_LOSS_RTOL), ms per step beside trainer's, the
+           gather stats after each refine, 200 K1 + 200 K2 launches
+  multi_scene  `ggt-torch-train --data <tabletop> <edit's post-move
+           capture>` for 200 steps with the shared fea_up: each scene's
+           step-0 loss beside a single-scene Trainer's (within
+           STEP0_LOSS_RTOL), fea_up equal across the scenes, ms per step,
+           400 K1 + 400 K2 launches, both scene checkpoints rendered
 Then the kernels line (nine kernels), the nvidia-smi line and, last, the
 ok line. Any
 failure exits non-zero without the ok line. Without a card, or outside a
@@ -1182,6 +1200,270 @@ def trainer_phase(scene: Path, out_dir: Path, label: str, tp: int) -> dict:
     return row
 
 
+SHARDS = 4  # the band path split in one process: the card holds one rank
+SHARDED_STEPS = 200  # two refines (steps 99, 199), all at 400x400
+STEP0_LOSS_RTOL = 1e-6  # a sharded or multi-scene step 0 against the single-scene trainer's
+
+
+def sharded_split(device, cfg) -> dict:
+    """The tile-sharded compositor split SHARDS ways in one process at full
+    width (the bench field and camera, C 39): the shard half for every
+    shard, torch.cat for the all-gathers, the band half for every band.
+    Image and alpha bit-equal to rasterize_projected's on the same inputs,
+    the per-Gaussian gradients of a seeded loss within K2's criterion;
+    K1 / K2 launch counts set to 0 just before the split's forward and
+    backward and read just after; then the times of both paths."""
+    import torch
+    from gaussiangrasper_torch.models.model import render_inputs
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
+    from gaussiangrasper_torch.ops.rasterize import rasterize_projected
+    from gaussiangrasper_torch.parallel.tile_shard import composite_tile_split
+
+    field, alive = bench_field(N_FULL, seed=0, device=device)
+    with torch.no_grad():
+        proj, colors, opac, bg = render_inputs(field, alive, bench_camera(WIDTH, HEIGHT, device),
+                                               STEP, cfg)
+    c = colors.shape[1]
+    g_img = torch.as_tensor(np.random.default_rng(11).standard_normal((HEIGHT, WIDTH, c),
+                                                                      np.float32), device=device)
+
+    def split(p, col, o):
+        return composite_tile_split(p, col, o, bg, WIDTH, HEIGHT, cfg.raster, d=SHARDS)
+
+    def whole(p, col, o):
+        return rasterize_projected(p, col, o, bg, WIDTH, HEIGHT, cfg.raster)
+
+    def forward(composite):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (proj.xys, proj.conics, opac,
+                                                                   colors)]
+        out = composite(proj._replace(xys=leaves[0], conics=leaves[1]), leaves[3], leaves[2])
+        return out, (out["image"] * g_img).sum() + 0.5 * out["alpha"].sum(), leaves
+
+    def per_gaussian_grads(loss, leaves):
+        g = torch.autograd.grad(loss, leaves, retain_graph=True)
+        return torch.cat([g[0], g[1], g[2][:, None], g[3]], 1)
+
+    torch.cuda.synchronize()
+    rc.composite_pairs_fwd.launches = rc.composite_pairs_bwd.launches = 0
+    out_s, loss_s, leaves_s = forward(split)
+    got = per_gaussian_grads(loss_s, leaves_s)
+    torch.cuda.synchronize()
+    launches = {"k1": rc.composite_pairs_fwd.launches, "k2": rc.composite_pairs_bwd.launches}
+    out_w, loss_w, leaves_w = forward(whole)
+    want = per_gaussian_grads(loss_w, leaves_w)
+    errs, scales = grad_errors(got, want, c)
+    with torch.no_grad():
+        ms = {"split_render": cuda_ms(lambda: split(proj, colors, opac), 10),
+              "unsharded_render": cuda_ms(lambda: whole(proj, colors, opac), 10)}
+    ms["split_backward"] = cuda_ms(lambda: torch.autograd.grad(loss_s, leaves_s, retain_graph=True),
+                                   10)
+    ms["unsharded_backward"] = cuda_ms(
+        lambda: torch.autograd.grad(loss_w, leaves_w, retain_graph=True), 10)
+    profile = device_profile(lambda: torch.autograd.grad(*forward(split)[1:]), top=10)
+    bins = out_s["bins"]
+    row = {"phase": "sharded_split", "shards": SHARDS, "gaussians": N_FULL, "channels": c,
+           **{k: int(getattr(bins, k)) for k in ("gathered_rows", "gather_overflow",
+                                                 "merge_overflow", "overflow", "dropped_tiles")},
+           "band_stream_rows": [int(x) for x in out_s["band_rows"]],
+           "launches": launches,
+           "image_bit_equal": torch.equal(out_s["image"], out_w["image"]),
+           "alpha_bit_equal": torch.equal(out_s["alpha"], out_w["alpha"]),
+           "image_max_abs_diff": float((out_s["image"] - out_w["image"]).detach().abs().max()),
+           "grad_rel_err": errs, "grad_scale": scales, "ms": ms, "split_profile": profile}
+    emit(row)
+    if not (row["image_bit_equal"] and row["alpha_bit_equal"]) or max(errs.values()) > K2_ERR_MAX \
+            or launches != {"k1": SHARDS, "k2": SHARDS} or row["gather_overflow"] \
+            or row["merge_overflow"]:
+        raise RuntimeError(f"sharded_split: the {SHARDS}-way split disagrees with "
+                           f"rasterize_projected: {row}")
+    return row
+
+
+def sharded_train(scene: Path, out_dir: Path, trainer_row: dict) -> dict:
+    """`ggt-torch-train --mesh 1,1 --tile-shard on` in-process (a real NCCL
+    world of one rank) for SHARDED_STEPS on the trainer phase's tabletop,
+    then the render CLI on the run, every launch count set to 0 just
+    before each. Shims around the host loop's make_sharded_train_step, refine step and
+    budget derivation time each step between two synchronizations and
+    record its gather stats; they are this script's instruments."""
+    import torch
+    import torch.distributed as dist
+    from gaussiangrasper_torch.engine import train_state
+    from gaussiangrasper_torch.ops import rasterize_cuda as rc
+    from gaussiangrasper_torch.parallel import host_loop
+    from gaussiangrasper_torch.scripts import render, train
+
+    steps, builds, budgets, refines, profiles = [], [], [], [], []
+    make_step, refine_step, derive = (host_loop.make_sharded_train_step, train_state.refine_step,
+                                      host_loop.derive_gather_budget)
+    stat_keys = ("gathered_rows", "gather_overflow", "merge_overflow", "overflow")
+
+    def timed_make_step(*a, **k):
+        builds.append({"before_step": len(steps), "gather_budget": k.get("gather_budget")})
+        step = make_step(*a, **k)
+
+        def timed(state, cam, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, cam, batch)
+            torch.cuda.synchronize()
+            steps.append((cam.width, 1e3 * (time.perf_counter() - t0), float(out[1]["loss"]),
+                          {key: int(out[1][key]) for key in stat_keys}))
+            if len(steps) == SHARDED_STEPS:
+                # the last step twice more, the second traced (a step leaves its input
+                # state as it was); the launch counts skip these runs
+                counted = rc.composite_pairs_fwd.launches, rc.composite_pairs_bwd.launches
+                profiles.append(device_profile(lambda: step(state, cam, batch), top=10))
+                rc.composite_pairs_fwd.launches, rc.composite_pairs_bwd.launches = counted
+            return out
+
+        return timed
+
+    def counted_refine(state, *a, **k):
+        new = refine_step(state, *a, **k)
+        refines.append({"after_step": state.step - 1,
+                        "alive_before_after": [int(state.alive.sum()), int(new.alive.sum())]})
+        return new
+
+    def recorded_derive(alive, d, **k):
+        budgets.append(derive(alive, d, **k))
+        return budgets[-1]
+
+    seconds, counts = {}, {}
+    host_loop.make_sharded_train_step, host_loop.derive_gather_budget = timed_make_step, \
+        recorded_derive
+    train_state.refine_step = counted_refine
+    try:
+        trainer = counted_cli(seconds, counts, "train", train.main,
+                              ["--data", scene, "--max-iterations", SHARDED_STEPS, "--capacity",
+                               CAPACITY, "--steps-per-save", SHARDED_STEPS, "--output-dir", out_dir,
+                               "--mesh", "1,1", "--tile-shard", "on"])
+    finally:
+        host_loop.make_sharded_train_step, host_loop.derive_gather_budget = make_step, derive
+        train_state.refine_step = refine_step
+    run = Path(out_dir) / "gaussian-splatting"
+    counted_cli(seconds, counts, "render", render.main, ["--run-dir", run, "--num-views", 2])
+    metrics = json.loads((run / "renders" / "metrics.json").read_text())["results"]
+    losses = [loss for _, _, loss, _ in steps]
+    ms = {f"{w}x{w}": float(np.median([m for w2, m, _, _ in steps if w2 == w]))
+          for w in sorted({w for w, _, _, _ in steps})}
+    step0 = [losses[0], trainer_row["losses"][0]]
+    row = {"phase": "sharded_train", "mesh": "1,1", "tile_shard": "on", "steps": len(steps),
+           "capacity": CAPACITY, "launches_train": counts["train"],
+           "launches_render": counts["render"], "wall_s": seconds["train"],
+           "step0_loss_sharded_trainer": step0,
+           "step0_loss_rel_diff": abs(step0[0] - step0[1]) / abs(step0[1]),
+           "ms_per_step_median": ms,
+           "trainer_ms_per_step_median": trainer_row["ms_per_step_median"],
+           "gather_stats_first_step": steps[0][3],
+           "gather_stats_after_refine": [dict(r, **steps[r["after_step"] + 1][3])
+                                         for r in refines if r["after_step"] + 1 < len(steps)],
+           "gather_budgets_derived": budgets, "step_builds": builds,
+           "loss_first_last": [losses[0], losses[-1]],
+           "render_metrics": {k: metrics[k] for k in ("psnr", "ssim") if k in metrics},
+           "world_closed": not dist.is_initialized(), "step_profile": profiles[0],
+           "device_idle_share": 1.0 - profiles[0]["device_busy_ms"] / steps[-1][1]}
+    emit(row)
+    want = {"k1": SHARDED_STEPS, "k2": SHARDED_STEPS, "k5": 0, "k6": 0}
+    if counts["train"] != want or counts["render"] != {"k1": 2, "k2": 0, "k5": 0, "k6": 0} \
+            or len(steps) != SHARDED_STEPS or len(refines) != SHARDED_STEPS // 100 \
+            or len(budgets) != 1 + len(refines) or not all(math.isfinite(x) for x in losses) \
+            or row["step0_loss_rel_diff"] > STEP0_LOSS_RTOL or not row["world_closed"] \
+            or trainer.state.step != SHARDED_STEPS \
+            or not all(math.isfinite(v) for v in row["render_metrics"].values()):
+        raise RuntimeError(f"sharded_train: {row}")
+    return row
+
+
+def multi_scene_phase(scene: Path, moved: Path, tmp: Path, trainer_row: dict, device) -> dict:
+    """`ggt-torch-train --data <tabletop> <moved-object tabletop>` in-process
+    for SHARDED_STEPS with the shared fea_up, launch counts set to 0 just
+    before; each scene's step-0 loss beside a single-scene Trainer's on
+    that scene (the trainer phase's for the tabletop, one Trainer step
+    here for the other), fea_up across the scenes, then each scene's
+    checkpoint through the render CLI (its run dir given the run's
+    config.json with that scene's capture)."""
+    import dataclasses
+
+    import torch
+    from gaussiangrasper_torch.engine import multi_scene, train_state
+    from gaussiangrasper_torch.engine.trainer import TrainerConfig, make_trainer
+    from gaussiangrasper_torch.scripts import render, train
+
+    scene_losses, step_ms = [], []
+    train_step, ms_step = train_state.train_step, multi_scene.multi_scene_train_step
+
+    def recorded(*a, **k):
+        out = train_step(*a, **k)
+        scene_losses.append(float(out[1]["loss"]))
+        return out
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ms_step(*a, **k)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    seconds, counts = {}, {}
+    out_dir = tmp / "multi"
+    train_state.train_step, multi_scene.multi_scene_train_step = recorded, timed
+    try:
+        states = counted_cli(seconds, counts, "train", train.main,
+                             ["--data", scene, moved, "--max-iterations", SHARDED_STEPS,
+                              "--capacity", CAPACITY, "--steps-per-save", SHARDED_STEPS,
+                              "--output-dir", out_dir])
+    finally:
+        train_state.train_step, multi_scene.multi_scene_train_step = train_step, ms_step
+    per_scene = [scene_losses[0::2], scene_losses[1::2]]
+    fea_diff = max(float((states[0].fea_up[k] - states[1].fea_up[k]).abs().max())
+                   for k in states[0].fea_up)
+
+    # one single-scene Trainer step on the moved capture, from the same seed
+    single = []
+    train_state.train_step = lambda *a, **k: single.append(train_step(*a, **k)) or single[-1]
+    try:
+        t = make_trainer(TrainerConfig(data=moved, output_dir=tmp / "single_moved",
+                                       max_iterations=1, capacity=CAPACITY), device=device)
+        t.setup()
+        t.train()
+    finally:
+        train_state.train_step = train_step
+    step0 = [[per_scene[0][0], trainer_row["losses"][0]],
+             [per_scene[1][0], float(single[0][1]["loss"])]]
+    del t, single
+
+    run = out_dir / "gaussian-splatting"
+    config = json.loads((run / "config.json").read_text())
+    renders = {}
+    for i, data in enumerate((scene, moved)):
+        (run / f"scene_{i}" / "config.json").write_text(json.dumps(dict(config, data=str(data))))
+        counted_cli(seconds, counts, f"render_{i}", render.main,
+                    ["--run-dir", run / f"scene_{i}", "--num-views", 2])
+        renders[i] = json.loads((run / f"scene_{i}" / "renders" / "metrics.json").read_text())
+    row = {"phase": "multi_scene", "scenes": 2, "steps": len(step_ms), "capacity": CAPACITY,
+           "launches_train": counts["train"],
+           "launches_render": {i: counts[f"render_{i}"] for i in range(2)},
+           "wall_s": seconds["train"],
+           "step0_loss_multi_single": step0,
+           "step0_loss_rel_diff": [abs(a - b) / abs(b) for a, b in step0],
+           "fea_up_max_abs_diff_across_scenes": fea_diff,
+           "ms_per_step_median": float(np.median(step_ms)),
+           "ms_per_scene_step_trainer_400x400": trainer_row["ms_per_step_median"]["400x400"],
+           "loss_first_last": [[x[0], x[-1]] for x in per_scene],
+           "render_psnr": {i: renders[i]["results"]["psnr"] for i in renders}}
+    emit(row)
+    want = {"k1": 2 * SHARDED_STEPS, "k2": 2 * SHARDED_STEPS, "k5": 0, "k6": 0}
+    if counts["train"] != want or fea_diff != 0.0 or len(step_ms) != SHARDED_STEPS \
+            or max(row["step0_loss_rel_diff"]) > STEP0_LOSS_RTOL \
+            or any(counts[f"render_{i}"]["k1"] != 2 for i in range(2)) \
+            or not all(math.isfinite(x) for x in scene_losses) \
+            or not all(math.isfinite(v) for v in row["render_psnr"].values()):
+        raise RuntimeError(f"multi_scene: {row}")
+    return row
+
+
 CAPTURE_LENS = (-0.08, 0.02, 5e-4, -5e-4)  # OpenCV k1, k2, p1, p2 of the capture phase
 CAPTURE_POSE_NOISE = (0.5, 0.005)  # degrees and scene units (5 mm) for views 1-7
 POSE_PERTURB = (0.06, -0.04, 0.0, 0.0, 0.0, 0.02)  # tests/test_pose_opt.py's perturbation
@@ -2012,10 +2294,18 @@ def main() -> int:
         if drift[0] > 1e-6:
             raise RuntimeError(f"trainer_tp2: step-0 loss {l2[0]} != {l1[0]}")
         torch.cuda.empty_cache()
+        split = sharded_split(device, cfg)
+        torch.cuda.empty_cache()
+        sharded = sharded_train(scene, Path(tmp) / "sharded", trainer)
+        shutil.rmtree(Path(tmp) / "sharded")
+        torch.cuda.empty_cache()
         edit = edit_phase(scene, Path(tmp) / "tp1" / "gaussian-splatting", Path(tmp))
         shutil.rmtree(Path(tmp) / "tp1")
         torch.cuda.empty_cache()
         capture = capture_phase(scene, Path(tmp), trainer, device)
+        torch.cuda.empty_cache()
+        # edit_phase's post-move capture: sphere 1 moved, the trainer phase's settings
+        multi = multi_scene_phase(scene, Path(tmp) / "after_updating", Path(tmp), trainer, device)
     torch.cuda.empty_cache()
     pose = pose_phase(device)
     torch.cuda.empty_cache()
@@ -2051,7 +2341,13 @@ def main() -> int:
                        "capture": capture["launches"]["k1"],
                        **{f"pose_{m}": pose["modes"][m]["launches"]["k1"] for m in pose["modes"]},
                        **{f"e2e_small_{n}": e2e["launches"][n]["k1"]
-                          for n in ("train", "query", "grasp_sweep", "update")}}),
+                          for n in ("train", "query", "grasp_sweep", "update")},
+                       "sharded_split": split["launches"]["k1"],
+                       "sharded_train": sharded["launches_train"]["k1"],
+                       "sharded_render": sharded["launches_render"]["k1"],
+                       "multi_scene": multi["launches_train"]["k1"],
+                       **{f"multi_scene_render_{i}": multi["launches_render"][i]["k1"]
+                          for i in range(2)}}),
          "c71": c71_row(full71), "dense_tile": {k: dense[k] for k in ("max_abs_err", "ms")}},
         {**kernel_row("composite_pairs_bwd", "composite_pairs_bwd",
                       "rasterize_pallas.py:600 (_bwd_pairs_kernel)", full2,
@@ -2062,7 +2358,10 @@ def main() -> int:
                        "capture": capture["launches"]["k2"],
                        **{f"pose_{m}": pose["modes"][m]["launches"]["k2"] for m in pose["modes"]},
                        **{f"e2e_small_{n}": e2e["launches"][n]["k2"]
-                          for n in ("train", "grasp_sweep", "update")}}),
+                          for n in ("train", "grasp_sweep", "update")},
+                       "sharded_split": split["launches"]["k2"],
+                       "sharded_train": sharded["launches_train"]["k2"],
+                       "multi_scene": multi["launches_train"]["k2"]}),
          "c71": c71_row(full2_71)},
         kernel_row("composite_pairs_fwd2", "composite_pairs_fwd",
                    "rasterize_pallas.py:1059 (_fwd_pairs2_kernel)", full5,

@@ -1,10 +1,11 @@
 """Method registry: name -> trainer factory (counterpart of the JAX
 package's configs/methods.py, the `gaussian-splatting` entry).
 
-The JAX package's NeRF zoo and generfacto are not ported yet: their names
-raise NotImplementedError (ROADMAP.md, Queue 1 item 4), as do several
-`--data` dirs (multi-scene training) and `--mesh` (sharded training),
-Queue 1 item 3.
+Several `--data` dirs train the scenes together (engine/multi_scene.py;
+with `--mesh dp,gauss`, over dp ranks), one dir with `--mesh` trains
+sharded (parallel/host_loop.py). The JAX package's NeRF zoo and
+generfacto are not ported yet: their names raise NotImplementedError
+(ROADMAP.md, Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -18,17 +19,23 @@ NOT_PORTED = ("nerfacto", "nerfacto-big", "nerfacto-huge", "vanilla-nerf", "dept
 """The JAX package's other registered methods."""
 
 
+def parse_mesh(mesh: str):
+    """'dp,gauss' -> (dp, gauss)."""
+    dp, gauss = (int(x) for x in mesh.split(","))
+    return dp, gauss
+
+
+def parse_tile_shard(value: str):
+    """'auto' | 'on' | 'off' -> None (on when gauss > 1) | True | False."""
+    return None if value == "auto" else value == "on"
+
+
 def _gaussian_splatting(args):
-    """Single-scene Gaussian splatting; returns the trained Trainer."""
+    """Gaussian splatting: returns the trained Trainer, or with several
+    --data dirs the scenes' final states."""
     from gaussiangrasper_torch.engine.trainer import TrainerConfig, make_trainer
     from gaussiangrasper_torch.models.model import GaussianSplatConfig
 
-    if len(args.data) > 1:
-        raise NotImplementedError("multi-scene training (several --data dirs) is not ported to "
-                                  "gaussiangrasper_torch yet (ROADMAP.md, Queue 1 item 3)")
-    if getattr(args, "mesh", None):
-        raise NotImplementedError("--mesh (sharded training) is not ported to "
-                                  "gaussiangrasper_torch yet (ROADMAP.md, Queue 1 item 3)")
     model = GaussianSplatConfig(
         feature_dim=args.feature_dim,
         sh_degree=args.sh_degree,
@@ -57,9 +64,28 @@ def _gaussian_splatting(args):
         dataparser=getattr(args, "dataparser", "auto"),
         model=model,
     )
-    trainer = make_trainer(config, device=getattr(args, "device", None))
+    device = getattr(args, "device", None)
+    mesh = getattr(args, "mesh", None)
+    if len(args.data) > 1:
+        from gaussiangrasper_torch.engine.multi_scene import train_multi
+
+        dp = None
+        if mesh:
+            dp, gauss = parse_mesh(mesh)
+            if gauss > 1:
+                print(f"multi-scene training splits the scenes over dp={dp}; gauss={gauss} is "
+                      "unused, as in the JAX package")
+        return train_multi(config, args.data, dp=dp, device=device)
+    trainer = make_trainer(config, device=device)
     trainer.setup()
-    trainer.train()
+    if mesh:
+        from gaussiangrasper_torch.parallel.host_loop import train_sharded
+
+        dp, gauss = parse_mesh(mesh)
+        train_sharded(trainer, dp=dp, gauss=gauss,
+                      tile_shard=parse_tile_shard(getattr(args, "tile_shard", "auto")))
+    else:
+        trainer.train()
     return trainer
 
 

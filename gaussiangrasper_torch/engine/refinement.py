@@ -16,7 +16,7 @@ argument, so a test can hand both packages the same draws.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,13 +38,16 @@ class DensifyStats(NamedTuple):
 
 
 def accumulate_stats(stats: DensifyStats, xy_grads: torch.Tensor, radii: torch.Tensor,
-                     width: int, height: int) -> DensifyStats:
+                     width: int, height: int, first: Optional[torch.Tensor] = None) -> DensifyStats:
     """Per-step update. The first accumulation after a reset (an all-zero
     counter) sets vis_counts to ones for every Gaussian and grad_norm_sum
-    to the raw norms; later steps add only where the Gaussian is visible."""
+    to the raw norms; later steps add only where the Gaussian is visible.
+    `first`: that test taken over the whole field, where `stats` holds a
+    shard of it (default: over `stats`)."""
     vis = (radii > 0.0).to(torch.float32)
     gn = torch.linalg.vector_norm(xy_grads, dim=-1)
-    first = stats.vis_counts.sum() == 0.0
+    if first is None:
+        first = stats.vis_counts.sum() == 0.0
     return DensifyStats(
         grad_norm_sum=torch.where(first, gn, stats.grad_norm_sum + gn * vis),
         vis_counts=torch.where(first, torch.ones_like(vis), stats.vis_counts + vis),

@@ -125,14 +125,22 @@ def distillation_loss(lifted: torch.Tensor, gt_clip: torch.Tensor, valid: torch.
     return cosine_similarity_loss(lifted, gt_clip, weights=valid)
 
 
-def sh_reg(sh_coeffs: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+def _sum_count(total: torch.Tensor, count: torch.Tensor, reduce):
+    """(sum, count) over the whole field: `reduce` sums the (2,) pair
+    across the shards of a sharded field (None: the field is whole)."""
+    return (total, count) if reduce is None else tuple(reduce(torch.stack([total, count])))
+
+
+def sh_reg(sh_coeffs: torch.Tensor, alive: torch.Tensor, reduce=None) -> torch.Tensor:
     """Mean L2 norm of the rest-band SH coefficients over alive Gaussians."""
     norms = safe_norm(sh_coeffs[:, 1:, :], dim=1, keepdim=False)  # (N, 3)
     a = alive.to(norms.dtype)[:, None]
-    return torch.sum(norms * a) / torch.clamp(a.sum() * 3.0, min=1.0)
+    total, count = _sum_count(torch.sum(norms * a), a.sum() * 3.0, reduce)
+    return total / torch.clamp(count, min=1.0)
 
 
-def scale_reg(log_scales: torch.Tensor, alive: torch.Tensor, max_gauss_ratio: float = 10.0) -> torch.Tensor:
+def scale_reg(log_scales: torch.Tensor, alive: torch.Tensor, max_gauss_ratio: float = 10.0,
+              reduce=None) -> torch.Tensor:
     """Anisotropy regularizer: 0.1 * mean over alive Gaussians of
     max(scale ratio, r) - r. amax/amin share the gradient among ties, as
     JAX's max/min reductions do."""
@@ -140,7 +148,8 @@ def scale_reg(log_scales: torch.Tensor, alive: torch.Tensor, max_gauss_ratio: fl
     ratio = torch.amax(s, dim=-1) / torch.clamp(torch.amin(s, dim=-1), min=1e-12)
     penalty = torch.clamp(ratio, min=max_gauss_ratio) - max_gauss_ratio
     a = alive.to(penalty.dtype)
-    return 0.1 * torch.sum(penalty * a) / torch.clamp(a.sum(), min=1.0)
+    total, count = _sum_count(torch.sum(penalty * a), a.sum(), reduce)
+    return 0.1 * total / torch.clamp(count, min=1.0)
 
 
 def psnr(pred: torch.Tensor, gt: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -158,11 +158,14 @@ def train_loss(
     cfg: GaussianSplatConfig,
     probe: Optional[torch.Tensor] = None,
     compositor: Optional[Callable[..., Dict[str, Any]]] = None,
+    field_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Total training loss and aux outputs. `state` holds "field"
     (GaussianParams), "fea_up" (`mlp_apply` params) and, with pose
     optimization, "pose" ((num_cameras, 6) deltas; the batch's "cam_idx"
-    picks the row).
+    picks the row). `field_sum` sums a tensor over the shards of a
+    sharded field (the tile-sharded step's regularizers); None when the
+    field is whole.
 
     batch: image (H, W, 3), depth (H, W), normal (H, W, 3), valid_mask
     (H, W) bool, pair_a / pair_b (G, P, 2) int (row, col), pair_valid
@@ -209,8 +212,9 @@ def train_loss(
         "up_loss": up_loss,
         "depth_loss": depth_loss,
         "normal_loss": normal_l,
-        "sh_reg": reg_on * losses.sh_reg(field.sh_coeffs, alive),
-        "scale_reg": reg_on * losses.scale_reg(field.log_scales, alive, cfg.max_gauss_ratio),
+        "sh_reg": reg_on * losses.sh_reg(field.sh_coeffs, alive, field_sum),
+        "scale_reg": reg_on * losses.scale_reg(field.log_scales, alive, cfg.max_gauss_ratio,
+                                               field_sum),
     }
     if cfg.sky_alpha_reg > 0.0:
         # opt-in: rendered alpha on masked-out (free-space) pixels is pushed to zero
@@ -219,8 +223,9 @@ def train_loss(
             torch.sum(outs["alpha"] * inv) / torch.clamp(inv.sum(), min=1.0))
     total = sum(loss_dict.values())
     bins = outs["bins"]
-    # pairs the stream budget B clipped; table bins have no stream, so 0
-    pair_ovf = bins.pair_overflow
+    # pairs the stream budget B clipped; table bins have no stream, and the
+    # tile-sharded bins report their band budget's clips as merge_overflow: 0
+    pair_ovf = getattr(bins, "pair_overflow", None)
     if pair_ovf is None:
         pair_ovf = torch.zeros((), dtype=torch.int32, device=bins.overflow.device)
     aux = {
@@ -232,6 +237,11 @@ def train_loss(
         "pair_overflow": pair_ovf,
         "alpha": outs["alpha"],
     }
+    # the tile-sharded compositor's gather stats, for the metrics
+    for k in ("gathered_rows", "gather_overflow", "merge_overflow"):
+        v = getattr(bins, k, None)
+        if v is not None:
+            aux[k] = v
     return total, aux
 
 

@@ -4,8 +4,11 @@
         [--output-dir outputs] [--max-iterations 30000] [--device cpu]
 
 The JAX CLI's flags, plus --device (default cuda). Writes
-<output-dir>/<experiment-name>/config.json and checkpoints/; render the run
-with `python -m gaussiangrasper_torch.scripts.render --run-dir <that dir>`.
+<output-dir>/<experiment-name>/config.json and checkpoints/ (several
+--data dirs: scene_<i>/checkpoints); render the run with
+`python -m gaussiangrasper_torch.scripts.render --run-dir <that dir>`.
+`--mesh dp,gauss` trains on dp x gauss ranks, which the CLI starts itself
+(one process a card) unless it runs under torchrun.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--method", type=str, default="gaussian-splatting",
                    help="registered method name (configs/methods.py)")
     p.add_argument("--data", type=Path, required=True, nargs="+",
-                   help="scene dir (several dirs, multi-scene training, are not ported yet)")
+                   help="scene dir; several dirs train the scenes together (shared fea_up), "
+                        "with --mesh over its dp ranks")
     p.add_argument("--dataparser", type=str, default="auto",
                    help="named dataparser (colmap, nerfstudio, blender, instant-ngp, minimal, "
                         "scannet, sdfstudio, arkitscenes, dnerf, phototourism, nuscenes, "
@@ -28,7 +32,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--viewer-port", type=int, default=None,
                    help="live training viewer (not ported yet: raises)")
     p.add_argument("--mesh", type=str, default=None,
-                   help="'dp,gauss' device mesh for sharded training (not ported yet: raises)")
+                   help="'dp,gauss' mesh for sharded training: dp x gauss ranks, one a card "
+                        "(NCCL; gloo with --device cpu), started here unless under torchrun")
+    p.add_argument("--tile-shard", type=str, default="auto", choices=("auto", "on", "off"),
+                   help="with --mesh: composite each camera in bands over the gauss ranks "
+                        "from a frustum-culled all-gather (auto: on when gauss > 1)")
     p.add_argument("--output-dir", type=Path, default=Path("outputs"))
     p.add_argument("--experiment-name", type=str, default="gaussian-splatting")
     p.add_argument("--max-iterations", type=int, default=30000)

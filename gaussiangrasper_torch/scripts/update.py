@@ -15,7 +15,10 @@ The move is a 4x4 matrix (--transform-npy) or two 6-dof poses
 T_before^-1, in the capture frame.
 
     python -m gaussiangrasper_torch.scripts.update --run-dir RUN \\
-        --edit-object obj.npy --transform-npy move.npy [--device cpu]
+        --edit-object obj.npy --transform-npy move.npy [--mesh dp,gauss] [--device cpu]
+
+With --mesh the fine-tune runs through the sharded host loop, as the JAX
+CLI's does.
 """
 
 from __future__ import annotations
@@ -90,12 +93,13 @@ def main(argv=None):
                    help="post-move capture dir (default <data>/../after_updating)")
     p.add_argument("--max-iterations", type=int, default=580)
     p.add_argument("--mesh", type=str, default=None,
-                   help="'dp,gauss' device mesh for a sharded fine-tune (not ported yet: raises)")
+                   help="'dp,gauss' mesh: run the fine-tune through the sharded host loop "
+                        "on dp x gauss ranks (parallel/host_loop.py)")
+    p.add_argument("--tile-shard", type=str, default="auto", choices=("auto", "on", "off"),
+                   help="with --mesh: composite each camera in bands over the gauss ranks "
+                        "(auto: on when gauss > 1)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh (a sharded fine-tune) is not ported to "
-                                  "gaussiangrasper_torch yet (ROADMAP.md, Queue 1 item 3)")
 
     device = resolve_device(args.device)
     config, trainer, state = load_run(args.run_dir, device=device)
@@ -148,7 +152,15 @@ def main(argv=None):
     ft_trainer = make_trainer(ft_config, device=device)
     ft_trainer.setup()
     ft_trainer.state = state
-    state = ft_trainer.train()
+    if args.mesh:
+        from gaussiangrasper_torch.configs.methods import parse_mesh, parse_tile_shard
+        from gaussiangrasper_torch.parallel.host_loop import train_sharded
+
+        dp, gauss = parse_mesh(args.mesh)
+        state = train_sharded(ft_trainer, dp=dp, gauss=gauss,
+                              tile_shard=parse_tile_shard(args.tile_shard))
+    else:
+        state = ft_trainer.train()
     # the step-0 state stays beside the result, as the reference keeps it
     path = ckpt.save_checkpoint(edit_dir / "checkpoints", state, step=9999999,
                                 keep_only_latest=False)

@@ -375,15 +375,44 @@ assert type(resolve_parser(scene)).__name__ == "TransformsJsonParser"
 state = trainer.train()
 assert state.step == 2 and state.pose.shape == (2, 6) and trainer.dm.cameras[0].fx != meta["fl_x"]
 assert float(state.opt["camera_opt"].accum.abs().max()) > 0
+# the sharded and multi-scene modules: the in-process 2-way split of the
+# tile-sharded compositor, one sharded step in a gloo world of one rank,
+# two multi-scene steps
+import dataclasses, torch
+from gaussiangrasper_torch.engine.multi_scene import multi_scene_train_step
+from gaussiangrasper_torch.models.model import render_inputs
+from gaussiangrasper_torch.ops.rasterize import rasterize_projected
+from gaussiangrasper_torch.parallel import comm
+from gaussiangrasper_torch.parallel.tile_shard import composite_tile_split
+from gaussiangrasper_torch.parallel.train import make_sharded_train_step, shard_train_state
+plain = dataclasses.replace(model, pose_opt_mode="off")
+st0 = make_trainer(TrainerConfig(data=scene, output_dir=tmp / "out0", capacity=512, model=plain),
+                   device="cpu").setup()
+cam, batch = trainer.dm.get_batch(0)
+proj, colors, opac, bg = render_inputs(st0.field, st0.alive, cam, 0, plain)
+split = composite_tile_split(proj, colors, opac, bg, cam.width, cam.height, plain.raster, d=2)
+whole = rasterize_projected(proj, colors, opac, bg, cam.width, cam.height, plain.raster)
+assert torch.equal(split["image"], whole["image"])
+(tmp / "store").mkdir()
+mesh = comm.init_world(1, 1, "cpu", store_dir=str(tmp / "store"))
+step = make_sharded_train_step(mesh, plain, 512, tile_shard=True, alive=st0.alive)
+local, metrics = step(shard_train_state(st0, mesh), cam, batch)
+comm.close_world()
+assert local.step == 1 and int(metrics["gathered_rows"]) > 0
+states, _ = multi_scene_train_step([st0, st0], [cam, cam], [batch, batch], plain)
+states, _ = multi_scene_train_step(states, [cam, cam], [batch, batch], plain)
+assert states[1].step == 2
 """
 
 
 def test_port_imports_no_jax_pillow_opencv(tmp_path):
     """The data layer and trainer import, and run, in a process where jax,
     gaussiangrasper_tpu, PIL, cv2 and sklearn cannot be imported: every
-    dataparser on its fixture layout, undistort_image in both branches and
-    two pose-optimization train steps on a distorted capture (an import
-    made inside a function would otherwise slip past)."""
+    dataparser on its fixture layout, undistort_image in both branches,
+    two pose-optimization train steps on a distorted capture, the
+    in-process 2-way split of the tile-sharded compositor, one sharded
+    train step in a gloo world of one rank and two multi-scene steps (an
+    import made inside a function would otherwise slip past)."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -394,6 +423,8 @@ def test_port_imports_no_jax_pillow_opencv(tmp_path):
         "import gaussiangrasper_torch.scripts.train, gaussiangrasper_torch.scripts.render\n"
         "import gaussiangrasper_torch.data.synthetic, gaussiangrasper_torch.data.prefetch\n"
         "import gaussiangrasper_torch.scripts.common, gaussiangrasper_torch.utils.writer\n"
+        "import gaussiangrasper_torch.parallel.host_loop, gaussiangrasper_torch.engine.multi_scene\n"
+        "import gaussiangrasper_torch.scripts.update\n"
         + GUARDED_RUN
     )
     root = Path(__file__).resolve().parent.parent

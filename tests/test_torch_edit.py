@@ -310,9 +310,18 @@ def test_update_finetune_matches_jax(updated):
 
 
 def test_update_mesh_raises(updated, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 3"):
-        tupdate.main(["--run-dir", str(updated["trun"]), "--edit-object", "x.npy",
-                      "--transform-npy", "m.npy", "--mesh", "1,2", "--device", "cpu"])
+    """A mesh whose gauss axis does not divide the capacity raises before
+    any rank starts, as the JAX package's tile_shard.py:150-151 does
+    (tests/test_torch_multi_scene.py runs --mesh 1,2)."""
+    import shutil
+
+    run = tmp_path / "run"
+    shutil.copytree(updated["trun"], run, ignore=shutil.ignore_patterns("edit"))
+    root = updated["trun"].parent.parent
+    with pytest.raises(ValueError, match="capacity 4096 not divisible by gauss=3"):
+        tupdate.main(["--run-dir", str(run), "--edit-object", str(root / "obj.npy"),
+                      "--transform-npy", str(root / "move.npy"), "--after-data",
+                      str(root / "data" / "after"), "--mesh", "1,3", "--device", "cpu"])
 
 
 def test_checkpoint_saved_on_the_card_loads_on_the_cpu(updated, tmp_path):

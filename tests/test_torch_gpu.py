@@ -961,3 +961,64 @@ def test_undistort_on_the_card_matches_cpu(cuda_device, kind, coeffs, size):
         np.testing.assert_array_equal(card, host)
     else:
         assert (diff > 0).mean() <= 1e-3 and diff.max() <= 1
+
+
+@pytest.mark.gpu
+def test_four_way_split_matches_rasterize_projected(cuda_device):
+    """The tile-sharded compositor split four ways in one process (the
+    shard half and the band half four times each, torch.cat for the
+    all-gathers) through K1 / K2 at mid size: image and alpha bit-equal to
+    `rasterize_projected`'s, the per-Gaussian gradients within K2's
+    criterion (1e-4 of each group's max); four K1 and four K2 launches."""
+    from gaussiangrasper_torch.ops.rasterize import rasterize_projected
+    from gaussiangrasper_torch.parallel.tile_shard import composite_tile_split
+
+    w, h = 400, 300
+    field, alive, cam = _scene(cuda_device, w=w, h=h)
+    cfg = GaussianSplatConfig()
+    proj, colors, opac, bg = render_inputs(field, alive, cam, STEP, cfg)
+    rng = np.random.default_rng(3)
+    g_img = torch.as_tensor(rng.standard_normal((h, w, colors.shape[1]), np.float32),
+                            device=cuda_device)
+
+    def run(composite):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (proj.xys, proj.conics, opac,
+                                                                   colors)]
+        out = composite(proj._replace(xys=leaves[0], conics=leaves[1]), leaves[3], leaves[2])
+        loss = (out["image"] * g_img).sum() + 0.5 * out["alpha"].sum()
+        return out, torch.autograd.grad(loss, leaves)
+
+    before = (rc.composite_pairs_fwd.launches, rc.composite_pairs_bwd.launches)
+    split, g_split = run(lambda p, c, o: composite_tile_split(p, c, o, bg, w, h, cfg.raster, d=4))
+    torch.cuda.synchronize()
+    launches = (rc.composite_pairs_fwd.launches - before[0],
+                rc.composite_pairs_bwd.launches - before[1])
+    whole, g_whole = run(lambda p, c, o: rasterize_projected(p, c, o, bg, w, h, cfg.raster))
+    assert launches == (4, 4)
+    assert torch.equal(split["image"], whole["image"]) and torch.equal(split["alpha"], whole["alpha"])
+    assert int(split["bins"].gather_overflow) == int(split["bins"].merge_overflow) == 0
+    got = torch.cat([g_split[0], g_split[1], g_split[2][:, None], g_split[3]], 1)
+    want = torch.cat([g_whole[0], g_whole[1], g_whole[2][:, None], g_whole[3]], 1)
+    _assert_grads_close(got, want, colors.shape[1])
+
+
+@pytest.mark.gpu
+def test_train_cli_mesh_one_rank(cuda_device, tmp_path):
+    """`ggt-torch-train --mesh 1,1 --tile-shard on`: a real NCCL world of
+    one rank trains two steps through the band path (one K1 and one K2
+    launch a step) and closes its world."""
+    from gaussiangrasper_torch.data.synthetic import generate_tabletop
+    from gaussiangrasper_torch.scripts import train
+
+    scene = generate_tabletop(tmp_path / "scene", width=64, height=48, n_views=4,
+                              feature_downscale=2)
+    before = (rc.composite_pairs_fwd.launches, rc.composite_pairs_bwd.launches)
+    trainer = train.main(["--data", str(scene), "--output-dir", str(tmp_path / "out"),
+                          "--max-iterations", "2", "--capacity", "4096", "--mesh", "1,1",
+                          "--tile-shard", "on"])
+    torch.cuda.synchronize()
+    assert (rc.composite_pairs_fwd.launches - before[0],
+            rc.composite_pairs_bwd.launches - before[1]) == (2, 2)
+    assert trainer.state.step == 2 and not torch.distributed.is_initialized()
+    assert all(bool(torch.isfinite(x).all()) for x in trainer.state.field)
+    assert (tmp_path / "out" / "gaussian-splatting" / "checkpoints" / "step_000000002.pt").exists()

@@ -181,8 +181,7 @@ def test_unported_options_raise(scene, tmp_path, monkeypatch):
         get_method("nerfacto")
     with pytest.raises(KeyError):
         get_method("no-such-method")
-    for extra in (["--viewer-port", "7007"], ["--profiler", "trace"], ["--mesh", "1,2"],
-                  ["--data", str(scene), str(scene)]):
+    for extra in (["--viewer-port", "7007"], ["--profiler", "trace"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             t_train_cli.main([*common, *extra])
     # the CLI goes to the card by default and never falls back to the CPU
