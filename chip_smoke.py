@@ -127,6 +127,23 @@ Phases, one JSON line each:
            step-0 loss beside a single-scene Trainer's (within
            STEP0_LOSS_RTOL), fea_up equal across the scenes, ms per step,
            400 K1 + 400 K2 launches, both scene checkpoints rendered
+  tools    the capture and viewing tools on trainer's run and tabletop, each
+           with every launch count set to 0 just before: `ggt-torch-render
+           --traj interpolate` (6 x 7 + 1 frames) and `--traj spiral` (16),
+           each frame equal to a direct render of its path camera;
+           `ggt-torch-train --profiler trace` for 20 steps (the Chrome
+           trace's step ranges 12..16, K1 / K2 kernels in it, its top 5
+           kernels); the viewer over the run's state on an ephemeral port
+           (/scene, /render in four modes at 320x240 and 800x600, the rgb
+           frame within JPEG q85's error of a direct render, a crop box
+           hiding half the scene, /render_path of 8 frames, /export.ply),
+           then `ggt-torch-train --viewer-port` for 30 steps with a client
+           asking a frame every 100 ms (step-0 loss equal to trainer's, the
+           renders' share of wall time); `ggt-torch-generate-data` on the
+           tabletop's views as an RGB-D capture (the cloud's size, the
+           normals against the ray tracer's, the result parsed and trained
+           20 steps); a seeded 1024x512 panorama's 8 crops on the card
+           against the CPU path, bit-equal, ms a crop
 Then the kernels line (nine kernels), the nvidia-smi line and, last, the
 ok line. Any
 failure exits non-zero without the ok line. Without a card, or outside a
@@ -2078,6 +2095,390 @@ def e2e_small_phase() -> dict:
     return row
 
 
+# --- tools: camera paths, the device trace, the viewer, capture -> dataset, equirect ------
+
+TRAJ_SPIRAL_FRAMES = 16
+TRACE_STEPS = 20  # the trace covers steps 12..16
+VIEWER_TRAIN_STEPS = 30
+VIEWER_POLL_S = 0.1  # the client's frame request interval while the trainer runs
+VIEWER_SIZE = (320, 240)  # the live viewer's frame (serve_in_background's default)
+VIEWER_RES = 800  # the frame width of the /render requests with `res`
+GEN_SUBSAMPLE = 32  # every 32nd valid pixel seeds the generated capture's cloud
+GEN_TRAIN_STEPS = 20
+GEN_NORMAL_MEDIAN_DEG_MAX = 2.0  # generated normals against the ray tracer's own
+# the viewer's rgb frame (JPEG q85) against a direct render of its pose, in grey
+# levels over pixels and channels: q85 moves a smooth frame by about a level on
+# average and by tens at sharp edges; another pose or mode, or a black frame, is
+# off by tens on average
+JPEG_Q85_MEAN_MAX = 3.0
+JPEG_Q85_MAX = 128
+EQUIRECT_SIZE = (512, 1024)  # a seeded panorama, height x width
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http(url: str, body=None, timeout: float = 120) -> bytes:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=None if body is None else json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read()
+
+
+def tools_traj(run: Path, state, cfg, parsed, tmp: Path, seconds: dict, counts: dict) -> dict:
+    """render --traj interpolate and spiral on the run: frame counts, each
+    frame equal to a direct render of its path camera on the card, the
+    direct render's ms a frame."""
+    import torch
+    from gaussiangrasper_torch.core.cameras import Camera
+    from gaussiangrasper_torch.scripts import render
+    from gaussiangrasper_torch.utils.image_io import read_png
+
+    out = {}
+    for kind in ("interpolate", "spiral"):
+        name = f"render_traj_{kind}"
+        d = tmp / name
+        counted_cli(seconds, counts, name, render.main,
+                    ["--run-dir", run, "--traj", kind, "--num-views", TRAJ_SPIRAL_FRAMES,
+                     "--output", d])
+        frames = sorted((d / "traj").glob("*.png"))
+        path = render.trajectory(parsed, kind, TRAJ_SPIRAL_FRAMES)
+        want = 6 * (len(parsed) - 1) + 1 if kind == "interpolate" else TRAJ_SPIRAL_FRAMES
+        ms, unequal = [], 0
+        for f, pc in zip(frames, path):
+            cam = Camera.create(pc.fx, pc.fy, pc.cx, pc.cy, pc.camera_to_world, pc.width,
+                                pc.height, device=state.field.means.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rgb = render.render_view(state, cam, cfg)["rgb"]
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            unequal += not np.array_equal(read_png(f), render._to_u8(rgb.cpu().numpy()))
+        out[kind] = {"frames": len(frames), "want": want, "frames_unequal": unequal,
+                     "cli_s": seconds[name], "render_ms_median": float(np.median(ms)),
+                     "launches": counts[name]}
+        if len(frames) != want or len(path) != want or unequal or counts[name]["k1"] != want:
+            raise RuntimeError(f"tools render --traj {kind}: {out[kind]}")
+        shutil.rmtree(d)
+    return out
+
+
+def tools_trace(scene: Path, tmp: Path, seconds: dict, counts: dict) -> dict:
+    """ggt-torch-train --profiler trace for TRACE_STEPS steps: the Chrome
+    trace exists, its step ranges are 12..16, K1 and K2 launch in it at
+    least once a traced step; its top 5 kernels by device time."""
+    from gaussiangrasper_torch.scripts import train
+
+    counted_cli(seconds, counts, "trace", train.main,
+                ["--data", scene, "--max-iterations", TRACE_STEPS, "--capacity", CAPACITY,
+                 "--steps-per-save", TRACE_STEPS, "--output-dir", tmp / "trace", "--profiler",
+                 "trace"])
+    traces = list((tmp / "trace" / "gaussian-splatting" / "profiler_traces").iterdir())
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    steps = sorted({e["name"] for e in events if e.get("name", "").startswith("train_step#")},
+                   key=lambda s: int(s.split("#")[1]))
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e.get("dur", 0.0) / 1e3
+    n_k1 = sum("composite_pairs_fwd_kernel" in e["name"] for e in kernels)
+    n_k2 = sum("composite_pairs_bwd_kernel" in e["name"] for e in kernels)
+    out = {"file": traces[0].name, "bytes": traces[0].stat().st_size, "steps": steps,
+           "kernel_events": len(kernels), "k1_kernels": n_k1, "k2_kernels": n_k2,
+           "device_ms": sum(by_name.values()),
+           "top5_device_ms": [[k[:80], v] for k, v in
+                              sorted(by_name.items(), key=lambda kv: -kv[1])[:5]],
+           "cli_s": seconds["trace"], "launches": counts["trace"]}
+    if (len(traces) != 1 or steps != [f"train_step#{i}" for i in range(12, 17)] or n_k1 < 5
+            or n_k2 < 5 or counts["trace"]["k1"] != TRACE_STEPS
+            or counts["trace"]["k2"] != TRACE_STEPS):
+        raise RuntimeError(f"tools trace: {out}")
+    shutil.rmtree(tmp / "trace")
+    return out
+
+
+def tools_viewer(scene: Path, run: Path, trainer, tmp: Path, trainer_row: dict, seconds: dict,
+                 counts: dict) -> dict:
+    """The viewer over the run's state on an ephemeral port: /scene, /render
+    in each mode at the default size and at res 800 (the rgb frame within
+    JPEG q85's error of a direct render of the pose), the crop box hiding
+    half the scene, /render_path, /export.ply; then ggt-torch-train
+    --viewer-port for VIEWER_TRAIN_STEPS steps with a client asking a frame
+    every VIEWER_POLL_S."""
+    import threading
+
+    import torch
+    from gaussiangrasper_torch.core.cameras import Camera
+    from gaussiangrasper_torch.engine import train_state
+    from gaussiangrasper_torch.models.model import render as render_fn
+    from gaussiangrasper_torch.scripts import train, viewer
+    from gaussiangrasper_torch.scripts.export_ply import read_gaussian_ply
+    from gaussiangrasper_torch.utils.image_io import read_jpeg
+
+    state, cfg = trainer.state, trainer.config.model
+    means = state.field.means[state.alive]
+    center = means.median(0).values.cpu().numpy().astype(np.float64)
+    cams = np.stack([np.asarray(c.camera_to_world)[:3, 3] for c in trainer.dm.cameras])
+    up = cams.mean(0) - center
+    eye = center + 2.5 * up / np.linalg.norm(up)
+    pose = {"eye": eye.tolist(), "center": center.tolist(), "up": [0.0, 1.0, 0.0]}
+    right = viewer.look_at(eye, center, [0.0, 1.0, 0.0])[:, 0]
+    axis = int(np.argmax(np.abs(right)))
+    # the crop box keeping the Gaussians on the image's left of the centre
+    lo, hi = [-1e9] * 3, [1e9] * 3
+    if right[axis] > 0:
+        hi[axis] = float(center[axis])
+    else:
+        lo[axis] = float(center[axis])
+    out = {"pose": pose, "crop_axis": axis}
+
+    w, h = VIEWER_SIZE
+    big = (VIEWER_RES * h // w, VIEWER_RES, 3)
+
+    def checks(_argv):
+        srv = viewer.serve_in_background(lambda: state, cfg, 0, w, h,
+                                         scene_info=viewer.scene_info_from_dm(trainer.dm),
+                                         out_dir=tmp / "viewer_frames")
+        srv.throttle.training = False  # no trainer here
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            info = json.loads(http(base + "/scene"))
+            out["scene_cameras"], out["scene_points"] = len(info["cameras"]), len(info["points"])
+            frames, ms = {}, {}
+            for res in (w, VIEWER_RES):
+                for mode in ("rgb", "depth", "normal", "feature"):
+                    t0 = time.perf_counter()
+                    jpeg = http(base + "/render", {**pose, "mode": mode, "res": res})
+                    ms[f"{mode}_{res}"] = 1e3 * (time.perf_counter() - t0)
+                    frames[f"{mode}_{res}"] = read_jpeg(jpeg)
+            out["frame_shapes"] = {k: list(v.shape) for k, v in frames.items()}
+            out["http_ms_a_frame"] = ms
+            cam = Camera.create(0.7 * w, 0.7 * w, w / 2, h / 2,
+                                viewer.look_at(eye, center, [0.0, 1.0, 0.0]), w, h,
+                                device=state.field.means.device)
+            with torch.no_grad():
+                rgb = render_fn(state.field, state.alive, cam, state.step, cfg)["rgb"]
+            direct = (np.clip(rgb.cpu().numpy(), 0, 1) * 255).astype(np.uint8).astype(np.int64)
+            diff = np.abs(frames[f"rgb_{w}"].astype(np.int64) - direct)
+            out["rgb_vs_direct"] = {"mean_abs": float(diff.mean()), "max_abs": int(diff.max()),
+                                    "bound_mean": JPEG_Q85_MEAN_MAX, "bound_max": JPEG_Q85_MAX}
+            full = frames[f"rgb_{w}"].astype(np.float64)
+            left_only = read_jpeg(http(base + "/render", {**pose, "crop_min": lo, "crop_max": hi}))
+            left_only = left_only.astype(np.float64)
+            sums = {"full_left": full[:, :w // 2].sum(), "full_right": full[:, w // 2:].sum(),
+                    "crop_left": left_only[:, :w // 2].sum(),
+                    "crop_right": left_only[:, w // 2:].sum()}
+            out["crop_sums"] = sums
+            out["crop_means"] = [float(full.mean()), float(left_only.mean())]
+            job = json.loads(http(base + "/render_path", {
+                "keyframes": [pose, {**pose, "eye": (eye + 0.3 * right).tolist()}],
+                "n_frames": 7, "mode": "rgb", "res": w}))
+            out["render_path_frames"] = job["n"]
+            last = read_jpeg(http(base + "/frames/" + job["frames"][-1]))
+            ply = tmp / "viewer_export.ply"
+            ply.write_bytes(http(base + "/export.ply"))
+            out["export_ply_rows"] = int(read_gaussian_ply(ply)["means"].shape[0])
+            out["renders"] = srv.throttle.renders
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        bad = []
+        if out["scene_cameras"] != len(trainer.dm) or not out["scene_points"]:
+            bad.append("scene")
+        for k, f in frames.items():
+            want = (h, w, 3) if k.endswith(f"_{w}") else big
+            if f.shape != want or f.std() == 0:
+                bad.append(k)
+        if diff.mean() > JPEG_Q85_MEAN_MAX or diff.max() > JPEG_Q85_MAX:
+            bad.append("rgb_vs_direct")
+        if not (sums["crop_right"] < 0.25 * sums["full_right"]
+                and sums["crop_left"] > 0.5 * sums["full_left"]):
+            bad.append("crop")
+        if job["n"] != 8 or last.shape != (h, w, 3):
+            bad.append("render_path")
+        if out["export_ply_rows"] != int(state.alive.sum()):
+            bad.append("export_ply")
+        if bad:
+            raise RuntimeError(f"tools viewer: {bad}: {out}")
+
+    counted_cli(seconds, counts, "viewer", checks, [])
+    out["launches"] = counts["viewer"]
+    # every frame the server rendered, and the direct render
+    if counts["viewer"]["k1"] != out["renders"] + 1 or counts["viewer"]["k2"]:
+        raise RuntimeError(f"tools viewer: launches {counts['viewer']}, renders {out['renders']}")
+
+    # the trainer's live viewer: a client asks a frame every VIEWER_POLL_S
+    port = free_port()
+    done, got, errors = threading.Event(), [], []
+
+    def client():
+        while not done.is_set():
+            try:
+                got.append(read_jpeg(http(f"http://127.0.0.1:{port}/render",
+                                          {**pose, "mode": "rgb", "res": w}, timeout=30)).shape)
+            except OSError as e:  # the server is not up yet, or shut down
+                errors.append(type(e).__name__)
+            time.sleep(VIEWER_POLL_S)
+
+    steps = []
+    step_fn = train_state.train_step
+    train_state.train_step = timed_train_step(step_fn, steps)
+    th = threading.Thread(target=client, daemon=True)
+    th.start()
+    try:
+        live = counted_cli(seconds, counts, "viewer_train", train.main,
+                           ["--data", scene, "--max-iterations", VIEWER_TRAIN_STEPS, "--capacity",
+                            CAPACITY, "--steps-per-save", VIEWER_TRAIN_STEPS, "--output-dir",
+                            tmp / "viewer_train", "--viewer-port", port])
+    finally:
+        train_state.train_step = step_fn
+        done.set()
+        th.join(timeout=60)
+    throttle = live.viewer.throttle
+    loss0, want0 = steps[0][2], trainer_row["losses"][0]
+    out["train"] = {"steps": len(steps), "frames_served": throttle.renders,
+                    "frames_received": len(got), "client_errors": len(errors),
+                    "render_s": throttle.render_s, "wall_s": seconds["viewer_train"],
+                    "render_share_of_wall": throttle.render_s / seconds["viewer_train"],
+                    "train_util": throttle.train_util,
+                    "ms_per_step_median": float(np.median([ms for _, ms, _, _ in steps])),
+                    "step0_loss": [loss0, want0],
+                    "step0_rel_diff": abs(loss0 - want0) / abs(want0),
+                    "launches": counts["viewer_train"]}
+    # two threads launch K1 here, and an increment of its count that one of
+    # them interrupts may be lost: the count lies between the steps and the
+    # steps plus the frames
+    k1 = counts["viewer_train"]["k1"]
+    if (len(steps) != VIEWER_TRAIN_STEPS or not got or any(s != (h, w, 3) for s in got)
+            or out["train"]["step0_rel_diff"] != 0.0
+            or counts["viewer_train"]["k2"] != VIEWER_TRAIN_STEPS
+            or not VIEWER_TRAIN_STEPS < k1 <= VIEWER_TRAIN_STEPS + throttle.renders):
+        raise RuntimeError(f"tools viewer_train: {out['train']}")
+    shutil.rmtree(tmp / "viewer_train")
+    return out
+
+
+def raw_capture(scene: Path, out: Path) -> Path:
+    """The tabletop's views as an RGB-D capture: color/, depth/*.npy (its
+    z-depth), poses/*.npy (OpenCV camera-to-world) and intrinsics.json."""
+    meta = json.loads((scene / "transforms.json").read_text())
+    for d in ("color", "depth", "poses"):
+        (out / d).mkdir(parents=True, exist_ok=True)
+    (out / "intrinsics.json").write_text(json.dumps({
+        "fx": meta["fl_x"], "fy": meta["fl_y"], "cx": meta["cx"], "cy": meta["cy"],
+        "width": meta["w"], "height": meta["h"]}))
+    for fr in meta["frames"]:
+        stem = Path(fr["file_path"]).stem
+        shutil.copy(scene / fr["file_path"], out / "color" / f"{stem}.png")
+        shutil.copy(scene / "depths" / f"{stem}.npy", out / "depth" / f"{stem}.npy")
+        c2w = np.asarray(fr["transform_matrix"], np.float64)
+        c2w[:3, 1:3] *= -1.0  # OpenGL -> OpenCV
+        np.save(out / "poses" / f"{stem}.npy", c2w)
+    return out
+
+
+def tools_generate_data(scene: Path, tmp: Path, seconds: dict, counts: dict) -> dict:
+    """ggt-torch-generate-data on the tabletop's views as a raw capture:
+    the cloud's size against a count on the host, the normals against the
+    ray tracer's, the result read by the port's dataparser and trained for
+    GEN_TRAIN_STEPS steps."""
+    from gaussiangrasper_torch.data.dataparsers.zoo import resolve_parser
+    from gaussiangrasper_torch.scripts import generate_data, train
+
+    cap = raw_capture(scene, tmp / "raw_capture")
+    out_dir = tmp / "generated"
+    res = counted_cli(seconds, counts, "generate_data", generate_data.main,
+                      ["--capture", cap, "--output", out_dir, "--subsample", GEN_SUBSAMPLE])
+    want, angles = 0, []
+    for f in sorted((cap / "depth").iterdir()):
+        depth = np.load(f)
+        valid = (depth > np.float32(0.05)) & (depth < np.float32(3.0))
+        want += -(-int(valid.sum()) // GEN_SUBSAMPLE)
+        i = sorted((cap / "depth").iterdir()).index(f)
+        got = np.load(out_dir / "normals" / f"frame_{i:05d}.npy")
+        ref = np.load(scene / "normals" / f.name)
+        inner = np.zeros_like(valid)
+        inner[1:-1, 1:-1] = valid[1:-1, 1:-1]
+        cos = np.clip(np.sum(got[inner] * ref[inner], -1), -1.0, 1.0)
+        angles.append(np.degrees(np.arccos(cos)))
+    angles = np.concatenate(angles)
+    parsed = resolve_parser(out_dir).parse()
+    counted_cli(seconds, counts, "generate_data_train", train.main,
+                ["--data", out_dir, "--max-iterations", GEN_TRAIN_STEPS, "--capacity", CAPACITY,
+                 "--steps-per-save", GEN_TRAIN_STEPS, "--output-dir", tmp / "generated_run"])
+    out = {"points": res["points"], "points_want": want, "frames": res["frames"],
+           "normal_angle_deg": {"median": float(np.median(angles)),
+                                "p90": float(np.percentile(angles, 90)),
+                                "bound_median": GEN_NORMAL_MEDIAN_DEG_MAX},
+           "parsed_cameras": len(parsed.cameras), "parsed_seed_points": len(parsed.seed_points[0]),
+           "cli_s": seconds["generate_data"], "train_s": seconds["generate_data_train"],
+           "train_launches": counts["generate_data_train"]}
+    if (res["points"] != want or out["normal_angle_deg"]["median"] > GEN_NORMAL_MEDIAN_DEG_MAX
+            or len(parsed.cameras) != res["frames"] or len(parsed.seed_points[0]) != want
+            or counts["generate_data_train"]["k1"] != GEN_TRAIN_STEPS
+            or counts["generate_data_train"]["k2"] != GEN_TRAIN_STEPS):
+        raise RuntimeError(f"tools generate_data: {out}")
+    for d in ("raw_capture", "generated", "generated_run"):
+        shutil.rmtree(tmp / d)
+    return out
+
+
+def tools_equirect(device) -> dict:
+    """A seeded panorama's crops on the card against the CPU path, bit for
+    bit, and the card's ms a crop."""
+    import torch
+    from gaussiangrasper_torch.data import equirect
+
+    h, w = EQUIRECT_SIZE
+    pano = np.random.default_rng(11).integers(0, 256, (h, w, 3), dtype=np.uint8)
+    fov, pairs = equirect.sampling_pattern(8)
+    size = equirect.crop_resolution((h, w), len(pairs))
+    on_card = torch.as_tensor(pano, device=device)
+    ms, unequal = [], 0
+    for yaw, pitch in pairs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = equirect.equirect_to_perspective(on_card, fov, yaw, pitch, size)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        host = equirect.equirect_to_perspective(pano, fov, yaw, pitch, size)
+        unequal += int((card.cpu() != host).sum())
+    out = {"panorama": [h, w], "crops": len(pairs), "crop": list(size), "fov": fov,
+           "samples_unequal": unequal, "ms_a_crop_median": float(np.median(ms)),
+           "ms_first_crop": ms[0]}
+    if unequal:
+        raise RuntimeError(f"tools equirect: card against the CPU: {out}")
+    return out
+
+
+def tools_phase(scene: Path, run: Path, tmp: Path, trainer_row: dict, device) -> dict:
+    """The capture and viewing tools on trainer's run and tabletop, one
+    JSON line; every launch count set to 0 just before each tool."""
+    from gaussiangrasper_torch.scripts.common import load_run
+
+    t0 = time.perf_counter()
+    seconds, counts = {}, {}
+    _, trainer, _ = load_run(run, device=device)
+    row = {"phase": "tools"}
+    row["render_traj"] = tools_traj(run, trainer.state, trainer.config.model, trainer.dm.cameras,
+                                    tmp, seconds, counts)
+    row["trace"] = tools_trace(scene, tmp, seconds, counts)
+    row["viewer"] = tools_viewer(scene, run, trainer, tmp, trainer_row, seconds, counts)
+    del trainer
+    row["generate_data"] = tools_generate_data(scene, tmp, seconds, counts)
+    row["equirect"] = tools_equirect(device)
+    row["launches"] = counts
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
 def serve_phase(device, cfg) -> dict:
     """Full-width run directory through the render and query CLIs."""
     import torch
@@ -2300,6 +2701,9 @@ def main() -> int:
         shutil.rmtree(Path(tmp) / "sharded")
         torch.cuda.empty_cache()
         edit = edit_phase(scene, Path(tmp) / "tp1" / "gaussian-splatting", Path(tmp))
+        torch.cuda.empty_cache()
+        tools = tools_phase(scene, Path(tmp) / "tp1" / "gaussian-splatting", Path(tmp), trainer,
+                            device)
         shutil.rmtree(Path(tmp) / "tp1")
         torch.cuda.empty_cache()
         capture = capture_phase(scene, Path(tmp), trainer, device)
@@ -2347,7 +2751,10 @@ def main() -> int:
                        "sharded_render": sharded["launches_render"]["k1"],
                        "multi_scene": multi["launches_train"]["k1"],
                        **{f"multi_scene_render_{i}": multi["launches_render"][i]["k1"]
-                          for i in range(2)}}),
+                          for i in range(2)},
+                       **{f"tools_{n}": tools["launches"][n]["k1"] for n in
+                          ("render_traj_interpolate", "render_traj_spiral", "trace", "viewer",
+                           "viewer_train", "generate_data_train")}}),
          "c71": c71_row(full71), "dense_tile": {k: dense[k] for k in ("max_abs_err", "ms")}},
         {**kernel_row("composite_pairs_bwd", "composite_pairs_bwd",
                       "rasterize_pallas.py:600 (_bwd_pairs_kernel)", full2,
@@ -2361,7 +2768,9 @@ def main() -> int:
                           for n in ("train", "grasp_sweep", "update")},
                        "sharded_split": split["launches"]["k2"],
                        "sharded_train": sharded["launches_train"]["k2"],
-                       "multi_scene": multi["launches_train"]["k2"]}),
+                       "multi_scene": multi["launches_train"]["k2"],
+                       **{f"tools_{n}": tools["launches"][n]["k2"] for n in
+                          ("trace", "viewer_train", "generate_data_train")}}),
          "c71": c71_row(full2_71)},
         kernel_row("composite_pairs_fwd2", "composite_pairs_fwd",
                    "rasterize_pallas.py:1059 (_fwd_pairs2_kernel)", full5,

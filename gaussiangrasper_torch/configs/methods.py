@@ -5,7 +5,7 @@ Several `--data` dirs train the scenes together (engine/multi_scene.py;
 with `--mesh dp,gauss`, over dp ranks), one dir with `--mesh` trains
 sharded (parallel/host_loop.py). The JAX package's NeRF zoo and
 generfacto are not ported yet: their names raise NotImplementedError
-(ROADMAP.md, Queue 1 item 4).
+(ROADMAP.md, Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -95,7 +95,7 @@ METHODS: Dict[str, Callable] = {"gaussian-splatting": _gaussian_splatting}
 def get_method(name: str) -> Callable:
     if name in NOT_PORTED:
         raise NotImplementedError(f"method {name!r} is not ported to gaussiangrasper_torch yet "
-                                  "(ROADMAP.md, Queue 1 item 4: the NeRF zoo)")
+                                  "(ROADMAP.md, Queue 1 item 3: the NeRF zoo)")
     if name not in METHODS:
         raise KeyError(f"unknown method {name!r}; have {sorted(METHODS)}")
     return METHODS[name]

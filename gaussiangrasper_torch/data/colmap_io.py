@@ -1,5 +1,6 @@
-"""Readers for the public COLMAP sparse-reconstruction formats (a copy of
-the JAX package's data/colmap_io.py, numpy only).
+"""Readers for the public COLMAP sparse-reconstruction formats, and the
+three text writers (a copy of the JAX package's data/colmap_io.py, numpy
+only).
 
 The documented COLMAP binary/text layouts (cameras, images, points3D),
 written from the format spec; host-side only.

@@ -8,11 +8,10 @@ which picks its pose delta when `model.pose_opt_mode` is not "off"),
 `train_step`, the non-finite check every 10 steps, `refine_step` every
 `refine_every` steps, metrics and a checkpoint every `steps_per_save` steps
 and at the end. All device work is in `train_state.train_step` /
-`train_state.refine_step`.
-
-Not ported yet (each raises NotImplementedError): the live viewer
-(`viewer_port`) and the device trace (`profiler="trace"`), ROADMAP.md Queue 1
-item 5.
+`train_state.refine_step`. `viewer_port` serves the live state through
+`scripts/viewer.py` while the loop runs (renders time-shared with
+training); `profiler="trace"` writes a `torch.profiler` trace of steps
+12..16 under `<run_dir>/profiler_traces/`.
 """
 
 from __future__ import annotations
@@ -62,10 +61,10 @@ class TrainerConfig:
     prefetch: bool = True
     """Prepare the next host batches on a worker thread."""
     viewer_port: Optional[int] = None
-    """The live training viewer: not ported yet, raises."""
+    """Serve the live state on this port (scripts/viewer.py) while training."""
     load_dir: Optional[Path] = None
     profiler: str = "none"
-    """"trace" (a device trace of steps 12..16): not ported yet, raises."""
+    """"trace": a torch.profiler trace of steps 12..16 (utils/profiler.py)."""
     dataparser: str = "auto"
     """Named dataparser from data/dataparsers/zoo.py, or auto-detect."""
     model: GaussianSplatConfig = dataclasses.field(default_factory=GaussianSplatConfig)
@@ -77,16 +76,6 @@ class TrainerConfig:
     @property
     def ckpt_dir(self) -> Path:
         return self.run_dir / "checkpoints"
-
-
-def check_supported(cfg: TrainerConfig) -> None:
-    """Raise for the options the port does not run yet."""
-    if cfg.viewer_port is not None:
-        raise NotImplementedError("the live training viewer is not ported to gaussiangrasper_torch "
-                                  "yet (ROADMAP.md, Queue 1 item 5)")
-    if cfg.profiler != "none":
-        raise NotImplementedError(f"profiler={cfg.profiler!r} is not ported to "
-                                  "gaussiangrasper_torch yet (ROADMAP.md, Queue 1 item 5)")
 
 
 def _downscale_factor(cfg: GaussianSplatConfig, step: int) -> int:
@@ -139,13 +128,15 @@ def _config_payload(cfg: TrainerConfig) -> dict:
 
 class Trainer:
     def __init__(self, config: TrainerConfig, datamanager: FullImageDatamanager):
-        check_supported(config)
         self.config = config
         self.dm = datamanager
         self.writer: Optional[MetricsWriter] = None
         self.state: Optional[TrainState] = None
         self.data_wait_s: List[float] = []
         """Host seconds each step of the last `train` waited on its batch."""
+        self.viewer = None
+        """The live viewer's server while `train` runs with `viewer_port`
+        (its `.throttle` keeps the renders' share of wall time)."""
 
     @property
     def device(self) -> torch.device:
@@ -241,8 +232,21 @@ class Trainer:
         self.data_wait_s = []
         start = state.step
         t0 = time.perf_counter()
+        viewer = tracer = None
         try:
+            if cfg.viewer_port is not None:
+                from gaussiangrasper_torch.scripts.viewer import scene_info_from_dm, serve_in_background
+
+                viewer = self.viewer = serve_in_background(
+                    lambda: self.state, mcfg, cfg.viewer_port,
+                    scene_info=scene_info_from_dm(self.dm), out_dir=cfg.run_dir / "renders")
+            if cfg.profiler == "trace":
+                from gaussiangrasper_torch.utils.profiler import TraceCapture
+
+                tracer = TraceCapture(cfg.run_dir / "profiler_traces", device=self.device)
             for step in range(start, cfg.max_iterations):
+                if tracer is not None:
+                    tracer.maybe_step(step)
                 t_wait = time.perf_counter()
                 cam_idx, cam, batch = source.next_train()
                 self.data_wait_s.append(time.perf_counter() - t_wait)
@@ -271,8 +275,14 @@ class Trainer:
                 if (step + 1) % cfg.steps_per_save == 0 or step + 1 == cfg.max_iterations:
                     print(f"saved {ckpt.save_checkpoint(cfg.ckpt_dir, state)}")
         finally:
+            if tracer is not None:
+                tracer.close()
             if prefetcher is not None:
                 prefetcher.close()
+            if viewer is not None:
+                viewer.throttle.training = False
+                viewer.shutdown()
+                viewer.server_close()
         dt = time.perf_counter() - t0
         steps_done = cfg.max_iterations - start
         if steps_done:

@@ -11,12 +11,12 @@ cameras.npz). For up to --num-views of its views, writes
                        dataparser rotation
   depth/<i>.npy/.png   metric (divided by the dataparser scale), JET
 plus metrics.json (psnr, ssim, psnr_masked, depth_mae, normal_cos) for the
-views whose ground truth cameras.npz holds.
+views whose ground truth cameras.npz holds. With --traj interpolate (6
+frames from each view towards the next, over every view) or --traj spiral
+(--num-views frames around view 0) it renders the camera path's rgb alone
+into traj/<i>.png instead.
 
-    python -m gaussiangrasper_torch.scripts.render --run-dir RUN [--device cpu]
-
-Camera-path trajectories (--traj interpolate / spiral) are not ported yet
-(ROADMAP.md, Queue 1 item 5) and raise.
+    python -m gaussiangrasper_torch.scripts.render --run-dir RUN [--traj spiral] [--device cpu]
 """
 
 from __future__ import annotations
@@ -30,7 +30,9 @@ import numpy as np
 import torch
 
 from gaussiangrasper_torch._device import resolve_device
+from gaussiangrasper_torch.core.camera_paths import interpolate_path, spiral_path
 from gaussiangrasper_torch.core.cameras import Camera
+from gaussiangrasper_torch.data.dataparsers.base import ParsedCamera
 from gaussiangrasper_torch.engine.checkpoint import CHECKPOINT, GT_KEYS, load_cameras, load_run
 from gaussiangrasper_torch.engine.weights import ServeState
 from gaussiangrasper_torch.models import losses
@@ -80,7 +82,8 @@ def load_trainer_run(run_dir: Path, num_views: int, device, step: Optional[int] 
                      ) -> Tuple[GaussianSplatConfig, ServeState, str, List[Camera], Dict]:
     """A trainer run as the serving route takes it: (model config, state,
     experiment name, the first `num_views` dataset cameras, their ground
-    truth and the dataparser scale and transform)."""
+    truth, the dataparser scale and transform, and every view's
+    `ParsedCamera` under "cameras")."""
     from gaussiangrasper_torch.scripts.common import load_run as load_trainer
 
     config, trainer, tstate = load_trainer(run_dir, step=step, data_override=data_dir,
@@ -94,7 +97,28 @@ def load_trainer_run(run_dir: Path, num_views: int, device, step: Optional[int] 
     data = {k: [v[k] for v in views] for k in GT_KEYS}
     data["dataparser_scale"] = dm.outputs.dataparser_scale
     data["dataparser_transform"] = dm.outputs.dataparser_transform
+    data["cameras"] = list(dm.cameras)
     return config.model, state, config.experiment_name, [dm.camera(i) for i in range(n)], data
+
+
+def trajectory(cameras: List[ParsedCamera], kind: str, num_views: int) -> List[ParsedCamera]:
+    """The JAX render tool's paths: 6 steps a transition over every view
+    ("interpolate"), or `num_views` frames around view 0 ("spiral")."""
+    if kind == "interpolate":
+        return interpolate_path(cameras, steps_per_transition=6)
+    return spiral_path(cameras[0], n_frames=num_views)
+
+
+def render_trajectory(state: ServeState, cfg: GaussianSplatConfig, cameras: List[ParsedCamera],
+                      kind: str, num_views: int, out_dir: Path, device) -> None:
+    """Render each camera of the path and write its rgb as <i>.png."""
+    path = trajectory(cameras, kind, num_views)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for i, pc in enumerate(path):
+        cam = Camera.create(pc.fx, pc.fy, pc.cx, pc.cy, pc.camera_to_world, pc.width, pc.height,
+                            device=device)
+        write_png(out_dir / f"{i:05d}.png", _to_u8(render_view(state, cam, cfg)["rgb"].cpu().numpy()))
+    print(f"rendered {len(path)} trajectory frames to {out_dir}")
 
 
 def main(argv=None) -> None:
@@ -106,21 +130,26 @@ def main(argv=None) -> None:
     p.add_argument("--data", type=Path, default=None,
                    help="trainer run: evaluate against this capture instead of the training one")
     p.add_argument("--traj", choices=("dataset", "interpolate", "spiral"), default="dataset",
-                   help="dataset views; camera-path trajectories are not ported yet (raise)")
+                   help="dataset views (with metrics) or a camera-path trajectory (rgb only)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.traj != "dataset":
-        raise NotImplementedError(f"--traj {args.traj}: camera paths are not ported to "
-                                  "gaussiangrasper_torch yet (ROADMAP.md, Queue 1 item 5)")
 
     device = resolve_device(args.device)
     if (args.run_dir / CHECKPOINT).exists():
         cfg, state, name = load_run(args.run_dir, device)
         cams, data = load_cameras(args.run_dir, device)
+        data["cameras"] = [ParsedCamera(float(data["fx"][i]), float(data["fy"][i]),
+                                        float(data["cx"][i]), float(data["cy"][i]),
+                                        int(data["width"]), int(data["height"]), data["c2w"][i])
+                           for i in range(len(cams))]
     else:
         cfg, state, name, cams, data = load_trainer_run(args.run_dir, args.num_views, device,
                                                         args.step, args.data)
     out_dir = args.output or (args.run_dir / "renders")
+    if args.traj != "dataset":
+        render_trajectory(state, cfg, data["cameras"], args.traj, args.num_views,
+                          out_dir / "traj", device)
+        return
     for sub in ("rgb", "clip", "normal", "depth"):
         (out_dir / sub).mkdir(parents=True, exist_ok=True)
     scale = float(data["dataparser_scale"])

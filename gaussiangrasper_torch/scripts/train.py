@@ -30,7 +30,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "dycheck, sitcoms3d, nerfosr, phototourism-raw) or 'auto' to detect "
                         "from the directory layout")
     p.add_argument("--viewer-port", type=int, default=None,
-                   help="live training viewer (not ported yet: raises)")
+                   help="serve the live state to a browser on this port while training")
     p.add_argument("--mesh", type=str, default=None,
                    help="'dp,gauss' mesh for sharded training: dp x gauss ranks, one a card "
                         "(NCCL; gloo with --device cpu), started here unless under torchrun")
@@ -49,7 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(missing libraries degrade with a notice)")
     p.add_argument("--load-dir", type=Path, default=None)
     p.add_argument("--profiler", type=str, default="none", choices=("none", "trace"),
-                   help="'trace' (a device trace of steps 12..16) is not ported yet: raises")
+                   help="'trace': a torch.profiler trace of steps 12..16 under "
+                        "<run>/profiler_traces/")
     p.add_argument("--feature-dim", type=int, default=32)
     p.add_argument("--sh-degree", type=int, default=4)
     p.add_argument("--max-tiles-per-gaussian", type=int, default=None,

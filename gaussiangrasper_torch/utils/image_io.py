@@ -1,5 +1,5 @@
-"""Image reading (PNG and JPEG), PNG writing and the JET colormap without
-Pillow or OpenCV.
+"""Image reading (PNG and JPEG), PNG and JPEG writing, Pillow's bilinear
+resize and the JET colormap without Pillow or OpenCV.
 
 The CLIs and the data layer read and write images on machines that have
 neither. A PNG is a signature plus zlib-compressed, per-row filtered
@@ -9,11 +9,14 @@ which Pillow uses: the Huffman entropy decoder in Python (sequential and
 progressive scans), then the integer "islow" inverse DCT, the fancy
 (triangular) chroma upsampling and the fixed-point YCbCr -> RGB tables,
 all vectorized in numpy over the blocks, so the result lands within 1 of
-Pillow's per channel.
+Pillow's per channel. `write_jpeg` is the mirror: a baseline JFIF file as
+libjpeg writes it with its defaults (Pillow's `save`, `cv2.imwrite`), the
+same bytes. `resize_bilinear` is Pillow's `Image.resize(..., BILINEAR)`.
 `read_image` / `image_size` pick the format from the file's signature."""
 
 from __future__ import annotations
 
+import math
 import re
 import struct
 import zlib
@@ -642,8 +645,8 @@ def _colour_space(seg: dict, path) -> str:
     raise ValueError(f"{path}: {len(comps)}-component JPEGs are not read (1, 3 or 4 are)")
 
 
-def read_jpeg(path: Path) -> np.ndarray:
-    """Read an 8-bit Huffman-coded JPEG, baseline, extended sequential or
+def read_jpeg(path) -> np.ndarray:
+    """Read (from a path, or from the file's bytes) an 8-bit Huffman-coded JPEG, baseline, extended sequential or
     progressive (SOF0 / SOF1 / SOF2), with any sampling factors the
     upsampler takes (4:4:4, 4:2:2, 4:2:0), restart intervals and any size,
     as Pillow's `np.asarray(Image.open(path))` gives it to within 1 per
@@ -652,7 +655,10 @@ def read_jpeg(path: Path) -> np.ndarray:
     CMYK with Adobe's inverted polarity: 255 - each stored plane (CMYK), or
     the RGB of the first three and 255 - K (YCCK). Lossless, differential,
     arithmetic-coded and 12-bit files raise, naming the process."""
-    data = Path(path).read_bytes()
+    if isinstance(path, (bytes, bytearray)):
+        data, path = bytes(path), "<JPEG bytes>"
+    else:
+        data = Path(path).read_bytes()
     seg = _jpeg_segments(data, path)
     frame = seg["frame"]
     comps = frame["comps"]
@@ -689,6 +695,342 @@ def read_jpeg(path: Path) -> np.ndarray:
     if space == "ycbcr":
         return rgb
     return np.concatenate([rgb, (255 - full[3]).astype(np.uint8)[..., None]], -1)  # ycck
+
+
+# --- JPEG writing: baseline JFIF as libjpeg writes it with its defaults -------------
+
+# jcparam.c's standard quantization tables (natural order) and jstdhuff.c's
+# Huffman tables: (counts of codes of length 1..16, symbols), as hex
+_STD_QUANT = (
+    np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40,
+              57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35,
+              55, 64, 81, 104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112,
+              100, 103, 99], np.int64),
+    np.array([17, 18, 24, 47] + [99] * 4 + [18, 21, 26, 66] + [99] * 4 + [24, 26, 56] + [99] * 5
+             + [47, 66] + [99] * 38, np.int64))
+_STD_HUFF = {
+    (0, 0): ("00010501010101010100000000000000", "000102030405060708090a0b"),
+    (0, 1): ("00030101010101010101010000000000", "000102030405060708090a0b"),
+    (1, 0): ("0002010303020403050504040000017d",
+             "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a16"
+             "1718191a25262728292a3435363738393a434445464748494a535455565758595a63646566676869"
+             "6a737475767778797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6"
+             "b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8"
+             "f9fa"),
+    (1, 1): ("00020102040403040705040400010277",
+             "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434"
+             "e125f11718191a262728292a35363738393a434445464748494a535455565758595a636465666768"
+             "696a737475767778797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4"
+             "b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
+             "f9fa"),
+}
+
+
+def _quant_table(base: np.ndarray, quality: int) -> np.ndarray:
+    """jpeg_set_quality(quality, force_baseline=TRUE): jcparam.c's
+    scaling of a standard table, each entry clamped to 1..255."""
+    q = min(max(int(quality), 1), 100)
+    scale = 5000 // q if q < 50 else 200 - 2 * q
+    return np.clip((base * scale + 50) // 100, 1, 255)
+
+
+def _huffman_codes(counts: bytes, symbols: bytes) -> Tuple[np.ndarray, np.ndarray]:
+    """(code, length) of every symbol 0..255 (jpeg_make_c_derived_tbl)."""
+    code_of, len_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for bits in range(1, 17):
+        for _ in range(counts[bits - 1]):
+            code_of[symbols[k]], len_of[symbols[k]] = code, bits
+            code += 1
+            k += 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _descale(x: np.ndarray, n: int) -> np.ndarray:
+    return (x + (1 << (n - 1))) >> n
+
+
+def _fdct_1d(d: np.ndarray, first: bool) -> np.ndarray:
+    """One pass of jfdctint.c's jpeg_fdct_islow over axis -1 of int64 d
+    (..., 8): the rows pass scales by 2^PASS1_BITS, the columns pass removes
+    it and leaves the output scaled up by 8."""
+    f = _F
+    tmp0, tmp7 = d[..., 0] + d[..., 7], d[..., 0] - d[..., 7]
+    tmp1, tmp6 = d[..., 1] + d[..., 6], d[..., 1] - d[..., 6]
+    tmp2, tmp5 = d[..., 2] + d[..., 5], d[..., 2] - d[..., 5]
+    tmp3, tmp4 = d[..., 3] + d[..., 4], d[..., 3] - d[..., 4]
+    tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    if first:
+        o0, o4, n = (tmp10 + tmp11) << 2, (tmp10 - tmp11) << 2, 11
+    else:
+        o0, o4, n = _descale(tmp10 + tmp11, 2), _descale(tmp10 - tmp11, 2), 15
+    z1 = (tmp12 + tmp13) * f["f0_541"]
+    o2 = _descale(z1 + tmp13 * f["f0_765"], n)
+    o6 = _descale(z1 - tmp12 * f["f1_847"], n)
+    z1, z2, z3, z4 = tmp4 + tmp7, tmp5 + tmp6, tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * f["f1_175"]
+    tmp4, tmp5 = tmp4 * f["f0_298"], tmp5 * f["f2_053"]
+    tmp6, tmp7 = tmp6 * f["f3_072"], tmp7 * f["f1_501"]
+    z1, z2 = z1 * -f["f0_899"], z2 * -f["f2_562"]
+    z3, z4 = z3 * -f["f1_961"] + z5, z4 * -f["f0_390"] + z5
+    o7 = _descale(tmp4 + z1 + z3, n)
+    o5 = _descale(tmp5 + z2 + z4, n)
+    o3 = _descale(tmp6 + z2 + z3, n)
+    o1 = _descale(tmp7 + z1 + z4, n)
+    return np.stack([o0, o1, o2, o3, o4, o5, o6, o7], -1)
+
+
+def _rgb_to_ycc(rgb: np.ndarray) -> list:
+    """jccolor.c's rgb_ycc_convert with its 16-bit fixed-point tables
+    (Cb and Cr rounded by 0.5 - epsilon)."""
+    def fix(v):
+        return int(v * 65536 + 0.5)
+
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    half, off = 1 << 15, 128 << 16
+    y = (fix(0.299) * r + fix(0.587) * g + fix(0.114) * b + half) >> 16
+    cb = (-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b + off + half - 1) >> 16
+    cr = (fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b + off + half - 1) >> 16
+    return [y, cb, cr]
+
+
+def _edge_pad(plane: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    """Replicate the last row and column out to (rows, cols), as
+    expand_right_edge / expand_bottom_edge do."""
+    return np.pad(plane, ((0, rows - plane.shape[0]), (0, cols - plane.shape[1])), mode="edge")
+
+
+def _h2v2_downsample(plane: np.ndarray, cols: int) -> np.ndarray:
+    """jcsample.c's h2v2_downsample: the mean of each 2 x 2 cell with the
+    bias 1, 2, 1, 2, ... along each output row; the rows padded to an even
+    count and the columns to 2 x `cols` by replication first."""
+    x = _edge_pad(plane, plane.shape[0] + plane.shape[0] % 2, 2 * cols)
+    s = x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2]
+    return (s + np.where(np.arange(cols) % 2 == 0, 1, 2)) >> 2
+
+
+def _quantized_blocks(plane: np.ndarray, qt: np.ndarray) -> np.ndarray:
+    """(by, bx, 64) quantized coefficients, zigzag order, of a plane whose
+    sides are multiples of 8: sample - 128, the islow forward DCT, then
+    jcdctmgr.c's rounding division by 8 x the table entry (libjpeg-turbo's
+    reciprocal multiply gives the same quotients for every 16-bit input)."""
+    h, w = plane.shape
+    blk = (plane.reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3) - 128).astype(np.int64)
+    rows = _fdct_1d(blk, first=True)
+    coef = np.swapaxes(_fdct_1d(np.swapaxes(rows, -1, -2), first=False), -1, -2)
+    div = (qt << 3).reshape(8, 8)
+    q = (np.abs(coef) + (div >> 1)) // div
+    q = np.where(coef < 0, -q, q).reshape(h // 8, w // 8, 64)
+    return q[..., _ZIGZAG]
+
+
+def _bit_length(x: np.ndarray) -> np.ndarray:
+    """Bits of |x| (0 for 0), for |x| < 2^15."""
+    a = np.abs(x)
+    n = np.zeros_like(a)
+    for b in range(16):
+        n += (a >> b) > 0
+    return n
+
+
+def _entropy_code(blocks: np.ndarray, table: np.ndarray, dc_pred: np.ndarray) -> bytes:
+    """jchuff.c's encode_one_block over blocks (N, 64) in scan order, each
+    with its Huffman table set (0 luminance, 1 chrominance) and the
+    previous DC of its component: the tokens (code followed by its extra
+    bits) sorted into stream order, packed MSB first, the last byte filled
+    with 1 bits, 0xFF bytes stuffed with 0x00."""
+    codes = {k: _huffman_codes(bytes.fromhex(c), bytes.fromhex(v)) for k, (c, v) in _STD_HUFF.items()}
+    vals, lens, blk, order = [], [], [], []
+
+    # DC: the difference to the component's previous DC
+    diff = blocks[:, 0] - dc_pred
+    nb = _bit_length(diff)
+    extra = (diff - (diff < 0)) & ((1 << nb) - 1)
+    for t in (0, 1):
+        sel = table == t
+        tc, tl = codes[(0, t)]
+        vals.append((tc[nb[sel]] << nb[sel]) | extra[sel])
+        lens.append(tl[nb[sel]] + nb[sel])
+        blk.append(np.nonzero(sel)[0])
+        order.append(np.zeros(int(sel.sum()), np.int64))
+    # AC: each nonzero coefficient after its run of zeros, a ZRL (0xF0) for
+    # every 16 zeros of the run; EOB (0x00) after a block's last nonzero
+    # coefficient when it is not the 63rd
+    bi, kk = np.nonzero(blocks[:, 1:])
+    k = kk + 1
+    v = blocks[bi, k]
+    prev = np.zeros_like(k)
+    same = np.zeros(len(k), bool)
+    same[1:] = bi[1:] == bi[:-1]
+    prev[1:] = np.where(same[1:], k[:-1], 0)
+    run = k - prev - 1
+    nb = _bit_length(v)
+    extra = (v - (v < 0)) & ((1 << nb) - 1)
+    sym = ((run % 16) << 4) | nb
+    nzrl = run // 16
+    last_k = np.zeros(len(blocks), np.int64)
+    last_k[bi] = k  # nonzero() runs in order, so the last write is each block's last
+    eob = np.nonzero(last_k < 63)[0]
+    for t in (0, 1):
+        tc, tl = codes[(1, t)]
+        sel = table[bi] == t
+        vals.append((tc[sym[sel]] << nb[sel]) | extra[sel])
+        lens.append(tl[sym[sel]] + nb[sel])
+        blk.append(bi[sel])
+        order.append(2 * k[sel])
+        z = np.repeat(np.nonzero(sel)[0], nzrl[sel])
+        vals.append(np.full(len(z), tc[0xF0]))
+        lens.append(np.full(len(z), tl[0xF0]))
+        blk.append(bi[z])
+        order.append(2 * k[z] - 1)
+        e = eob[table[eob] == t]
+        vals.append(np.full(len(e), tc[0x00]))
+        lens.append(np.full(len(e), tl[0x00]))
+        blk.append(e)
+        order.append(np.full(len(e), 128))
+    vals, lens, blk, order = (np.concatenate(a).astype(np.int64) for a in (vals, lens, blk, order))
+    perm = np.lexsort((order, blk))
+    vals, lens = vals[perm], lens[perm]
+    total = int(lens.sum())
+    tok = np.repeat(np.arange(len(lens)), lens)
+    start = np.cumsum(lens) - lens
+    shift = lens[tok] - 1 - (np.arange(total) - start[tok])
+    bits = ((vals[tok] >> shift) & 1).astype(np.uint8)
+    bits = np.concatenate([bits, np.ones(-total % 8, np.uint8)])
+    out = np.packbits(bits)
+    return np.insert(out, np.nonzero(out == 0xFF)[0] + 1, 0).tobytes()
+
+
+def _marker(code: int, payload: bytes) -> bytes:
+    return bytes([0xFF, code]) + struct.pack(">H", len(payload) + 2) + payload
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 75) -> bytes:
+    """The bytes of `write_jpeg`."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError(f"want uint8 (H, W) or (H, W, 3), got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    if img.ndim == 2:
+        planes, samp = [img.astype(np.int64)], [(1, 1)]
+    else:
+        planes, samp = _rgb_to_ycc(img), [(2, 2), (1, 1), (1, 1)]
+    hmax, vmax = samp[0]
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    tables = [_quant_table(_STD_QUANT[0], quality), _quant_table(_STD_QUANT[1], quality)]
+    comp_blocks = []
+    for ci, (plane, (hs, vs)) in enumerate(zip(planes, samp)):
+        wib, hib = -(-w * hs // (hmax * 8)), -(-h * vs // (vmax * 8))
+        if hs < hmax:  # chroma: the row pairs' 2 x 2 means, then padded down to the MCU rows
+            plane = _h2v2_downsample(plane, 8 * wib)
+        q = _quantized_blocks(_edge_pad(plane, 8 * mcuy * vs, 8 * mcux * hs), tables[min(ci, 1)])
+        # dummy blocks past the component's own blocks (jccoefct.c compress_data): AC 0,
+        # DC of the last real block to the left, or of the MCU's last block in the row above
+        q[:, wib:] = 0
+        q[:, wib:, 0] = q[:, wib - 1:wib, 0]
+        if hib < q.shape[0]:
+            q[hib:] = 0
+            q[hib:, :, 0] = np.repeat(q[hib - 1, hs - 1::hs, 0], hs)[None]
+        comp_blocks.append(q.reshape(mcuy, vs, mcux, hs, 64).transpose(0, 2, 1, 3, 4))
+    # scan order: MCU by MCU, each component's v x h blocks row by row
+    per_mcu = [b.reshape(mcuy * mcux, -1, 64) for b in comp_blocks]
+    blocks = np.concatenate(per_mcu, axis=1).reshape(-1, 64)
+    comp = np.concatenate([np.full(b.shape[1], i) for i, b in enumerate(per_mcu)])
+    comp = np.tile(comp, mcuy * mcux)
+    dc_pred = np.zeros(len(blocks), np.int64)
+    for ci in range(len(planes)):
+        idx = np.nonzero(comp == ci)[0]
+        dc_pred[idx[1:]] = blocks[idx[:-1], 0]
+    table = np.minimum(comp, 1)
+    n = len(planes)
+    head = [b"\xff\xd8", _marker(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    head += [_marker(0xDB, bytes([t]) + tables[t][_ZIGZAG].astype(np.uint8).tobytes())
+             for t in range(min(n, 2))]
+    head.append(_marker(0xC0, struct.pack(">BHHB", 8, h, w, n) + b"".join(
+        bytes([i + 1, (hs << 4) | vs, min(i, 1)]) for i, (hs, vs) in enumerate(samp))))
+    for t in range(min(n, 2)):
+        for cls in (0, 1):
+            counts, symbols = _STD_HUFF[(cls, t)]
+            head.append(_marker(0xC4, bytes([(cls << 4) | t]) + bytes.fromhex(counts)
+                                + bytes.fromhex(symbols)))
+    head.append(_marker(0xDA, bytes([n]) + b"".join(
+        bytes([i + 1, (min(i, 1) << 4) | min(i, 1)]) for i in range(n)) + b"\x00\x3f\x00"))
+    return b"".join(head) + _entropy_code(blocks, table, dc_pred) + b"\xff\xd9"
+
+
+def write_jpeg(path_or_buffer, img: np.ndarray, quality: int = 75) -> None:
+    """Write a uint8 (H, W) grey or (H, W, 3) RGB image as a baseline JFIF
+    JPEG, the bytes libjpeg writes with its defaults at `quality` (75 is
+    Pillow's `save` default, 95 `cv2.imwrite`'s): jccolor.c's fixed-point
+    RGB -> YCbCr, 4:2:0 chroma by jcsample.c's h2v2 means, the islow
+    forward DCT, the standard tables scaled by `quality` (clamped to 255),
+    the standard Huffman tables, edges and dummy blocks as jcprepct.c /
+    jccoefct.c make them. `path_or_buffer` is a path or a binary file
+    object."""
+    data = encode_jpeg(img, quality)
+    if hasattr(path_or_buffer, "write"):
+        path_or_buffer.write(data)
+    else:
+        Path(path_or_buffer).write_bytes(data)
+
+
+# --- Pillow's Image.resize(..., BILINEAR) -------------------------------------------------
+
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def _resample_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Resample.c's precompute_coeffs for the bilinear (triangle) filter
+    over the whole input, normalized to 22-bit fixed point as
+    normalize_coeffs_8bpc does: (first input index (out,), weights (out,
+    ksize)), in Python's doubles as the C code's."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    kk = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        ss = 1.0 / filterscale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        ws = [max(0.0, 1.0 - abs((x + xmin - center + 0.5) * ss)) for x in range(xmax)]
+        ww = sum(ws)
+        for x, wt in enumerate(ws):
+            wt = wt / ww if ww != 0.0 else wt
+            kk[xx, x] = int(-0.5 + wt * (1 << _PRECISION_BITS)) if wt < 0 else \
+                int(0.5 + wt * (1 << _PRECISION_BITS))
+        first[xx] = xmin
+    return first, kk
+
+
+def _resample_axis0(img: np.ndarray, out_size: int) -> np.ndarray:
+    """One pass along axis 0 of int64 (n, m, C) samples, each output the
+    fixed-point sum rounded by + 2^21 and clipped to 0..255 (clip8)."""
+    first, kk = _resample_coeffs(img.shape[0], out_size)
+    idx = np.minimum(first[:, None] + np.arange(kk.shape[1]), img.shape[0] - 1)
+    acc = (img[idx] * kk[:, :, None, None]).sum(1) + (1 << (_PRECISION_BITS - 1))
+    return np.clip(acc >> _PRECISION_BITS, 0, 255)
+
+
+def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """Pillow's `Image.resize((width, height), Image.BILINEAR)` of a uint8
+    (H, W) or (H, W, 3) image: a triangle filter whose support widens with
+    the shrink factor, horizontal pass first (rounded to uint8), then
+    vertical, in Pillow's 22-bit fixed point; a pass whose size does not
+    change is skipped."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError(f"want uint8 (H, W) or (H, W, 3), got {img.dtype} {img.shape}")
+    x = (img[..., None] if img.ndim == 2 else img).astype(np.int64)
+    if width != x.shape[1]:
+        x = _resample_axis0(x.transpose(1, 0, 2), width).transpose(1, 0, 2)
+    if height != x.shape[0]:
+        x = _resample_axis0(x, height)
+    x = x.astype(np.uint8)
+    return x[..., 0] if img.ndim == 2 else x
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:

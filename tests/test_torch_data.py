@@ -402,6 +402,35 @@ assert local.step == 1 and int(metrics["gathered_rows"]) > 0
 states, _ = multi_scene_train_step([st0, st0], [cam, cam], [batch, batch], plain)
 states, _ = multi_scene_train_step(states, [cam, cam], [batch, batch], plain)
 assert states[1].step == 2
+# the capture and viewing tools: camera paths, the JPEG writer and resize, a
+# viewer frame, a trace window, generate_data, process_data and equirect crops
+from gaussiangrasper_torch.core.camera_paths import interpolate_path, spiral_path
+from gaussiangrasper_torch.data.equirect import equirect_to_perspective
+from gaussiangrasper_torch.scripts import generate_data, process_data, viewer
+from gaussiangrasper_torch.utils.image_io import encode_jpeg, read_jpeg, resize_bilinear, write_png
+from gaussiangrasper_torch.utils.profiler import TraceCapture
+assert len(interpolate_path(trainer.dm.cameras, 3)) == 4 and len(spiral_path(trainer.dm.cameras[0], 5)) == 5
+assert resize_bilinear(img, 16, 12).shape == (12, 16, 3) and read_jpeg(encode_jpeg(img)).shape == img.shape
+srv = viewer.make_server(lambda: st0, plain, 0, 32, 24)
+assert read_jpeg(srv.render_pose([0, 0, 2], [0, 0, 0], [0, 1, 0])).shape == (24, 32, 3)
+srv.server_close()
+tc = TraceCapture(tmp / "trace", 0, 1)
+tc.maybe_step(0); tc.maybe_step(1)
+assert tc.path.exists()
+cap = tmp / "capture"
+for d in ("color", "depth", "poses"):
+    (cap / d).mkdir(parents=True)
+(cap / "intrinsics.json").write_text(json.dumps({"fx": 30.0, "fy": 30.0, "cx": 16.0, "cy": 12.0,
+                                                  "width": 32, "height": 24}))
+for i in range(2):
+    write_png(cap / "color" / f"{i}.png", img)
+    np.save(cap / "depth" / f"{i}.npy", np.full((24, 32), 1.5, np.float32))
+    np.save(cap / "poses" / f"{i}.npy", np.eye(4))
+assert generate_data.main(["--capture", str(cap), "--output", str(tmp / "gen"), "--icp",
+                           "--device", "cpu"])["frames"] == 2
+process_data.main(["images", "--data", str(tmp / "gen" / "images"), "--output", str(tmp / "proc")])
+assert (tmp / "proc" / "images_8" / "frame_00000.png").exists()
+assert equirect_to_perspective(img, 90.0, 180.0, 10.0, (8, 8)).shape == (8, 8, 3)
 """
 
 
@@ -411,10 +440,20 @@ def test_port_imports_no_jax_pillow_opencv(tmp_path):
     dataparser on its fixture layout, undistort_image in both branches,
     two pose-optimization train steps on a distorted capture, the
     in-process 2-way split of the tile-sharded compositor, one sharded
-    train step in a gloo world of one rank and two multi-scene steps (an
-    import made inside a function would otherwise slip past)."""
+    train step in a gloo world of one rank, two multi-scene steps, and the
+    capture and viewing tools (camera paths, the JPEG writer and resize, a
+    viewer frame, a trace window, generate_data with ICP, process_data and
+    an equirect crop; an import made inside a function would otherwise slip
+    past)."""
     code = (
         "import sys\n"
+        # torch.profiler loads torch._inductor, whose trace rules look for
+        # optional packages (sklearn among them) with find_spec, which the
+        # block below answers with ImportError; load it first, and show it
+        # brought in none of the blocked packages
+        "import torch._inductor\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in\n"
+        "            ('jax', 'gaussiangrasper_tpu', 'PIL', 'cv2', 'sklearn')]\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in ('jax', 'gaussiangrasper_tpu', 'PIL', 'cv2', 'sklearn'):\n"
@@ -424,7 +463,9 @@ def test_port_imports_no_jax_pillow_opencv(tmp_path):
         "import gaussiangrasper_torch.data.synthetic, gaussiangrasper_torch.data.prefetch\n"
         "import gaussiangrasper_torch.scripts.common, gaussiangrasper_torch.utils.writer\n"
         "import gaussiangrasper_torch.parallel.host_loop, gaussiangrasper_torch.engine.multi_scene\n"
-        "import gaussiangrasper_torch.scripts.update\n"
+        "import gaussiangrasper_torch.scripts.update, gaussiangrasper_torch.scripts.viewer\n"
+        "import gaussiangrasper_torch.scripts.generate_data, gaussiangrasper_torch.scripts.process_data\n"
+        "import gaussiangrasper_torch.data.equirect, gaussiangrasper_torch.utils.profiler\n"
         + GUARDED_RUN
     )
     root = Path(__file__).resolve().parent.parent

@@ -1022,3 +1022,62 @@ def test_train_cli_mesh_one_rank(cuda_device, tmp_path):
     assert trainer.state.step == 2 and not torch.distributed.is_initialized()
     assert all(bool(torch.isfinite(x).all()) for x in trainer.state.field)
     assert (tmp_path / "out" / "gaussian-splatting" / "checkpoints" / "step_000000002.pt").exists()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["rgb", "depth", "normal"])
+def test_viewer_frame_on_the_card_matches_cpu(cuda_device, mode):
+    """The viewer's frame of one pose over the same field on the card (K1)
+    and on the CPU (its plain version): the float frames within K1's
+    criterion, 1e-4, and their JPEGs (quality 85) within a few grey levels
+    (a pixel rounded to the next level moves its 8 x 8 block's
+    coefficients by at most one quantum)."""
+    import types
+
+    from gaussiangrasper_torch.scripts import viewer
+    from gaussiangrasper_torch.utils.image_io import read_jpeg
+
+    cfg = GaussianSplatConfig()
+    pose = dict(eye=[0.3, -0.2, 0.0], center=[0.0, 0.0, -3.0], up=[0.0, 1.0, 0.0])
+    frames, floats = {}, {}
+    for dev in (cuda_device, torch.device("cpu")):
+        field, alive, _ = _scene(dev)
+        state = types.SimpleNamespace(field=field, alive=alive, step=STEP)
+        srv = viewer.make_server(lambda: state, cfg, 0, W, H)
+        try:
+            frames[dev.type] = read_jpeg(srv.render_pose(**pose, mode=mode)).astype(np.int64)
+        finally:
+            srv.server_close()
+        cam = Camera.create(0.7 * W, 0.7 * W, W / 2, H / 2, viewer.look_at(**pose), W, H,
+                            device=dev)
+        with torch.no_grad():
+            floats[dev.type] = viewer.frame_rgb(render(field, alive, cam, STEP, cfg), mode)
+    err = np.abs(floats["cuda"] - floats["cpu"]).max()
+    diff = np.abs(frames["cuda"] - frames["cpu"])
+    print("viewer_card_vs_cpu", mode, json.dumps({"float_max_abs": float(err),
+                                                  "jpeg_max_abs": int(diff.max()),
+                                                  "jpeg_mean_abs": float(diff.mean())}))
+    assert err <= 1e-4
+    assert diff.max() <= 8 and diff.mean() <= 0.1
+    assert frames["cuda"].std() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grey", [False, True])
+def test_equirect_on_the_card_matches_cpu(cuda_device, grey):
+    """equirect_to_perspective on the card against the CPU path, bit for
+    bit, on a seeded 1024x512 panorama at the 8-crop pattern (the seam and
+    both pole rows among them) and at the crop size process_data picks."""
+    from gaussiangrasper_torch.data import equirect
+
+    pano = np.random.default_rng(3).integers(0, 256, (512, 1024, 3), dtype=np.uint8)
+    if grey:
+        pano = pano[..., 0].copy()
+    fov, pairs = equirect.sampling_pattern(8)
+    on_card = torch.as_tensor(pano, device=cuda_device)
+    for i, (yaw, pitch) in enumerate(pairs + [(180.0, 0.0), (-179.5, 89.0)]):
+        size = equirect.crop_resolution(pano.shape[:2], 8) if i == 0 else (61, 83)
+        card = equirect.equirect_to_perspective(on_card, fov, yaw, pitch, size)
+        assert card.device.type == "cuda"
+        host = equirect.equirect_to_perspective(pano, fov, yaw, pitch, size)
+        assert torch.equal(card.cpu(), host), (yaw, pitch)

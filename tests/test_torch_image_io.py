@@ -15,8 +15,16 @@ plain PNGs.
 - A JPEG capture (the tabletop's frames re-saved as JPEG, no w / h in
   transforms.json) through both packages' nerfstudio parsers and datasets:
   the same parsed cameras, the frames within 1/255.
+- Writing: `write_jpeg` gives the bytes of Pillow's `save(quality=q)` at 75
+  (Pillow's default) and 85 (the viewer's) and of `cv2.imencode('.jpg')` at
+  its default 95 (the equirect crops'), on seeded RGB and grey frames of odd
+  sizes and at 320x240, noise and smooth; the file reads back. `write_png`
+  output reads back through Pillow.
+- `resize_bilinear` is bit-equal to Pillow's `resize(..., BILINEAR)` at the
+  downscales 2, 4 and 8 of process_data and at up / odd scales.
 """
 
+import io
 import json
 import struct
 import types
@@ -28,7 +36,10 @@ from PIL import Image
 
 from gaussiangrasper_torch.data.dataparsers.zoo import resolve_parser as t_resolve
 from gaussiangrasper_torch.data.dataset import InputDataset as TDataset
-from gaussiangrasper_torch.utils.image_io import image_size, read_image, read_jpeg, read_png
+import cv2
+
+from gaussiangrasper_torch.utils.image_io import (encode_jpeg, image_size, read_image, read_jpeg,
+                                                  read_png, resize_bilinear, write_jpeg, write_png)
 from gaussiangrasper_tpu.data.dataparsers.zoo import resolve_parser as j_resolve
 from gaussiangrasper_tpu.data.dataset import InputDataset as JDataset
 from gaussiangrasper_tpu.data.synthetic import generate_tabletop
@@ -321,3 +332,63 @@ def test_jpeg_at_capture_size_matches_pillow(tmp_path):
     got, want = read_jpeg(path), np.asarray(Image.open(path))
     assert got.shape == (800, 800, 3)
     assert int(np.abs(got.astype(np.int64) - want).max()) <= 1
+
+
+def _seeded_frame(h: int, w: int, grey: bool, kind: str, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if kind == "noise":
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    else:
+        y, x = np.mgrid[0:h, 0:w]
+        base = 127 + 100 * np.sin(x[..., None] / 7.0 + np.arange(3)) * np.cos(y[..., None] / 5.0)
+        img = np.clip(base + rng.normal(0, 12, (h, w, 3)), 0, 255).astype(np.uint8)
+    return img[..., 0].copy() if grey else img
+
+
+WRITE_SIZES = [(23, 37), (240, 320), (1, 1), (9, 33), (17, 16)]
+
+
+@pytest.mark.parametrize("grey", [False, True])
+@pytest.mark.parametrize("size", WRITE_SIZES)
+@pytest.mark.parametrize("kind", ["noise", "smooth"])
+def test_write_jpeg_is_pillows_and_cv2s_bytes(grey, size, kind, tmp_path):
+    img = _seeded_frame(*size, grey, kind, seed=size[0] * 100 + size[1])
+    for q in (75, 85):
+        want = io.BytesIO()
+        Image.fromarray(img).save(want, "JPEG", quality=q)
+        assert encode_jpeg(img, q) == want.getvalue(), q
+    bgr = img if grey else img[..., ::-1]
+    assert encode_jpeg(img, 95) == cv2.imencode(".jpg", bgr)[1].tobytes()
+    write_jpeg(tmp_path / "x.jpg", img)  # Pillow's default quality
+    assert (tmp_path / "x.jpg").read_bytes() == encode_jpeg(img, 75)
+    if grey or size[1] > 4:  # the reader takes no chroma plane 2 samples wide or less
+        np.testing.assert_array_equal(read_jpeg(tmp_path / "x.jpg"),
+                                      np.asarray(Image.open(tmp_path / "x.jpg")))
+    buf = io.BytesIO()
+    write_jpeg(buf, img, quality=85)
+    assert buf.getvalue() == encode_jpeg(img, 85)
+
+
+def test_write_jpeg_rejects_other_arrays():
+    for bad in (np.zeros((4, 4, 4), np.uint8), np.zeros((4, 4), np.float32)):
+        with pytest.raises(ValueError, match="want uint8"):
+            encode_jpeg(bad)
+
+
+@pytest.mark.parametrize("grey", [False, True])
+def test_write_png_reads_back_in_pillow(grey, tmp_path):
+    img = _seeded_frame(23, 37, grey, "noise", seed=5)
+    write_png(tmp_path / "x.png", img)
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "x.png")), img)
+
+
+@pytest.mark.parametrize("grey", [False, True])
+@pytest.mark.parametrize("size", [(23, 37), (240, 320), (101, 203), (7, 5)])
+def test_resize_bilinear_is_pillows(grey, size):
+    img = _seeded_frame(*size, grey, "noise", seed=size[1])
+    h, w = size
+    targets = [(max(w // d, 1), max(h // d, 1)) for d in (2, 4, 8)]
+    targets += [(w * 2, h * 3), (w + 1, h), (w, max(h - 1, 1)), (3, 2)]
+    for tw, th in targets:
+        want = np.asarray(Image.fromarray(img).resize((tw, th), Image.BILINEAR))
+        np.testing.assert_array_equal(resize_bilinear(img, tw, th), want, err_msg=f"{tw}x{th}")

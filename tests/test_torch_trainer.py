@@ -41,6 +41,7 @@ from gaussiangrasper_torch.ops.rasterize import RasterizeConfig as TRC
 from gaussiangrasper_torch.scripts import common as tcommon
 from gaussiangrasper_torch.scripts import render as t_render_cli
 from gaussiangrasper_torch.scripts import train as t_train_cli
+from gaussiangrasper_torch.utils.image_io import read_png
 from gaussiangrasper_tpu.data.synthetic import generate_tabletop
 from gaussiangrasper_tpu.engine import trainer as jtrainer
 from gaussiangrasper_tpu.models.model import GaussianSplatConfig as JConfig
@@ -171,19 +172,24 @@ def test_train_cli_runs_resumes_and_renders(scene, tmp_path):
     assert all(np.isfinite(r["psnr"]) and "depth_mae" in r and "psnr_masked" in r
                for r in metrics["results"]["per_view"])
     assert np.load(run / "renders" / "clip" / "00000_fea.npy").shape == (48, 64, 512)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        t_render_cli.main(["--run-dir", str(run), "--traj", "spiral", "--device", "cpu"])
+    t_render_cli.main(["--run-dir", str(run), "--traj", "spiral", "--num-views", "3",
+                       "--device", "cpu"])
+    frames = sorted((run / "renders" / "traj").iterdir())
+    assert [f.name for f in frames] == [f"{i:05d}.png" for i in range(3)]
+    assert read_png(frames[2]).shape == (48, 64, 3)
 
 
 def test_unported_options_raise(scene, tmp_path, monkeypatch):
     common = ["--data", str(scene), "--output-dir", str(tmp_path), *CLI_ARGS]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         get_method("nerfacto")
     with pytest.raises(KeyError):
         get_method("no-such-method")
-    for extra in (["--viewer-port", "7007"], ["--profiler", "trace"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            t_train_cli.main([*common, *extra])
+    # --viewer-port and --profiler trace run now (tests/test_torch_viewer.py,
+    # tests/test_torch_tools.py); they reach the trainer's config
+    args = t_train_cli.build_parser().parse_args([*common, "--viewer-port", "0", "--profiler",
+                                                  "trace"])
+    assert (args.viewer_port, args.profiler) == (0, "trace")
     # the CLI goes to the card by default and never falls back to the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda requested"):
