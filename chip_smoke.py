@@ -1481,6 +1481,318 @@ def multi_scene_phase(scene: Path, moved: Path, tmp: Path, trainer_row: dict, de
     return row
 
 
+ZOO_STEPS = 300  # nerfacto at its registered widths on trainer's 800x800 tabletop
+ZOO_CLI_STEPS = 20  # every other ray-marched name, and generfacto
+ZOO_INGP_STEPS = 1200  # instant-ngp: ~70 grid updates, for the EMA to empty cells and move the sizer
+ZOO_SMALL_SCENE = dict(width=200, height=200, n_views=4, seed_points=2000, seed=0)
+ZOO_RAYS = 256  # rays of each field's card-against-CPU render
+ZOO_OUT_ERR = 1e-5  # outputs, card against CPU, plus 4x the CPU's own float32 spread
+ZOO_GRAD_ERR = 1e-4  # of each leaf's largest entry, plus ZOO_GRAD_SPREAD x the leaf's CPU spread
+ZOO_GRAD_SPREAD = 10  # times the leaf's CPU float32 spread: see zoo_fields, zoo_grad_spread.py
+ZOO_NUDGES = (1, -1, 2, -2, 3, -3, 4, -4)  # CPU float32 runs beside the plain one (zoo_fields)
+ZOO_F64_ERR = 1e-8  # float64, card against CPU, of each output's / leaf's largest entry
+ZOO_FIELDS = [  # the seven fields at the registered methods' widths, and the three variants
+    ("nerfacto", {"use_proposal": True}), ("vanilla", {}), ("mipnerf", {}),
+    ("instant-ngp", {}), ("tensorf", {}), ("neus", {}), ("neus-facto", {}),
+    ("semantic", {"field": "nerfacto", "use_proposal": True, "num_semantic_classes": 64}),
+    ("appearance", {"field": "nerfacto", "use_proposal": True, "num_appearance_embeds": 8}),
+    ("deformation", {"field": "vanilla", "deformation": True}),
+]
+
+
+def zoo_render(cfg, field, cam, coords, draws, grid, device, dtype, nudge=0):
+    """One render_rays forward and backward of `coords`' rays on `device` in
+    `dtype` (a copy of `field`), the ray origins and the draws moved by
+    `nudge` ulps: outputs and every parameter's gradient as float64 numpy."""
+    import copy
+
+    import torch
+    from gaussiangrasper_torch._device import full_f32
+    from gaussiangrasper_torch.core.rays import generate_rays
+    from gaussiangrasper_torch.models.nerf import render_rays
+
+    f = copy.deepcopy(field).to(device=device, dtype=dtype)
+    rb = generate_rays(cam, coords).map(lambda x: x.to(device=device, dtype=dtype))
+    d = {k: torch.tensor(v, dtype=dtype, device=device) for k, v in draws.items()}
+    for _ in range(abs(nudge)):
+        def up(x):
+            return torch.nextafter(x, torch.full_like(x, nudge * float("inf")))
+        rb = rb._replace(origins=up(rb.origins))
+        d = {k: up(v) for k, v in d.items()}
+    g = None if grid is None else grid._replace(density=grid.density.to(device, dtype),
+                                                aabb=grid.aabb.to(device, dtype))
+    extra = {}
+    if cfg.deformation:
+        extra["times"] = torch.tensor(0.3, dtype=dtype, device=device)
+    if cfg.num_appearance_embeds:
+        extra["appearance_idx"] = 3
+    with full_f32():
+        out = render_rays(f, rb, d, cfg, grid=g, **extra)
+        total = 0.0
+        for k in sorted(out):
+            if k == "num_live_samples":
+                continue
+            v = out[k]
+            w = torch.cos(torch.arange(v.numel(), device=device, dtype=dtype).reshape(v.shape) * 0.37)
+            total = total + torch.sum(v * w)
+        total.backward()
+    return ({k: v.detach().double().cpu().numpy() for k, v in out.items()},
+            {n: p.grad.double().cpu().numpy() for n, p in f.named_parameters() if p.grad is not None})
+
+
+def zoo_fields(cam, device, seed: int = 11, fields=None, check: bool = True) -> dict:
+    """Each field and variant: one render_rays forward and backward of
+    ZOO_RAYS rays at the registered widths, the same params and draws on the
+    card and the CPU, in float32 under full_f32() and in float64.
+
+    A leaf's float32 gradient is chaotic in the sample positions: a sample
+    that moves by an ulp across a hash, plane or line cell's edge moves its
+    whole contribution to another entry, and sample_pdf turns an ulp of a
+    flat CDF into a large move of a fine sample. The card's float32
+    positions and CDFs differ from the CPU's by such ulps. So each leaf is
+    bounded by its own CPU spread: the largest error against float64, over
+    its largest entry, of the CPU float32 run and of those with the ray
+    origins and the draws moved by ZOO_NUDGES ulps. `seed` draws the rays,
+    the draws and the grid; `fields` (ZOO_FIELDS by default) and `check`
+    (raise on a row out of bounds) are for zoo_grad_spread.py."""
+    import dataclasses
+
+    import torch
+    from gaussiangrasper_torch.models import occupancy
+    from gaussiangrasper_torch.models.nerf import NerfConfig, draw_shapes, init_nerf
+
+    rng = np.random.default_rng(seed)
+    coords = torch.tensor(np.stack([rng.integers(0, cam.height, ZOO_RAYS),
+                                    rng.integers(0, cam.width, ZOO_RAYS)], -1))
+    cam_cpu = type(cam)(*(getattr(cam, f).cpu() if torch.is_tensor(getattr(cam, f))
+                          else getattr(cam, f) for f in cam.__dataclass_fields__))
+    rows = {}
+    for label, kw in ZOO_FIELDS if fields is None else fields:
+        kw = dict(kw)
+        cfg = NerfConfig(field=kw.pop("field", label), **kw)
+        field = init_nerf(cfg, seed=3)
+        draws = {k: rng.random(s) for k, s in draw_shapes(cfg, ZOO_RAYS).items()}
+        grid = None
+        if cfg.field == "instant-ngp":  # half the cells occupied
+            s = cfg.scene_scale
+            grid = occupancy.OccupancyGrid(
+                torch.tensor((rng.random((64, 64, 64)) > 0.5).astype(np.float32)),
+                torch.tensor([[-s] * 3, [s] * 3], dtype=torch.float32), 0.01)
+        t0 = time.perf_counter()
+        runs = {(dev, str(dt)): zoo_render(cfg, field, cam_cpu, coords, draws, grid, dev, dt)
+                for dev in ("cpu", device) for dt in (torch.float32, torch.float64)}
+        nudged = [zoo_render(cfg, field, cam_cpu, coords, draws, grid, "cpu", torch.float32, n)[1]
+                  for n in ZOO_NUDGES]
+        (o32, g32), (o64, g64) = runs[("cpu", "torch.float32")], runs[("cpu", "torch.float64")]
+        (c32, cg32), (c64, cg64) = runs[(device, "torch.float32")], runs[(device, "torch.float64")]
+        out_ratio, out_f64 = 0.0, 0.0
+        for k in o32:
+            scale = max(np.abs(o64[k]).max(), 1e-30)
+            out_f64 = max(out_f64, float(np.abs(c64[k] - o64[k]).max() / scale))
+            bound = ZOO_OUT_ERR + 4 * np.abs(o32[k] - o64[k])
+            out_ratio = max(out_ratio, float((np.abs(c32[k] - o32[k]) / bound).max()))
+        # each leaf against its own bound: 1e-4 of its largest entry plus
+        # ZOO_GRAD_SPREAD times its CPU float32 spread
+        scales = {n: max(np.abs(g64[n]).max(), 1e-30) for n in g64}
+        cpu_rel = {n: max(float(np.abs(g[n] - g64[n]).max() / scales[n]) for g in [g32] + nudged)
+                   for n in g64}
+        grad_rel = {n: float(np.abs(cg32[n] - g32[n]).max() / scales[n]) for n in g64}
+        bound = {n: ZOO_GRAD_ERR + ZOO_GRAD_SPREAD * cpu_rel[n] for n in g64}
+        over = {n: grad_rel[n] / bound[n] for n in g64}
+        grad_f64 = max(float(np.abs(cg64[n] - g64[n]).max() / scales[n]) for n in g64)
+        worst = max(over, key=over.get)
+        spread = {n: grad_rel[n] / cpu_rel[n] for n in g64 if cpu_rel[n] > 0}
+        rows[label] = {
+            "config": {k: v for k, v in dataclasses.asdict(cfg).items()
+                       if v != getattr(NerfConfig(), k)},
+            "out_max_abs_err_f32": max(float(np.abs(c32[k] - o32[k]).max()) for k in o32),
+            "out_err_over_bound_f32": out_ratio,
+            "out_rel_err_f64": out_f64,
+            "grad_worst_leaf": worst, "grad_rel_err_f32": grad_rel[worst],
+            "grad_bound_f32": bound[worst], "cpu_f32_leaf_spread": cpu_rel[worst],
+            "grad_err_over_bound_f32": over[worst],
+            "grad_err_over_cpu_spread_max": max(spread.values(), default=0.0),
+            "grad_rel_err_f32_max": max(grad_rel.values()), "grad_rel_err_f64": grad_f64,
+            "seconds": time.perf_counter() - t0}
+        r = rows[label]
+        r["within_bounds"] = bool(out_ratio <= 1.0 and out_f64 <= ZOO_F64_ERR
+                                  and grad_f64 <= ZOO_F64_ERR and over[worst] <= 1.0)
+        if check and not r["within_bounds"]:
+            raise RuntimeError(f"nerf_zoo fields {label}: {r}")
+    return rows
+
+
+def nerf_zoo_phase(scene: Path, tmp: Path, device) -> dict:
+    """The ray-marched zoo on the card: nerfacto as registered through the
+    train CLI on trainer's tabletop (ZOO_STEPS steps, then the 4-view eval),
+    a traced step, each field card against CPU, every other name through the
+    CLI on a 200x200 tabletop, and LPIPS card against CPU at 800x800."""
+    import os
+
+    import torch
+    from gaussiangrasper_torch.data.synthetic import generate_tabletop
+    from gaussiangrasper_torch.engine import nerf_trainer as nt
+    from gaussiangrasper_torch.engine.dynamic_batch import DynamicBatchSizer
+    from gaussiangrasper_torch.scripts import train
+    from gaussiangrasper_torch.utils import perceptual
+    from gaussiangrasper_torch.utils.image_io import read_image, read_png
+
+    t_phase = time.perf_counter()
+    step_ms, eval_s, captured = [], [], {}
+    step, render_image = nt.nerf_step, nt.NerfTrainer.render_image
+
+    def timed_step(*a, **k):
+        captured["args"] = (a, k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*a, **k)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def timed_render(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render_image(self, *a, **k)
+        torch.cuda.synchronize()
+        eval_s.append(time.perf_counter() - t0)
+        return out
+
+    seconds, counts = {}, {}
+    nt.nerf_step, nt.NerfTrainer.render_image = timed_step, timed_render
+    try:
+        trainer = counted_cli(seconds, counts, "nerfacto", train.main,
+                              ["--method", "nerfacto", "--data", scene, "--output-dir", tmp / "zoo",
+                               "--experiment-name", "nerfacto", "--max-iterations", ZOO_STEPS,
+                               "--steps-per-save", ZOO_STEPS])
+    finally:
+        nt.nerf_step, nt.NerfTrainer.render_image = step, render_image
+    psnr = [h["psnr"] for h in trainer.history]
+    evals = json.loads((tmp / "zoo" / "nerfacto" / "renders" / "metrics.json").read_text())
+    # one more step of the trained state, traced: device busy ms and top ops
+    a, k = captured["args"]
+    prof = device_profile(lambda: step(*a, **k), top=5)
+    wall = [step_ms[-1]]
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*a, **k)
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+    wall_ms = float(np.median(wall))
+    full = device_profile(lambda: step(*a, **k), top=200)
+    scatter_ms = sum(ms for name, ms in full["top_ms"]
+                     if "index_put" in name.lower() or "indexing_backward" in name.lower()
+                     or "scatter" in name.lower())
+    nerfacto = {
+        "steps": len(step_ms), "ms_per_step_median": float(np.median(step_ms)),
+        "psnr_first_50": float(np.mean(psnr[:50])), "psnr_last_50": float(np.mean(psnr[-50:])),
+        "eval_psnr": [r["psnr"] for r in evals], "eval_s_per_view": eval_s,
+        "traced_step": {"device_busy_ms": prof["device_busy_ms"], "wall_ms_median": wall_ms,
+                        "idle_share": 1.0 - prof["device_busy_ms"] / wall_ms,
+                        "top5_ms": prof["top_ms"], "hash_scatter_add_ms": scatter_ms,
+                        "hash_scatter_add_share_of_busy": scatter_ms / max(full["device_busy_ms"], 1e-9)},
+        "launches": counts["nerfacto"], "wall_s": seconds["nerfacto"]}
+    del trainer, captured, a, k
+    torch.cuda.empty_cache()
+
+    from gaussiangrasper_torch.core.cameras import Camera
+    from gaussiangrasper_torch.data.dataparsers.zoo import resolve_parser
+
+    parsed = resolve_parser(scene).parse()  # the cameras as the trainer sees them
+    pc = parsed.cameras[0]
+    cam = Camera.create(pc.fx, pc.fy, pc.cx, pc.cy, pc.camera_to_world, pc.width, pc.height)
+    fields = zoo_fields(cam, device)
+
+    small = generate_tabletop(tmp / "zoo_small", **ZOO_SMALL_SCENE)
+    names = ["nerfacto-big", "nerfacto-huge", "vanilla-nerf", "depth-nerfacto", "mipnerf",
+             "instant-ngp", "instant-ngp-bounded", "tensorf", "dnerf", "semantic-nerfw",
+             "phototourism", "neus", "neus-facto"]
+    cli, sizer_check = {}, None
+    os.environ["GGT_GUIDANCE"] = "color"
+    try:
+        for name in names + ["generfacto"]:
+            steps = ZOO_INGP_STEPS if name == "instant-ngp" else ZOO_CLI_STEPS
+            out = counted_cli(seconds, counts, name, train.main,
+                              ["--method", name, "--data", small, "--output-dir", tmp / "zoo",
+                               "--experiment-name", name, "--max-iterations", steps,
+                               "--steps-per-save", steps])
+            run = tmp / "zoo" / name
+            if name == "generfacto":
+                img = read_png(run / "generated.png")
+                cli[name] = {"seconds": seconds[name], "generated_png": list(img.shape),
+                             "launches": counts[name]}
+                continue
+            rows = json.loads((run / "renders" / "metrics.json").read_text())
+            ckpt = sorted(p.name for p in (run / "checkpoints").iterdir())
+            cli[name] = {"seconds": seconds[name], "steps": len(out.history),
+                         "checkpoints": ckpt, "eval_psnr": [r["psnr"] for r in rows],
+                         "loss_first_last": [out.history[0]["loss"], out.history[-1]["loss"]],
+                         "launches": counts[name]}
+            if name == "instant-ngp":
+                # the ray counts against the control law replayed on the
+                # measured live samples
+                rays = [h["num_rays_per_batch"] for h in out.history]
+                sizer = DynamicBatchSizer(target_num_samples=out.config.target_num_samples,
+                                          max_num_samples_per_ray=out.config.model.num_coarse
+                                          + out.config.model.num_fine)
+                want = []
+                for h in out.history:
+                    want.append(sizer.num_rays)
+                    sizer.update(int(h["num_samples"]))
+                sizer_check = {"num_rays_per_batch": sorted(set(rays)), "follows_sizer": rays == want,
+                               "moved": len(set(rays)) > 1,
+                               "live_samples_first_last": [out.history[0]["num_samples"],
+                                                           out.history[-1]["num_samples"]]}
+                cli[name]["sizer"] = sizer_check
+            if len(ckpt) != 1 or not all(math.isfinite(p) for p in cli[name]["eval_psnr"]) \
+                    or len(rows) != 4:
+                raise RuntimeError(f"nerf_zoo {name}: {cli[name]}")
+            del out
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("GGT_GUIDANCE", None)
+
+    # LPIPS with seeded random VGG16 weights: view 0 and the nerfacto render of it
+    path = tmp / "vgg16_random.npz"
+    np.savez(path, **perceptual.random_weights(0))
+    prev = os.environ.get("GGT_VGG16_WEIGHTS")
+    os.environ["GGT_VGG16_WEIGHTS"] = str(path)
+    perceptual.reset_cache()
+    try:
+        gt = read_image(parsed.image_filenames[0])[..., :3].astype(np.float32) / 255.0
+        pred = read_png(tmp / "zoo" / "nerfacto" / "renders" / "00000.png").astype(np.float32) / 255.0
+        on_card = perceptual.lpips(pred, gt, device=device)
+        on_cpu = perceptual.lpips(pred, gt, device="cpu")
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            perceptual.lpips(pred, gt, device=device)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        if prev is None:
+            os.environ.pop("GGT_VGG16_WEIGHTS", None)
+        else:
+            os.environ["GGT_VGG16_WEIGHTS"] = prev
+        perceptual.reset_cache()
+    lp = {"size": list(gt.shape[:2]), "card": on_card, "cpu": on_cpu,
+          "abs_err": abs(on_card - on_cpu), "ms_per_pair_median": float(np.median(ms))}
+    row = {"phase": "nerf_zoo", "nerfacto": nerfacto, "fields": fields, "cli": cli, "lpips": lp,
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    no_kernels = {"k1": 0, "k2": 0, "k5": 0, "k6": 0}
+    if nerfacto["psnr_last_50"] <= nerfacto["psnr_first_50"] or nerfacto["steps"] != ZOO_STEPS \
+            or len(nerfacto["eval_psnr"]) != 4 \
+            or not all(math.isfinite(p) for p in nerfacto["eval_psnr"]) \
+            or not sizer_check or not sizer_check["follows_sizer"] or not sizer_check["moved"] \
+            or lp["abs_err"] > 1e-5 or not math.isfinite(lp["card"]) \
+            or any(c != no_kernels for c in counts.values() if isinstance(c, dict)):
+        raise RuntimeError(f"nerf_zoo: {row}")
+    return row
+
+
 CAPTURE_LENS = (-0.08, 0.02, 5e-4, -5e-4)  # OpenCV k1, k2, p1, p2 of the capture phase
 CAPTURE_POSE_NOISE = (0.5, 0.005)  # degrees and scene units (5 mm) for views 1-7
 POSE_PERTURB = (0.06, -0.04, 0.0, 0.0, 0.0, 0.02)  # tests/test_pose_opt.py's perturbation
@@ -2710,6 +3022,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         # edit_phase's post-move capture: sphere 1 moved, the trainer phase's settings
         multi = multi_scene_phase(scene, Path(tmp) / "after_updating", Path(tmp), trainer, device)
+        shutil.rmtree(Path(tmp) / "multi")
+        torch.cuda.empty_cache()
+        nerf_zoo_phase(scene, Path(tmp), device)
     torch.cuda.empty_cache()
     pose = pose_phase(device)
     torch.cuda.empty_cache()

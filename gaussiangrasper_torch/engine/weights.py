@@ -77,3 +77,36 @@ def train_state_from_numpy(field_arrays: Mapping[str, np.ndarray], alive: np.nda
         generator=torch.Generator(device=dev).manual_seed(seed),
         pose=None if pose is None else leaf(pose),
     )
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v, np.float32)
+    return out
+
+
+def nerf_params_from_numpy(params: Mapping[str, Any], cfg, device=None):
+    """The JAX `init_nerf` params pytree (nested dicts of numpy arrays) as
+    the port's `NerfField` on `device`: every leaf loads by its dotted key
+    (`grid.table`, `proposal_0.density_mlp.w0`, `s`, ...), the MLP weights
+    in the JAX layout, untransposed. Strict: a missing or extra key raises."""
+    from gaussiangrasper_torch.models.nerf import NerfField
+
+    field = NerfField(cfg)
+    field.load_state_dict({k: torch.tensor(v) for k, v in _flatten(params).items()})
+    return field.to(device)
+
+
+def occupancy_from_numpy(density: np.ndarray, aabb: np.ndarray, threshold: float,
+                         device=None):
+    """The JAX `OccupancyGrid`'s density (R, R, R), aabb (2, 3) and
+    threshold as the port's."""
+    from gaussiangrasper_torch.models.occupancy import OccupancyGrid
+
+    return OccupancyGrid(density=torch.tensor(np.asarray(density, np.float32), device=device),
+                         aabb=torch.tensor(np.asarray(aabb, np.float32), device=device),
+                         threshold=float(threshold))

@@ -8,7 +8,7 @@ through `mlp_apply`."""
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -61,3 +61,30 @@ def params_from_numpy(arrays: Mapping[str, np.ndarray], device=None) -> Dict[str
         out[f"layers.{i}.bias"] = torch.tensor(np.asarray(arrays[f"b{i}"], np.float32),
                                                device=device)
     return out
+
+
+class MLP(nn.Module):
+    """Linear-ReLU-...-Linear with the JAX package's `init_mlp` layout: the
+    parameters are `w{i}` (d_in, d_out) and `b{i}`, so a JAX MLP's arrays
+    load by name, untransposed. Used by the ray-marched fields."""
+
+    def __init__(self, in_dim: int, out_dim: int, hidden: Sequence[int] = (),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dims = [in_dim, *hidden, out_dim]
+        self.num_layers = len(dims) - 1
+        for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
+            # torch.nn.Linear's default, U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
+            # for weights and bias alike
+            bound = 1.0 / float(np.sqrt(d_in))
+            w = (torch.rand((d_in, d_out), generator=generator) * 2.0 - 1.0) * bound
+            b = (torch.rand((d_out,), generator=generator) * 2.0 - 1.0) * bound
+            self.register_parameter(f"w{i}", nn.Parameter(w))
+            self.register_parameter(f"b{i}", nn.Parameter(b))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_layers):
+            x = x @ getattr(self, f"w{i}") + getattr(self, f"b{i}")
+            if i < self.num_layers - 1:
+                x = torch.relu(x)
+        return x

@@ -10,8 +10,9 @@ cameras.npz). For up to --num-views of its views, writes
   normal/<i>.npy/.png  rotated back to the capture frame by the inverse
                        dataparser rotation
   depth/<i>.npy/.png   metric (divided by the dataparser scale), JET
-plus metrics.json (psnr, ssim, psnr_masked, depth_mae, normal_cos) for the
-views whose ground truth cameras.npz holds. With --traj interpolate (6
+plus metrics.json (psnr, ssim, psnr_masked, lpips when VGG16 weights are
+present (utils/perceptual.py), depth_mae, normal_cos) for the views whose
+ground truth the run holds. With --traj interpolate (6
 frames from each view towards the next, over every view) or --traj spiral
 (--num-views frames around view 0) it renders the camera path's rgb alone
 into traj/<i>.png instead.
@@ -38,6 +39,7 @@ from gaussiangrasper_torch.engine.weights import ServeState
 from gaussiangrasper_torch.models import losses
 from gaussiangrasper_torch.models.efd import FeaUp
 from gaussiangrasper_torch.models.model import GaussianSplatConfig, render
+from gaussiangrasper_torch.utils import perceptual
 from gaussiangrasper_torch.utils.image_io import depth2color, write_png
 
 
@@ -66,6 +68,10 @@ def view_metrics(outs: Dict, gt: Dict[str, np.ndarray], i: int, scale: float) ->
     if "valid_mask" in gt and not gt["valid_mask"][i].all():
         vm = torch.as_tensor(gt["valid_mask"][i], dtype=torch.bool, device=dev)
         row["psnr_masked"] = float(losses.psnr(rgb, img, vm))
+    # weight-gated: present only when a VGG16 .npz is at hand
+    lp = perceptual.lpips(rgb, img, device=dev)
+    if lp is not None:
+        row["lpips"] = lp
     if "depth" in gt and gt["depth"][i].max() > 0:
         gt_depth = torch.as_tensor(gt["depth"][i], dtype=torch.float32, device=dev)
         dmask = gt_depth > 0.05
@@ -182,6 +188,8 @@ def main(argv=None) -> None:
             "ssim": float(np.mean([r["ssim"] for r in results])),
             **({"psnr_masked": float(np.mean([r["psnr_masked"] for r in results]))}
                if all("psnr_masked" in r for r in results) else {}),
+            **({"lpips": float(np.mean([r["lpips"] for r in results]))}
+               if all("lpips" in r for r in results) else {}),
             "per_view": results,
         }
     (out_dir / "metrics.json").write_text(json.dumps(summary, indent=2))

@@ -431,6 +431,34 @@ assert generate_data.main(["--capture", str(cap), "--output", str(tmp / "gen"), 
 process_data.main(["images", "--data", str(tmp / "gen" / "images"), "--output", str(tmp / "proc")])
 assert (tmp / "proc" / "images_8" / "frame_00000.png").exists()
 assert equirect_to_perspective(img, 90.0, 180.0, 10.0, (8, 8)).shape == (8, 8, 3)
+# the NeRF zoo: one nerfacto step, one neus render, a generfacto step and
+# an LPIPS call
+import os
+from gaussiangrasper_torch.core.rays import generate_rays
+from gaussiangrasper_torch.engine.nerf_trainer import NerfTrainer, NerfTrainerConfig
+from gaussiangrasper_torch.models import generative
+from gaussiangrasper_torch.models.nerf import NerfConfig, init_nerf, render_rays
+from gaussiangrasper_torch.utils import perceptual
+tiny = dict(num_coarse=8, num_fine=8, hidden=16, hash_levels=4, log2_hashmap_size=8)
+nt = NerfTrainer(NerfTrainerConfig(data=scene, output_dir=tmp / "nerf", max_iterations=1,
+                                   rays_per_batch=32, model=NerfConfig(use_proposal=True,
+                                   num_proposal_samples=(8, 8), **tiny)), trainer.dm)
+nt.setup()
+nt.train()
+assert np.isfinite(nt.history[0]["loss"]) and (tmp / "nerf" / "nerfacto" / "checkpoints").exists()
+ncfg = NerfConfig(field="neus", **tiny)
+with torch.no_grad():
+    out = render_rays(init_nerf(ncfg), generate_rays(cam, torch.zeros(4, 2, dtype=torch.long)),
+                      torch.Generator().manual_seed(0), ncfg)
+assert torch.isfinite(out["normal"]).all()
+gcfg = generative.GenerfactoConfig(resolution=8, max_iterations=1)
+_, render_view = generative.train_generfacto(torch.Generator().manual_seed(0),
+                                             generative.ColorTargetGuidance(), gcfg, device="cpu")
+assert render_view(cam).shape == (24, 32, 3)
+np.savez(tmp / "vgg16.npz", **perceptual.random_weights(0))
+os.environ["GGT_VGG16_WEIGHTS"] = str(tmp / "vgg16.npz")
+perceptual.reset_cache()
+assert perceptual.lpips(img / 255.0, img / 255.0, device="cpu") == 0.0
 """
 
 
@@ -443,8 +471,9 @@ def test_port_imports_no_jax_pillow_opencv(tmp_path):
     train step in a gloo world of one rank, two multi-scene steps, and the
     capture and viewing tools (camera paths, the JPEG writer and resize, a
     viewer frame, a trace window, generate_data with ICP, process_data and
-    an equirect crop; an import made inside a function would otherwise slip
-    past)."""
+    an equirect crop), and the NeRF zoo (a nerfacto trainer step, a neus
+    render, a generfacto step, an LPIPS call; an import made inside a
+    function would otherwise slip past)."""
     code = (
         "import sys\n"
         # torch.profiler loads torch._inductor, whose trace rules look for
@@ -466,6 +495,8 @@ def test_port_imports_no_jax_pillow_opencv(tmp_path):
         "import gaussiangrasper_torch.scripts.update, gaussiangrasper_torch.scripts.viewer\n"
         "import gaussiangrasper_torch.scripts.generate_data, gaussiangrasper_torch.scripts.process_data\n"
         "import gaussiangrasper_torch.data.equirect, gaussiangrasper_torch.utils.profiler\n"
+        "import gaussiangrasper_torch.configs.methods, gaussiangrasper_torch.engine.nerf_trainer\n"
+        "import gaussiangrasper_torch.models.generative, gaussiangrasper_torch.utils.perceptual\n"
         + GUARDED_RUN
     )
     root = Path(__file__).resolve().parent.parent

@@ -1081,3 +1081,144 @@ def test_equirect_on_the_card_matches_cpu(cuda_device, grey):
         assert card.device.type == "cuda"
         host = equirect.equirect_to_perspective(pano, fov, yaw, pitch, size)
         assert torch.equal(card.cpu(), host), (yaw, pitch)
+
+
+# --- the ray-marched zoo (plain torch ops, no kernel of its own) ---------------
+
+ZOO_TINY = dict(num_coarse=8, num_fine=8, hidden=16, hash_levels=4, log2_hashmap_size=8,
+                tensorf_resolution=16, far=4.0)
+ZOO_CASES = [("vanilla", {}), ("nerfacto", {"use_proposal": True, "num_proposal_samples": (8, 8)}),
+             ("mipnerf", {}), ("instant-ngp", {}), ("tensorf", {}), ("neus", {}),
+             ("neus-facto", {}), ("nerfacto", {"num_semantic_classes": 5}),
+             ("nerfacto", {"num_appearance_embeds": 3}), ("vanilla", {"deformation": True})]
+
+
+ZOO_NUDGES = (1, -1, 2, -2, 3, -3, 4, -4)  # chip_smoke.py's: the CPU float32 spread's runs
+
+
+def _zoo_run(field, cfg, coords, draws, device, dtype, nudge=0):
+    """render_rays forward and backward, the ray origins and the draws moved
+    by `nudge` ulps."""
+    import copy
+
+    from gaussiangrasper_torch._device import full_f32
+    from gaussiangrasper_torch.core.rays import generate_rays
+    from gaussiangrasper_torch.models.nerf import render_rays
+
+    f = copy.deepcopy(field).to(device=device, dtype=dtype)
+    c2w = np.concatenate([np.eye(3), [[0.1], [-0.2], [1.5]]], 1)
+    cam = Camera.create(12.0, 12.0, 8.0, 6.0, c2w, 16, 12, device=device)
+    cam = dataclasses.replace(cam, camera_to_world=cam.camera_to_world.to(dtype))
+    extra = {}
+    if cfg.deformation:
+        extra["times"] = torch.tensor(0.3, dtype=dtype, device=device)
+    rb = generate_rays(cam, coords.to(device))
+    d = {k: torch.tensor(v, dtype=dtype, device=device) for k, v in draws.items()}
+    for _ in range(abs(nudge)):
+        def up(x):
+            return torch.nextafter(x, torch.full_like(x, nudge * float("inf")))
+        rb = rb._replace(origins=up(rb.origins))
+        d = {k: up(v) for k, v in d.items()}
+    with full_f32():
+        out = render_rays(f, rb, d, cfg, **extra)
+        sum(torch.sum(v * (1.0 + 0.1 * i)) for i, (k, v) in enumerate(sorted(out.items()))
+            if v.is_floating_point()).backward()
+    return ({k: v.detach().double().cpu().numpy() for k, v in out.items()},
+            {n: p.grad.double().cpu().numpy() for n, p in f.named_parameters() if p.grad is not None})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ZOO_CASES, ids=lambda c: "-".join([c[0], *c[1]]))
+def test_nerf_field_on_the_card_matches_cpu(cuda_device, case):
+    """render_rays forward and backward of 32 rays at tiny widths, card
+    against CPU from one field and one set of draws: float64 within 1e-8 of
+    each output's / leaf's largest entry; float32 outputs within 1e-5 plus 4x
+    the CPU's own float32 spread, each gradient leaf within 1e-4 of its
+    largest entry plus 10x its CPU float32 spread: its largest error against
+    float64 over the CPU float32 runs with the origins and draws moved by
+    ZOO_NUDGES ulps and without (chip_smoke.py's nerf_zoo criteria)."""
+    from gaussiangrasper_torch.models.nerf import NerfConfig, draw_shapes, init_nerf
+
+    field_name, kw = case
+    cfg = NerfConfig(field=field_name, **ZOO_TINY, **kw)
+    field = init_nerf(cfg, seed=1)
+    rng = np.random.default_rng(2)
+    coords = torch.tensor(np.stack([rng.integers(0, 12, 32), rng.integers(0, 16, 32)], -1))
+    draws = {k: rng.random(s) for k, s in draw_shapes(cfg, 32).items()}
+    runs = {(d, dt): _zoo_run(field, cfg, coords, draws, d, dt)
+            for d in ("cpu", cuda_device) for dt in (torch.float32, torch.float64)}
+    (o32, g32), (o64, g64) = runs[("cpu", torch.float32)], runs[("cpu", torch.float64)]
+    (c32, cg32), (c64, cg64) = runs[(cuda_device, torch.float32)], runs[(cuda_device, torch.float64)]
+    for k in o64:
+        scale = max(np.abs(o64[k]).max(), 1e-30)
+        assert np.abs(c64[k] - o64[k]).max() <= 1e-8 * scale, k
+        assert np.all(np.abs(c32[k] - o32[k]) <= 1e-5 + 4 * np.abs(o32[k] - o64[k])), k
+    nudged = [g32] + [_zoo_run(field, cfg, coords, draws, "cpu", torch.float32, n)[1]
+                      for n in ZOO_NUDGES]
+    scales = {n: max(np.abs(g64[n]).max(), 1e-30) for n in g64}
+    for n in g64:
+        spread = max(np.abs(g[n] - g64[n]).max() for g in nudged) / scales[n]
+        assert np.abs(cg64[n] - g64[n]).max() <= 1e-8 * scales[n], n
+        assert np.abs(cg32[n] - g32[n]).max() / scales[n] <= 1e-4 + 10 * spread, n
+
+
+@pytest.mark.gpu
+def test_nerf_step_on_the_card_matches_cpu(cuda_device):
+    """One nerfacto `nerf_step` (tiny widths, 64 rays) on the card and on the
+    CPU from one field, batch and draws: metrics within 1e-5, parameters
+    within 2 lr. Then a second step on the same batch and draws: its
+    metrics, which see the first update, within 1e-5 too, and its loss
+    below the first step's on both (the update descends)."""
+    from gaussiangrasper_torch.engine import nerf_trainer as nt
+    from gaussiangrasper_torch.models.nerf import NerfConfig, draw_shapes, init_nerf
+
+    cfg = NerfConfig(field="nerfacto", use_proposal=True, num_proposal_samples=(8, 8), **ZOO_TINY)
+    rng = np.random.default_rng(3)
+    coords = np.stack([rng.integers(0, 12, 64), rng.integers(0, 16, 64)], -1)
+    target = rng.random((64, 3)).astype(np.float32)
+    depth = rng.uniform(0, 3, 64).astype(np.float32)
+    draws = {k: rng.random(s).astype(np.float32) for k, s in draw_shapes(cfg, 64).items()}
+    c2w = np.concatenate([np.eye(3), [[0.1], [-0.2], [1.5]]], 1)
+    fields, metrics, second = {}, {}, {}
+    for dev in ("cpu", cuda_device):
+        f = init_nerf(cfg, seed=4, device=dev)
+        opt = nt.init_adam(f)
+        cam = Camera.create(12.0, 12.0, 8.0, 6.0, c2w, 16, 12, device=dev)
+
+        def step():
+            m = nt.nerf_step(f, opt, cam, torch.tensor(coords, device=dev),
+                             torch.tensor(target, device=dev), torch.tensor(depth, device=dev),
+                             torch.full((64,), -1, device=dev), torch.tensor(0.0, device=dev), 0,
+                             None, draws, cfg, 5e-3,
+                             nt.loss_weights(nt.NerfTrainerConfig(model=cfg)))
+            return {k: float(v) for k, v in m.items()}
+
+        metrics[str(dev)] = step()
+        fields[str(dev)] = {n: p.detach().cpu().clone() for n, p in f.state_dict().items()}
+        second[str(dev)] = step()
+    for k, v in metrics["cpu"].items():
+        assert metrics["cuda"][k] == pytest.approx(v, abs=1e-5, rel=1e-5), k
+        assert second["cuda"][k] == pytest.approx(second["cpu"][k], abs=1e-5, rel=1e-5), k
+    for dev in ("cpu", "cuda"):
+        assert second[dev]["loss"] < metrics[dev]["loss"], dev
+    for n, a in fields["cpu"].items():
+        assert (fields["cuda"][n] - a).abs().max() <= 2 * 5e-3, n
+
+
+@pytest.mark.gpu
+def test_lpips_on_the_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
+    """LPIPS with seeded random VGG16 weights, card against CPU within 1e-5."""
+    from gaussiangrasper_torch.utils import perceptual
+
+    path = tmp_path / "vgg16.npz"
+    np.savez(path, **perceptual.random_weights(1))
+    monkeypatch.setenv("GGT_VGG16_WEIGHTS", str(path))
+    perceptual.reset_cache()
+    try:
+        rng = np.random.default_rng(5)
+        a = rng.random((96, 128, 3)).astype(np.float32)
+        b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+        card, cpu = perceptual.lpips(a, b, device=cuda_device), perceptual.lpips(a, b, device="cpu")
+        assert cpu > 0 and abs(card - cpu) <= 1e-5, (card, cpu)
+    finally:
+        perceptual.reset_cache()
