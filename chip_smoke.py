@@ -72,6 +72,13 @@ Phases, one JSON line each:
            bench camera, bench batch shapes, seeded fea_up), steps 4000 to
            4099 and a refine step with every launch count set to 0 just
            before and read just after; ms per step, px/s, a profile
+  segment  the classic segmentation backend (`python -m
+           gaussiangrasper_torch.scripts.segment`) on a copy of trainer's
+           800x800, 8-view tabletop without its masks: ms and instances a
+           view on the card, views 0-1 bit-equal to the CPU path from the
+           same generator state, then `ggt-torch-train` 20 steps on the
+           segmented copy (finite step-0 loss, positive contrastive term,
+           K1 / K2 launches from 0, `segment_train` in the kernels line)
   trainer  the training CLI (`ggt-torch-train`) on an 800x800, 8-view
            ray-traced tabletop with 200k seed points: 300 steps (250 at
            400x400, 50 at 800x800), refines at steps 100, 200, 300, capacity
@@ -1979,6 +1986,103 @@ def capture_phase(scene: Path, tmp: Path, trainer_row: dict, device) -> dict:
     return row
 
 
+SEGMENT_CPU_VIEWS = 2  # views of the segment phase held bit-equal to the CPU path
+SEGMENT_TRAIN_STEPS = 20
+
+
+def segment_phase(scene: Path, tmp: Path, device) -> dict:
+    """The classic segmentation backend on trainer's tabletop: a copy of the
+    capture without its synthetic masks, segmented by `segment.main` on the
+    card from a fresh generator carried across the 8 views (as cv2's thread
+    RNG runs), each view timed between two synchronizations; the first
+    SEGMENT_CPU_VIEWS views segmented again on the CPU path from the
+    generator state the card started that view from, bit-equal; then
+    `ggt-torch-train` for SEGMENT_TRAIN_STEPS steps on the segmented copy,
+    every launch count set to 0 just before: a finite step-0 loss, a
+    positive contrastive term (`feature_loss`) at step 0, K1 / K2 launches."""
+    import torch
+    from gaussiangrasper_torch.engine import train_state
+    from gaussiangrasper_torch.scripts import segment, train
+    from gaussiangrasper_torch.utils import cv_segment
+    from gaussiangrasper_torch.utils.image_io import read_image
+
+    t_phase = time.perf_counter()
+    seg = tmp / "segmented"
+    shutil.copytree(scene, seg, ignore=shutil.ignore_patterns("masks", "boundary_mask"))
+    views = []
+    classic = segment.classic_instance_masks
+
+    def timed_masks(img, *a, **k):
+        state = cv_segment.DEFAULT_RNG.state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = classic(img, *a, **k)
+        torch.cuda.synchronize()
+        views.append({"rng_state": state, "ms": 1e3 * (time.perf_counter() - t0),
+                      "instances": int(out.max()) + 1})
+        return out
+
+    cv_segment.DEFAULT_RNG = cv_segment.OpenCVRNG()  # a fresh thread's generator
+    segment.classic_instance_masks = timed_masks
+    t0 = time.perf_counter()
+    try:
+        segment.main(["--data", str(seg)])
+    finally:
+        segment.classic_instance_masks = classic
+    main_s = time.perf_counter() - t0
+
+    images = sorted((seg / "images").iterdir())
+    cpu_ms, equal = [], []
+    for path, view in zip(images[:SEGMENT_CPU_VIEWS], views):
+        img = read_image(path)[..., :3]
+        t0 = time.perf_counter()
+        host = classic(img, rng=cv_segment.OpenCVRNG(view["rng_state"]), device="cpu")
+        cpu_ms.append(1e3 * (time.perf_counter() - t0))
+        equal.append(bool(np.array_equal(np.load(seg / "masks" / f"{path.stem}.npy"), host)))
+
+    steps = []
+    train_step = train_state.train_step
+
+    def recorded_step(state, cam, batch, cfg, *a, **k):
+        new, metrics = train_step(state, cam, batch, cfg, *a, **k)
+        steps.append((float(metrics["loss"]), float(metrics["feature_loss"])))
+        return new, metrics
+
+    seconds, counts = {}, {}
+    train_state.train_step = recorded_step
+    try:
+        counted_cli(seconds, counts, "train", train.main,
+                    ["--data", seg, "--max-iterations", SEGMENT_TRAIN_STEPS, "--capacity",
+                     CAPACITY, "--steps-per-save", SEGMENT_TRAIN_STEPS, "--output-dir",
+                     tmp / "segment_run"])
+    finally:
+        train_state.train_step = train_step
+    ms = [v["ms"] for v in views]
+    row = {"phase": "segment", "views": len(views), "backend": "classic",
+           "ms_per_view": ms, "ms_per_view_median": float(np.median(ms)) if ms else None,
+           "instances_per_view": [v["instances"] for v in views], "main_s": main_s,
+           "cpu_views_bit_equal": equal, "cpu_ms_per_view": cpu_ms,
+           "train_steps": len(steps), "train_s": seconds["train"],
+           "loss_first_last": [steps[0][0], steps[-1][0]] if steps else None,
+           "feature_loss_first_last": [steps[0][1], steps[-1][1]] if steps else None,
+           "launches": counts["train"]}
+    shutil.rmtree(seg)
+    shutil.rmtree(tmp / "segment_run")
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    if len(views) != TRAINER_SCENE["n_views"] or len(equal) != SEGMENT_CPU_VIEWS \
+            or not all(equal):
+        raise RuntimeError(f"segment: {len(views)} views, CPU path bit-equal {equal}")
+    if min(row["instances_per_view"]) < 2:
+        raise RuntimeError(f"segment: instances a view {row['instances_per_view']}")
+    if row["launches"] != {"k1": SEGMENT_TRAIN_STEPS, "k2": SEGMENT_TRAIN_STEPS, "k5": 0, "k6": 0}:
+        raise RuntimeError(f"segment: launches {row['launches']}")
+    if len(steps) != SEGMENT_TRAIN_STEPS or not all(math.isfinite(x) for st in steps for x in st) \
+            or not steps[0][1] > 0:
+        raise RuntimeError(f"segment: {len(steps)} steps, (loss, feature_loss) {steps[:3]}")
+    return row
+
+
 def pose_recovery(field, alive, cam, mode: str, steps: int):
     """tests/test_pose_opt.py's recovery on (field, cam): render the target
     at `cam`, start from `cam` moved by POSE_PERTURB, run Adam(POSE_LR) on
@@ -2994,6 +3098,8 @@ def main() -> int:
         t0 = time.perf_counter()
         scene = generate_tabletop(Path(tmp) / "tabletop", **TRAINER_SCENE)
         emit({"phase": "trainer_data", "seconds": time.perf_counter() - t0, **TRAINER_SCENE})
+        segment = segment_phase(scene, Path(tmp), device)
+        torch.cuda.empty_cache()
         # the TP 1 run stays for the edit phase
         trainer = trainer_phase(scene, Path(tmp) / "tp1", "trainer", tp=1)
         trainer2 = trainer_phase(scene, Path(tmp) / "tp2", "trainer_tp2", tp=2)
@@ -3058,6 +3164,7 @@ def main() -> int:
                        **{f"edit_{n}": edit["launches"][n]["k1"] for n in
                           ("update", "export_pointcloud", "export_texture", "psnr_renders")},
                        "capture": capture["launches"]["k1"],
+                       "segment_train": segment["launches"]["k1"],
                        **{f"pose_{m}": pose["modes"][m]["launches"]["k1"] for m in pose["modes"]},
                        **{f"e2e_small_{n}": e2e["launches"][n]["k1"]
                           for n in ("train", "query", "grasp_sweep", "update")},
@@ -3078,6 +3185,7 @@ def main() -> int:
                        "table_phase_pair_train": table["train_launches"]["k2"],
                        "edit_update": edit["launches"]["update"]["k2"],
                        "capture": capture["launches"]["k2"],
+                       "segment_train": segment["launches"]["k2"],
                        **{f"pose_{m}": pose["modes"][m]["launches"]["k2"] for m in pose["modes"]},
                        **{f"e2e_small_{n}": e2e["launches"][n]["k2"]
                           for n in ("train", "grasp_sweep", "update")},

@@ -459,6 +459,13 @@ np.savez(tmp / "vgg16.npz", **perceptual.random_weights(0))
 os.environ["GGT_VGG16_WEIGHTS"] = str(tmp / "vgg16.npz")
 perceptual.reset_cache()
 assert perceptual.lpips(img / 255.0, img / 255.0, device="cpu") == 0.0
+# the segmentation CLI's classic backend, on a copy of the capture
+import shutil
+from gaussiangrasper_torch.scripts import segment
+shutil.copytree(scene, tmp / "seg_scene")
+segment.main(["--data", str(tmp / "seg_scene"), "--min-area", "20", "--device", "cpu"])
+ids = np.load(tmp / "seg_scene" / "masks" / "r_000.npy")
+assert ids.dtype == np.int32 and ids.shape == (24, 32) and ids.max() >= 1
 """
 
 
@@ -472,8 +479,9 @@ def test_port_imports_no_jax_pillow_opencv(tmp_path):
     capture and viewing tools (camera paths, the JPEG writer and resize, a
     viewer frame, a trace window, generate_data with ICP, process_data and
     an equirect crop), and the NeRF zoo (a nerfacto trainer step, a neus
-    render, a generfacto step, an LPIPS call; an import made inside a
-    function would otherwise slip past)."""
+    render, a generfacto step, an LPIPS call), and the segmentation CLI's
+    classic backend (an import made inside a function would otherwise slip
+    past)."""
     code = (
         "import sys\n"
         # torch.profiler loads torch._inductor, whose trace rules look for
@@ -497,6 +505,7 @@ def test_port_imports_no_jax_pillow_opencv(tmp_path):
         "import gaussiangrasper_torch.data.equirect, gaussiangrasper_torch.utils.profiler\n"
         "import gaussiangrasper_torch.configs.methods, gaussiangrasper_torch.engine.nerf_trainer\n"
         "import gaussiangrasper_torch.models.generative, gaussiangrasper_torch.utils.perceptual\n"
+        "import gaussiangrasper_torch.scripts.segment\n"
         + GUARDED_RUN
     )
     root = Path(__file__).resolve().parent.parent

@@ -1222,3 +1222,48 @@ def test_lpips_on_the_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
         assert cpu > 0 and abs(card - cpu) <= 1e-5, (card, cpu)
     finally:
         perceptual.reset_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", ["filter", "kmeans", "masks"])
+def test_segment_on_the_card_matches_cpu(cuda_device, tmp_path, stage):
+    """The classic segmentation backend at 800x800 on a tabletop frame: the
+    bilateral filter, the k-means labels (K 8, one generator state on both)
+    and the instance masks on the card bit-equal to the CPU path. Every
+    card op is a single IEEE operation, and the order-dependent sums run
+    on the host either way."""
+    import time
+
+    from gaussiangrasper_torch.data.synthetic import generate_tabletop
+    from gaussiangrasper_torch.scripts.segment import classic_instance_masks
+    from gaussiangrasper_torch.utils import cv_segment as cs
+    from gaussiangrasper_torch.utils.image_io import read_image
+
+    scene = generate_tabletop(tmp_path / "scene", width=800, height=800, n_views=1,
+                              seed_points=64)
+    img = read_image(next((scene / "images").iterdir()))[..., :3]
+    filtered = cs.bilateral_filter(img, device="cpu")
+    seconds = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    if stage == "filter":
+        card = timed("cuda", lambda: cs.bilateral_filter(img, device=cuda_device).cpu())
+        host = filtered
+    elif stage == "kmeans":
+        z = filtered.reshape(-1, 3).float()
+        card = timed("cuda", lambda: cs.kmeans_pp(z, 8, rng=cs.OpenCVRNG(3), device=cuda_device))
+        host = timed("cpu", lambda: cs.kmeans_pp(z, 8, rng=cs.OpenCVRNG(3), device="cpu"))
+    else:
+        card = timed("cuda", lambda: classic_instance_masks(img, rng=cs.OpenCVRNG(),
+                                                            device=cuda_device))
+        host = timed("cpu", lambda: classic_instance_masks(img, rng=cs.OpenCVRNG(), device="cpu"))
+        assert host.max() >= 1
+    print("segment_card_vs_cpu", stage, json.dumps(seconds))
+    np.testing.assert_array_equal(np.asarray(card), np.asarray(host))
