@@ -79,6 +79,15 @@ Phases, one JSON line each:
            same generator state, then `ggt-torch-train` 20 steps on the
            segmented copy (finite step-0 loss, positive contrastive term,
            K1 / K2 launches from 0, `segment_train` in the kernels line)
+  sam_clip  SAM and CLIP's text tower as the port's own modules, seeded
+           random weights at the published widths written as hub snapshots
+           (HF_HUB_CACHE): `segment --backend sam` on a two-view 800x800
+           tabletop, view 0's image embedding, mask logits and IoU scores on
+           the card against this machine's CPU, its masks pixel for pixel
+           but near-zero logits; `ggt-torch-train` 20 steps on the SAM masks;
+           `ggt-torch-query --text` with two prompts on two views; the text
+           features card against CPU; the encoder's, a view's and a prompt
+           batch's times beside the card's name and power limit
   trainer  the training CLI (`ggt-torch-train`) on an 800x800, 8-view
            ray-traced tabletop with 200k seed points: 300 steps (250 at
            400x400, 50 at 800x800), refines at steps 100, 200, 300, capacity
@@ -100,9 +109,9 @@ Phases, one JSON line each:
   e2e_small  tests/test_e2e_tabletop.py's setting (64x64, 6 views, 300 steps,
            feature 16, then 80 update iterations) on the card with that
            test's bars, each failing it; the grasp's bar (within 3 radii of
-           sphere 1) over ten trainer seeds, each a train and a grasp: no
-           more seeds may miss it than miss it in the JAX package (ROADMAP.md
-           queue 3, F4)
+           sphere 1) over the first five of the ten trainer seeds, each a
+           train and a grasp: no more of them may miss it than miss it in
+           the JAX package at those seeds (ROADMAP.md queue 3, F4)
   capture  trainer's tabletop rewritten through an OPENCV lens (k1 -0.08,
            k2 0.02, p1 5e-4, p2 -5e-4; `distort_frame` on the host), the
            poses of views 1-7 moved by 0.5 degrees and 5 mm, trained by
@@ -1488,7 +1497,7 @@ def multi_scene_phase(scene: Path, moved: Path, tmp: Path, trainer_row: dict, de
     return row
 
 
-ZOO_STEPS = 300  # nerfacto at its registered widths on trainer's 800x800 tabletop
+ZOO_STEPS = 150  # nerfacto at its registered widths on trainer's 800x800 tabletop
 ZOO_CLI_STEPS = 20  # every other ray-marched name, and generfacto
 ZOO_INGP_STEPS = 1200  # instant-ngp: ~70 grid updates, for the EMA to empty cells and move the sizer
 ZOO_SMALL_SCENE = dict(width=200, height=200, n_views=4, seed_points=2000, seed=0)
@@ -2083,6 +2092,223 @@ def segment_phase(scene: Path, tmp: Path, device) -> dict:
     return row
 
 
+SAM_CLIP_SCENE = {**TRAINER_SCENE, "n_views": 2}  # two of trainer's 800x800 tabletop views
+SAM_CLIP_STEPS = 20
+SAM_CLIP_PROMPTS = ("a red mug", "the blue sphere on the table")
+SAM_ERR = 1e-4  # card against CPU: of each output's largest |value| (embedding, logits, IoU)
+CLIP_ERR = 1e-4  # card against CPU: of the features' largest |value|
+NEAR_ZERO = 1e-4  # mask pixels whose upscaled CPU logit lies this close to 0 are not compared
+
+
+class RecordedSam:
+    """A SamModel stand-in that keeps the image embedding and the decoder's
+    outputs of its last call."""
+
+    def __init__(self, model):
+        self.model, self.out = model, None
+
+    def __call__(self, pixel_values, input_points):
+        emb = self.model.image_embeddings(pixel_values)
+        masks, iou = self.model.decode(emb, input_points)
+        self.out = (emb, masks, iou)
+        return masks, iou
+
+
+def sam_clip_phase(tmp: Path, device) -> dict:
+    """SAM and CLIP's text tower as the port's own modules, with seeded
+    random weights at the published widths (SamConfig(); CLIP ViT-B/16's
+    text tower: 512 wide, 12 layers, 8 heads, 77 positions, a synthetic
+    49408-token vocabulary and its merges, projection 512) written as
+    snapshots in the hub cache layout under HF_HUB_CACHE, so the loader
+    runs: `segment --backend sam` on a two-view 800x800 tabletop (each view
+    timed), view 0's image embedding, pred_masks logits and IoU scores on
+    the card against the same modules on this machine's CPU (SAM_ERR), its
+    first masks and its instance map pixel for pixel but where a CPU logit
+    lies within NEAR_ZERO of 0 (that count printed), the encoder's ms;
+    then `ggt-torch-train` SAM_CLIP_STEPS steps on those masks (K1 / K2 from
+    0, a finite step-0 loss) and `ggt-torch-query --text` once per prompt
+    on views 0 and 1 (K1 from 0, relevancy maps in [0, 1]); the prompts and
+    the canonical phrases' features on the card against the CPU (CLIP_ERR),
+    a prompt batch's ms."""
+    import os
+
+    import torch
+    from gaussiangrasper_torch._device import full_f32
+    from gaussiangrasper_torch.data.synthetic import generate_tabletop
+    from gaussiangrasper_torch.engine import train_state
+    from gaussiangrasper_torch.models import clip_text, sam
+    from gaussiangrasper_torch.scripts import query, segment, train
+    from gaussiangrasper_torch.utils import clip_tokenizer, hub_snapshot
+    from gaussiangrasper_torch.utils.image_io import read_image
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    hub = tmp / "hub"
+    t0 = time.perf_counter()
+    sam_cfg = sam.SamConfig()
+    sam_name = "facebook/sam-vit-base"
+    hub_snapshot.write_snapshot(hub, sam_name, {"config.json": sam_cfg.to_dict(),
+                                                "model.safetensors": sam.random_weights(sam_cfg, 0)})
+    clip_cfg = clip_text.ClipTextConfig(eos_token_id=2)  # the published snapshots' pooling rule
+    vocab, merges = clip_tokenizer.synthetic_vocab(clip_tokenizer.MAX_MERGES, seed=0)
+    if len(vocab) != clip_cfg.vocab_size:
+        raise RuntimeError(f"sam_clip: synthetic vocabulary of {len(vocab)}")
+    clip_snap = hub_snapshot.write_snapshot(hub, query.CLIP_MODEL, {
+        "config.json": clip_text.config_json(clip_cfg), "vocab.json": vocab, "merges.txt": merges,
+        "model.safetensors": clip_text.random_weights(clip_cfg, 1)})
+    snapshot_s = time.perf_counter() - t0
+    scene = generate_tabletop(tmp / "sam_scene", **SAM_CLIP_SCENE)
+    shutil.rmtree(scene / "masks")
+    shutil.rmtree(scene / "boundary_mask")
+
+    prev_hub = os.environ.get("HF_HUB_CACHE")
+    os.environ["HF_HUB_CACHE"] = str(hub)
+    views = []
+    masks_fn = segment.sam_instance_masks
+
+    def timed_masks(img, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = masks_fn(img, *a, **k)
+        torch.cuda.synchronize()
+        views.append({"ms": 1e3 * (time.perf_counter() - t0), "instances": int(out.max()) + 1})
+        return out
+
+    steps, seconds, counts = [], {}, {}
+    train_step = train_state.train_step
+
+    def recorded_step(state, cam, batch, cfg, *a, **k):
+        new, metrics = train_step(state, cam, batch, cfg, *a, **k)
+        steps.append(float(metrics["loss"]))
+        return new, metrics
+
+    try:
+        segment.sam_instance_masks = timed_masks
+        t0 = time.perf_counter()
+        try:
+            segment.main(["--data", str(scene), "--backend", "sam"])
+        finally:
+            segment.sam_instance_masks = masks_fn
+        segment_s = time.perf_counter() - t0
+
+        # view 0 on the card and on the CPU, the same modules and snapshot
+        first = sorted((scene / "images").iterdir())[0]
+        img = read_image(first)[..., :3]
+        rec = {}
+        for where, dev in (("card", device), ("cpu", "cpu")):
+            model, proc = segment.load_sam(sam_name, dev)
+            rec[where] = RecordedSam(model)
+            t0 = time.perf_counter()
+            inst = segment.sam_instance_masks(img, sam_name, model=rec[where], proc=proc,
+                                              device=dev)
+            rec[where + "_s"] = time.perf_counter() - t0
+            rec[where + "_instances"] = inst
+            if where == "card":
+                pixels = proc(img, [[0, 0]], dev)["pixel_values"]
+                with torch.no_grad(), full_f32():
+                    encoder_ms = cuda_ms(lambda: model.image_embeddings(pixels), 3)
+            del model
+        torch.cuda.empty_cache()
+        errs = {}
+        for name, a, b in zip(("image_embedding", "pred_masks", "iou_scores"),
+                              rec["card"].out, rec["cpu"].out):
+            scale = float(b.abs().max())
+            errs[name] = {"max_abs_err": float((a.cpu() - b).abs().max()), "max_abs": scale}
+        with torch.no_grad():
+            h, w = img.shape[:2]
+            rh, rw = proc.resized_shape(h, w)
+            logits = proc.upscale_logits(rec["cpu"].out[1][0, :, :1], (h, w), (rh, rw))[:, 0]
+            card_logits = proc.upscale_logits(rec["card"].out[1][0, :, :1], (h, w),
+                                              (rh, rw))[:, 0].cpu()
+        near = logits.abs() < NEAR_ZERO
+        mask_differ = (card_logits > 0) != (logits > 0)
+        near_any = near.any(0).numpy()
+        written = np.load(scene / "masks" / f"{first.stem}.npy")
+        inst_differ = (written != rec["cpu_instances"]) & ~near_any
+
+        # the training CLI on the SAM masks, then the query CLI with --text
+        train_state.train_step = recorded_step
+        try:
+            counted_cli(seconds, counts, "train", train.main,
+                        ["--data", scene, "--max-iterations", SAM_CLIP_STEPS, "--capacity",
+                         CAPACITY, "--steps-per-save", SAM_CLIP_STEPS, "--output-dir",
+                         tmp / "sam_run"])
+        finally:
+            train_state.train_step = train_step
+        run = tmp / "sam_run" / "gaussian-splatting"
+        rel = []
+        for i, prompt in enumerate(SAM_CLIP_PROMPTS):
+            counted_cli(seconds, counts, f"query_{i}", query.main,
+                        ["--run-dir", run, "--text", prompt, "--views", "0", "1", "--output",
+                         tmp / f"sam_query_{i}"])
+            rel += [np.load(tmp / f"sam_query_{i}" / f"view{v:04d}_q0.npy") for v in (0, 1)]
+
+        prompts = list(SAM_CLIP_PROMPTS) + list(query.CANONICAL_PHRASES)
+        feats = {}
+        for where, dev in (("card", device), ("cpu", "cpu")):
+            enc = clip_text.ClipTextEncoder(clip_snap, dev)
+            feats[where] = enc(prompts).cpu()
+            if where == "card":
+                batch_ms = cuda_ms(lambda: enc(list(SAM_CLIP_PROMPTS)), 5)
+            del enc
+        n_tokens = int(clip_tokenizer.ClipTokenizer(clip_snap)(prompts)[1].sum(1).max())
+    finally:
+        if prev_hub is None:
+            os.environ.pop("HF_HUB_CACHE", None)
+        else:
+            os.environ["HF_HUB_CACHE"] = prev_hub
+    clip_err = float((feats["card"] - feats["cpu"]).abs().max())
+    clip_scale = float(feats["cpu"].abs().max())
+    query_counts = {k: sum(counts[f"query_{i}"][k] for i in range(len(SAM_CLIP_PROMPTS)))
+                    for k in counts["query_0"]}
+    ms = [v["ms"] for v in views]
+    row = {"phase": "sam_clip", "card": card, "snapshot_s": snapshot_s,
+           "sam": {"views": len(views), "ms_per_view": ms, "segment_main_s": segment_s,
+                   "instances_per_view": [v["instances"] for v in views],
+                   "encoder_ms": encoder_ms, "view0_cpu_s": rec["cpu_s"],
+                   "points": int(rec["cpu"].out[1].shape[1]), "card_vs_cpu": errs,
+                   "first_masks_differing_px": int((mask_differ & ~near).sum()),
+                   "first_masks_near_zero_px": int(near.sum()),
+                   "first_masks_px": int(near.numel()),
+                   "instance_map_differing_px": int(inst_differ.sum()),
+                   "instance_map_near_zero_px": int(near_any.sum())},
+           "train": {"steps": len(steps), "seconds": seconds["train"],
+                     "loss_first_last": [steps[0], steps[-1]] if steps else None,
+                     "launches": counts["train"]},
+           "query": {"prompts": list(SAM_CLIP_PROMPTS), "views": [0, 1],
+                     "seconds": [seconds[f"query_{i}"] for i in range(len(SAM_CLIP_PROMPTS))],
+                     "launches": query_counts,
+                     "relevancy_min_max": [float(min(r.min() for r in rel)),
+                                           float(max(r.max() for r in rel))]},
+           "clip": {"prompts": len(prompts), "tokens_max": n_tokens,
+                    "card_vs_cpu_max_abs_err": clip_err, "max_abs": clip_scale,
+                    "prompt_batch_ms": batch_ms, "prompt_batch": len(SAM_CLIP_PROMPTS)}}
+    shutil.rmtree(scene)
+    shutil.rmtree(tmp / "sam_run")
+    shutil.rmtree(hub)
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    bad = [n for n, e in errs.items() if not e["max_abs_err"] <= SAM_ERR * e["max_abs"]]
+    if bad:
+        raise RuntimeError(f"sam_clip: SAM card vs CPU past {SAM_ERR}: {errs}")
+    if row["sam"]["first_masks_differing_px"] or row["sam"]["instance_map_differing_px"]:
+        raise RuntimeError(f"sam_clip: masks differ from the CPU's: {row['sam']}")
+    if len(views) != SAM_CLIP_SCENE["n_views"] or min(row["sam"]["instances_per_view"]) < 1:
+        raise RuntimeError(f"sam_clip: views {views}")
+    if not clip_err <= CLIP_ERR * clip_scale:
+        raise RuntimeError(f"sam_clip: CLIP card vs CPU {clip_err} past {CLIP_ERR} of {clip_scale}")
+    if counts["train"] != {"k1": SAM_CLIP_STEPS, "k2": SAM_CLIP_STEPS, "k5": 0, "k6": 0}:
+        raise RuntimeError(f"sam_clip: train launches {counts['train']}")
+    if query_counts != {"k1": 2 * len(SAM_CLIP_PROMPTS), "k2": 0, "k5": 0, "k6": 0}:
+        raise RuntimeError(f"sam_clip: query launches {query_counts}")
+    if len(steps) != SAM_CLIP_STEPS or not math.isfinite(steps[0]):
+        raise RuntimeError(f"sam_clip: {len(steps)} steps, losses {steps[:3]}")
+    lo, hi = row["query"]["relevancy_min_max"]
+    if not (0.0 <= lo and hi <= 1.0 and all(np.isfinite(r).all() for r in rel)):
+        raise RuntimeError(f"sam_clip: relevancy maps span [{lo}, {hi}]")
+    return row
+
+
 def pose_recovery(field, alive, cam, mode: str, steps: int):
     """tests/test_pose_opt.py's recovery on (field, cam): render the target
     at `cam`, start from `cam` moved by POSE_PERTURB, run Adam(POSE_LR) on
@@ -2358,6 +2584,9 @@ E2E_SEEDS = (42, 0, 1, 2, 3, 4, 5, 6, 7, 8)
 # of E2E_SEEDS, the seeds at which the JAX package's grasp lies 3 radii or
 # more from sphere 1 (e2e_grasp_seeds.py on a CPU; PERF.md, F4)
 E2E_JAX_GRASP_MISSES = (0, 1, 2, 5, 6, 7)
+# the sweep's depth here: the first five of E2E_SEEDS (each ~14 s on the
+# card), held to the JAX package's misses at the same seeds
+E2E_SWEEP_SEEDS = E2E_SEEDS[:5]
 
 
 def e2e_small_phase() -> dict:
@@ -2368,8 +2597,8 @@ def e2e_small_phase() -> dict:
     relevancy peak of view 0 (the query CLI on the trainer run), the grasp
     CLI, then the update CLI for 80 iterations on the moved capture. The
     grasp's bar (within 3 radii of sphere 1) is held over the trainer seeds
-    E2E_SEEDS, each a train and a grasp: it fails where more seeds miss it
-    than miss it in the JAX package (ROADMAP.md queue 3, F4). Each bar's
+    E2E_SWEEP_SEEDS, each a train and a grasp: it fails where more of them
+    miss it than miss it in the JAX package (ROADMAP.md queue 3, F4). Each bar's
     outcome is printed; a missed bar fails the phase."""
     import torch
     from gaussiangrasper_torch.data.synthetic import clip_vectors, generate_tabletop, move_object
@@ -2451,7 +2680,7 @@ def e2e_small_phase() -> dict:
         # the other seeds' train and grasp, as the test runs them: view 0's
         # batch drawn before training
         def sweep(_argv):
-            for seed in E2E_SEEDS[1:]:
+            for seed in E2E_SWEEP_SEEDS[1:]:
                 t = make_trainer(config(seed))
                 t.setup()
                 t.dm.get_batch(0)
@@ -2479,27 +2708,28 @@ def e2e_small_phase() -> dict:
                             abatch["image"])
 
     misses = [seed for seed, r in radii.items() if not r < 3]
+    jax_misses = [seed for seed in E2E_JAX_GRASP_MISSES if seed in E2E_SWEEP_SEEDS]
     row = {"phase": "e2e_small", **E2E, "steps": E2E_STEPS, "update_steps": E2E_UPDATE_STEPS,
            "cli_seconds": seconds, "launches": launches,
            "psnr_before_after": [psnr_before, psnr_after], "median_depth_err": depth_err,
            "feature_own_cross": [float(np.mean(own)), float(np.mean(cross))],
            "query_peak": [int(peak[0]), int(peak[1])], "query_peak_object": int(ids[peak]),
            "grasp_distance_radii_by_seed": radii, "grasp_misses": misses,
-           "jax_grasp_misses": list(E2E_JAX_GRASP_MISSES),
+           "jax_grasp_misses": jax_misses,
            "after_psnr_pre_edit_edited": [psnr_old, psnr_new]}
     bars = {"psnr_climb_1.5dB": psnr_after > psnr_before + 1.5, "psnr_over_13dB": psnr_after > 13.0,
             "depth_err_under_0.15": depth_err < 0.15,
             "features_own_over_cross_by_0.1": np.mean(own) > np.mean(cross) + 0.1,
             "query_peak_on_sphere_1": int(ids[peak]) == 1,
             "grasp_within_3_radii_at_no_more_seeds_than_jax":
-                len(misses) <= len(E2E_JAX_GRASP_MISSES),
+                len(misses) <= len(jax_misses),
             "edit_gain_0.5dB": psnr_new > psnr_old + 0.5}
     bars = {k: bool(v) for k, v in bars.items()}
     row["bars"] = bars
     emit(row)
     want_train = {"k1": E2E_STEPS + 1, "k2": E2E_STEPS, "k5": 0, "k6": 0}
     want_update = {"k1": E2E_UPDATE_STEPS, "k2": E2E_UPDATE_STEPS, "k5": 0, "k6": 0}
-    sweep = len(E2E_SEEDS) - 1
+    sweep = len(E2E_SWEEP_SEEDS) - 1
     want_sweep = {"k1": sweep * E2E_STEPS, "k2": sweep * E2E_STEPS, "k5": 0, "k6": 0}
     if (launches["train"] != want_train or launches["update"] != want_update
             or launches["query"] != {"k1": 1, "k2": 0, "k5": 0, "k6": 0}
@@ -3100,6 +3330,8 @@ def main() -> int:
         emit({"phase": "trainer_data", "seconds": time.perf_counter() - t0, **TRAINER_SCENE})
         segment = segment_phase(scene, Path(tmp), device)
         torch.cuda.empty_cache()
+        sam_clip = sam_clip_phase(Path(tmp), device)
+        torch.cuda.empty_cache()
         # the TP 1 run stays for the edit phase
         trainer = trainer_phase(scene, Path(tmp) / "tp1", "trainer", tp=1)
         trainer2 = trainer_phase(scene, Path(tmp) / "tp2", "trainer_tp2", tp=2)
@@ -3165,6 +3397,8 @@ def main() -> int:
                           ("update", "export_pointcloud", "export_texture", "psnr_renders")},
                        "capture": capture["launches"]["k1"],
                        "segment_train": segment["launches"]["k1"],
+                       "sam_clip_train": sam_clip["train"]["launches"]["k1"],
+                       "sam_clip_query": sam_clip["query"]["launches"]["k1"],
                        **{f"pose_{m}": pose["modes"][m]["launches"]["k1"] for m in pose["modes"]},
                        **{f"e2e_small_{n}": e2e["launches"][n]["k1"]
                           for n in ("train", "query", "grasp_sweep", "update")},
@@ -3186,6 +3420,7 @@ def main() -> int:
                        "edit_update": edit["launches"]["update"]["k2"],
                        "capture": capture["launches"]["k2"],
                        "segment_train": segment["launches"]["k2"],
+                       "sam_clip_train": sam_clip["train"]["launches"]["k2"],
                        **{f"pose_{m}": pose["modes"][m]["launches"]["k2"] for m in pose["modes"]},
                        **{f"e2e_small_{n}": e2e["launches"][n]["k2"]
                           for n in ("train", "grasp_sweep", "update")},

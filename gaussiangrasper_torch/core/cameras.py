@@ -7,9 +7,17 @@ by flipping the y/z columns, then inverts analytically."""
 from __future__ import annotations
 
 import dataclasses
+import math
+from enum import Enum
 from typing import Optional, Union
 
 import torch
+
+
+class CameraType(Enum):
+    PERSPECTIVE = 1
+    FISHEYE = 2
+    EQUIRECTANGULAR = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,3 +66,17 @@ def view_matrix(camera_to_world: torch.Tensor) -> torch.Tensor:
     view[:3, :3] = R_inv
     view[:3, 3:4] = -R_inv @ t
     return view
+
+
+def projection_matrix(znear: float, zfar: float, fovx: float, fovy: float) -> torch.Tensor:
+    """OpenGL-style perspective projection (float32). The rasterizer projects
+    from the intrinsics; this is the same map for a symmetric frustum."""
+    t = znear * math.tan(0.5 * fovy)
+    r = znear * math.tan(0.5 * fovx)
+    n, f = znear, zfar
+    return torch.tensor([
+        [n / r, 0.0, 0.0, 0.0],
+        [0.0, n / t, 0.0, 0.0],
+        [0.0, 0.0, (f + n) / (f - n), -f * n / (f - n)],
+        [0.0, 0.0, 1.0, 0.0],
+    ], dtype=torch.float32)

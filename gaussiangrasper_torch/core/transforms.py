@@ -73,3 +73,21 @@ def rotmat_to_quat(rot: torch.Tensor) -> torch.Tensor:
     q = torch.gather(cands, -2, best[..., None, None].expand(*best.shape, 1, 4))[..., 0, :]
     q = normalize(q)
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of (w, x, y, z) quaternions, broadcasting over batch."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
+def rotate_x(theta: float) -> torch.Tensor:
+    """Rotation matrix about +X by theta radians (float32)."""
+    c, s = math.cos(theta), math.sin(theta)
+    return torch.tensor([[1.0, 0.0, 0.0], [0.0, c, -s], [0.0, s, c]], dtype=torch.float32)

@@ -65,6 +65,45 @@ def lr_at(cfg: GroupConfig, step: int) -> torch.Tensor:
                      + t * torch.log(torch.tensor(cfg.lr_final, dtype=f32)))
 
 
+# --- the reference's other scheduler family (engine/schedulers.py), in
+# float32 as the JAX package computes it; each a 0-d CPU tensor ---
+
+
+def exponential_decay_lr(step, lr_init: float, lr_final: float, max_steps: int,
+                         warmup_steps: int = 0, lr_pre_warmup: float = 1e-8,
+                         ramp: str = "cosine") -> torch.Tensor:
+    """ExponentialDecayScheduler with its pre-warmup ramp (cosine or linear)."""
+    f32 = torch.float32
+    step = torch.tensor(step, dtype=f32)
+    if warmup_steps > 0:
+        frac = torch.clamp(step / warmup_steps, 0.0, 1.0)
+        ramp_of = torch.sin(0.5 * torch.pi * frac) if ramp == "cosine" else frac
+        warm = lr_pre_warmup + (lr_init - lr_pre_warmup) * ramp_of
+    else:
+        warm = torch.tensor(lr_init, dtype=f32)
+    t = torch.clamp((step - warmup_steps) / max(max_steps - warmup_steps, 1), 0.0, 1.0)
+    decayed = torch.exp((1.0 - t) * torch.log(torch.tensor(lr_init, dtype=f32))
+                        + t * torch.log(torch.tensor(lr_final, dtype=f32)))
+    return torch.where(step < warmup_steps, warm, decayed)
+
+
+def multistep_lr(step, lr_init: float, milestones=(500_000, 750_000, 900_000),
+                 gamma: float = 0.33) -> torch.Tensor:
+    """MultiStepScheduler: lr_init times gamma per milestone passed."""
+    n = sum(int(step >= m) for m in milestones)
+    return lr_init * torch.tensor(gamma, dtype=torch.float32) ** float(n)
+
+
+def cosine_decay_lr(step, lr_init: float, max_steps: int, warmup_steps: int = 0,
+                    lr_final: float = 0.0) -> torch.Tensor:
+    """CosineDecayScheduler with a linear warmup."""
+    step = torch.tensor(step, dtype=torch.float32)
+    warm = lr_init * step / max(warmup_steps, 1)
+    t = torch.clamp((step - warmup_steps) / max(max_steps - warmup_steps, 1), 0.0, 1.0)
+    cos = lr_final + 0.5 * (lr_init - lr_final) * (1.0 + torch.cos(torch.pi * t))
+    return torch.where(step < warmup_steps, warm, cos)
+
+
 def tree_map(fn: Callable, *trees):
     """`fn` over a tensor, or over the values of dicts with one key set."""
     if isinstance(trees[0], dict):

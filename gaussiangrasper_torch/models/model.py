@@ -245,6 +245,20 @@ def train_loss(
     return total, aux
 
 
+class GaussianSplatModel:
+    """A config bundled with `render` and `train_loss` (the reference's Model
+    class; the work is in the functions)."""
+
+    def __init__(self, config: GaussianSplatConfig):
+        self.config = config
+
+    def render(self, field, alive, camera, step, **kw):
+        return render(field, alive, camera, step, self.config, **kw)
+
+    def train_loss(self, state, alive, camera, batch, step, **kw):
+        return train_loss(state, alive, camera, batch, step, self.config, **kw)
+
+
 def feature_pca_vis(feature_map: torch.Tensor) -> torch.Tensor:
     """(H, W, F) feature map -> (H, W, 3) in [0, 1] through its top three
     principal components (eigenvector signs are arbitrary)."""

@@ -6,13 +6,18 @@ with fea_up, and scores it against text embeddings with the LERF relevancy
 
   relevancy = min_i softmax(cos(f, q) / cos(f, canon_i))
 
-Text embeddings come from --text-embedding (.npy of (512,) or (Q, 512)).
-For each view v and query q it writes view<v>_q<q>.npy and a grayscale png.
+Text embeddings come from --text-embedding (.npy of (512,) or (Q, 512)) or
+from --text, encoded by CLIP ViT-B/16's text tower (`models/clip_text.py`,
+the port's own modules on --device) from the cached hub snapshot of
+openai/clip-vit-base-patch16 (`utils/hub_snapshot.py`); with --text and no
+--canonical-embedding the canonical phrases are encoded too. Without a
+snapshot --text exits naming the paths searched. For each view v and query
+q it writes view<v>_q<q>.npy and a grayscale png.
 The run is a serving run (checkpoint.pt and cameras.npz) or a trainer run
 (its latest checkpoint and its capture's cameras, as the JAX CLI reads it).
 
     python -m gaussiangrasper_torch.scripts.query --run-dir RUN \
-        --text-embedding q.npy [--canonical-embedding c.npy] [--device cpu]
+        (--text "a red mug" | --text-embedding q.npy) [--canonical-embedding c.npy] [--device cpu]
 """
 
 from __future__ import annotations
@@ -25,8 +30,23 @@ import torch
 
 from gaussiangrasper_torch._device import full_f32, resolve_device
 from gaussiangrasper_torch.engine.checkpoint import CHECKPOINT, load_cameras, load_run
+from gaussiangrasper_torch.models.clip_text import ClipTextEncoder
 from gaussiangrasper_torch.scripts.render import lift, load_trainer_run, render_view
+from gaussiangrasper_torch.utils import hub_snapshot
 from gaussiangrasper_torch.utils.image_io import write_png
+
+CLIP_MODEL = "openai/clip-vit-base-patch16"
+CANONICAL_PHRASES = ("object", "things", "stuff", "texture")
+
+
+def encode_text(prompts, device=None, encoder=None) -> np.ndarray:
+    """CLIP ViT-B/16 text features (len(prompts), 512) as float32 numpy.
+    encoder: a loaded ClipTextEncoder (None loads the cached snapshot of
+    CLIP_MODEL on `device`, None meaning cuda; raises
+    hub_snapshot.SnapshotNotFound)."""
+    if encoder is None:
+        encoder = ClipTextEncoder.from_name(CLIP_MODEL, resolve_device(device))
+    return encoder(list(prompts)).cpu().numpy()
 
 
 def relevancy_map(clip_map: torch.Tensor, query: torch.Tensor,
@@ -57,12 +77,16 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    if args.text_embedding is None:
-        if args.text is not None:
-            raise SystemExit("--text needs the CLIP text tower's weights, which are not "
-                             "available here; pass --text-embedding with a precomputed .npy")
-        raise SystemExit("give --text-embedding")
+    if args.text_embedding is None and args.text is None:
+        raise SystemExit("give --text or --text-embedding")
     device = resolve_device(args.device)
+    encoder = None
+    if args.text_embedding is None:  # --text: the tower encodes it
+        try:
+            encoder = ClipTextEncoder.from_name(CLIP_MODEL, device)
+        except hub_snapshot.SnapshotNotFound as e:
+            raise SystemExit(f"--text needs the CLIP text tower's weights ({e}); "
+                             "pass --text-embedding with a precomputed .npy")
     if (args.run_dir / CHECKPOINT).exists():
         cfg, state, _ = load_run(args.run_dir, device)
         cams, _ = load_cameras(args.run_dir, device)
@@ -71,12 +95,17 @@ def main(argv=None) -> None:
     out_dir = args.output or (args.run_dir / "query")
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    q = torch.as_tensor(np.load(args.text_embedding).reshape(-1, 512), dtype=torch.float32,
-                        device=device)
+    if args.text_embedding is not None:
+        q = np.load(args.text_embedding).reshape(-1, 512)
+    else:
+        q = encode_text([args.text], encoder=encoder)
     if args.canonical_embedding is not None:
         canon = np.load(args.canonical_embedding)
+    elif args.text is not None and args.text_embedding is None:
+        canon = encode_text(CANONICAL_PHRASES, encoder=encoder)
     else:
         canon = np.zeros((1, 512), np.float32)  # degenerate -> plain cosine
+    q = torch.as_tensor(q, dtype=torch.float32, device=device)
     canon = torch.as_tensor(canon, dtype=torch.float32, device=device)
 
     for v in args.views:

@@ -10,15 +10,18 @@ Two backends, as in the JAX tool:
                      distance passes on the card, the order-dependent sums
                      and the components on the host), drawing from one
                      generator across the capture as cv2's thread RNG does.
-  --backend sam      transformers' SAM automatic masks over a point grid;
-                     needs cached weights, and exits with the JAX tool's
-                     message where they cannot be loaded.
+  --backend sam      SAM's automatic masks over a point grid, run by the
+                     port's own modules (`models/sam.py`,
+                     `utils/sam_processor.py`) on --device from the cached
+                     hub snapshot that transformers would load
+                     (`utils/hub_snapshot.py`); exits naming the paths
+                     searched where there is none.
 
 Writes <data>/masks/<stem>.npy (int32 instance ids, -1 = background) and
 <data>/boundary_mask/<stem>.npy (uint8 validity).
 
     python -m gaussiangrasper_torch.scripts.segment --data SCENE [--backend classic|sam] \\
-        [--n-colors 8] [--min-area 200] [--device cpu]
+        [--sam-model facebook/sam-vit-base] [--n-colors 8] [--min-area 200] [--device cpu]
 """
 
 from __future__ import annotations
@@ -30,9 +33,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gaussiangrasper_torch._device import resolve_device
-from gaussiangrasper_torch.utils import cv_segment
+from gaussiangrasper_torch._device import full_f32, resolve_device
+from gaussiangrasper_torch.models import sam
+from gaussiangrasper_torch.utils import cv_segment, hub_snapshot
 from gaussiangrasper_torch.utils.image_io import read_image
+from gaussiangrasper_torch.utils.sam_processor import SamProcessor
 
 
 def classic_instance_masks(img: np.ndarray, n_colors: int = 8, min_area: int = 200,
@@ -59,34 +64,39 @@ def classic_instance_masks(img: np.ndarray, n_colors: int = 8, min_area: int = 2
     return out
 
 
+def load_sam(model_name: str, device):
+    """(SamModel on `device`, SamProcessor) of a cached snapshot; raises
+    hub_snapshot.SnapshotNotFound."""
+    model, snap = sam.load(model_name, device)
+    return model, SamProcessor.from_snapshot(snap)
+
+
 def sam_instance_masks(img: np.ndarray, model_name: str, min_area: int = 200,
-                       model=None, proc=None) -> np.ndarray:
+                       model=None, proc=None, device=None) -> np.ndarray:
     """Automatic SAM masks over a point grid: one point every h // 8 rows
     and w // 8 columns, the masks in ascending order of each point's first
     IoU score (a later mask overwrites an earlier one), those of at least
-    `min_area` pixels kept. model / proc: a pre-built SamModel /
-    SamProcessor (the default loads cached weights by name)."""
+    `min_area` pixels kept. model / proc: a loaded SamModel / SamProcessor
+    (`load_sam`; None loads the cached snapshot of `model_name`); `device`
+    (None: cuda) runs the model and the mask upscaling."""
+    dev = resolve_device(device)
     if model is None or proc is None:
-        from transformers import SamModel, SamProcessor
-
-        model = SamModel.from_pretrained(model_name)
-        proc = SamProcessor.from_pretrained(model_name)
+        model, proc = load_sam(model_name, dev)
     h, w = img.shape[:2]
     gy, gx = np.mgrid[0:h:max(h // 8, 1), 0:w:max(w // 8, 1)]
-    points = [[[int(x), int(y)]] for y, x in zip(gy.ravel(), gx.ravel())]
+    points = [[int(x), int(y)] for y, x in zip(gy.ravel(), gx.ravel())]
     out = np.full((h, w), -1, np.int32)
     next_id = 0
-    with torch.no_grad():
-        inputs = proc(img, input_points=[points], return_tensors="pt")
-        outputs = model(**inputs)
-        masks = proc.image_processor.post_process_masks(
-            outputs.pred_masks.cpu(), inputs["original_sizes"].cpu(),
-            inputs["reshaped_input_sizes"].cpu(),
-        )[0]
-        scores = outputs.iou_scores.cpu().numpy()[0]
+    with torch.no_grad(), full_f32():
+        inputs = proc(img, points, dev)
+        pred_masks, iou_scores = model(inputs["pixel_values"], inputs["input_points"])
+        # the first of the three masks a point is the one kept: only it is upscaled
+        masks = proc.post_process_masks(pred_masks[:, :, :1], inputs["original_sizes"],
+                                        inputs["reshaped_input_sizes"])[0][:, 0].cpu().numpy()
+        scores = iou_scores.cpu().numpy()[0]
     order = np.argsort(scores[:, 0])
     for i in order:
-        m = np.asarray(masks[i, 0]).astype(bool)
+        m = masks[i]
         if m.sum() >= min_area:
             out[m] = next_id
             next_id += 1
@@ -103,8 +113,15 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    # the SAM backend runs where transformers puts it; --device is the classic one's
-    device = resolve_device(args.device) if args.backend == "classic" else None
+    device = resolve_device(args.device)
+    if args.backend == "sam":
+        try:
+            model, proc = load_sam(args.sam_model, device)
+        except hub_snapshot.SnapshotNotFound as e:
+            raise SystemExit(
+                f"SAM backend unavailable ({type(e).__name__}: {e}); "
+                "use --backend classic or pre-cache the weights"
+            )
     data = Path(args.data)
     (data / "masks").mkdir(exist_ok=True)
     (data / "boundary_mask").mkdir(exist_ok=True)
@@ -112,13 +129,7 @@ def main(argv=None) -> None:
     for path in images:
         img = read_image(path)[..., :3]
         if args.backend == "sam":
-            try:
-                masks = sam_instance_masks(img, args.sam_model, args.min_area)
-            except Exception as e:  # no cached weights / no net
-                raise SystemExit(
-                    f"SAM backend unavailable ({type(e).__name__}: {e}); "
-                    "use --backend classic or pre-cache the weights"
-                )
+            masks = sam_instance_masks(img, args.sam_model, args.min_area, model, proc, device)
         else:
             masks = classic_instance_masks(img, args.n_colors, args.min_area, device=device)
         np.save(data / "masks" / f"{path.stem}.npy", masks)

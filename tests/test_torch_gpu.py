@@ -24,7 +24,7 @@ from gaussiangrasper_torch.models.efd import FeaUp
 from gaussiangrasper_torch.models.gaussian_field import init_random, random_draws
 from gaussiangrasper_torch.models.model import GaussianSplatConfig, render, render_inputs
 from gaussiangrasper_torch.ops import rasterize_cuda as rc
-from gaussiangrasper_torch.ops.rasterize import bin_gaussians
+from gaussiangrasper_torch.ops.rasterize import RasterizeConfig, bin_gaussians
 from gaussiangrasper_torch.probes import kernels as pk
 
 W, H, STEP = 128, 96, 4000
@@ -284,12 +284,11 @@ def test_train_step_tp2_loss_equals_tp1(cuda_device, monkeypatch):
     assert abs(losses[2] - losses[1]) <= 1e-6 * abs(losses[1])
 
 
-@pytest.mark.gpu
-def test_train_step_on_card_matches_cpu(cuda_device):
-    """One train step on the card against the CPU path: losses within 1e-3
-    relative, parameters within 2 lr of their group (Adam with eps 1e-15
-    moves near-zero-gradient entries by +-lr on a sign rounding can flip)."""
-    cfg = GaussianSplatConfig()
+def _train_step_card_vs_cpu(cuda_device, cfg):
+    """One train step from one state on the card and on the CPU path:
+    losses within 1e-3 relative, parameters within 2 lr of their group
+    (Adam with eps 1e-15 moves near-zero-gradient entries by +-lr on a sign
+    rounding can flip). Returns the CPU step's metrics."""
     rng = np.random.default_rng(1)
     batch = {
         "image": rng.random((H, W, 3), np.float32), "depth": np.full((H, W), 3.0, np.float32),
@@ -309,13 +308,37 @@ def test_train_step_on_card_matches_cpu(cuda_device):
         state = dataclasses.replace(state, step=STEP + 9)
         out[dev.type] = train_step(state, cam, {k: torch.as_tensor(v, device=dev)
                                                 for k, v in batch.items()}, cfg)
-    (gs, gm), (cs, cm) = out["cuda"], out["cpu"]
+    (gs, gm), (cs, cm) = out[cuda_device.type], out["cpu"]
     for k, v in cm.items():
         torch.testing.assert_close(gm[k].cpu().float(), v.float(), atol=1e-5, rtol=1e-3, msg=k)
     for leaf, group in optim.FIELD_GROUP_OF.items():
         lim = 2.0 * optim.DEFAULT_GROUPS[group].lr_init
         torch.testing.assert_close(getattr(gs.field, leaf).cpu(), getattr(cs.field, leaf),
                                    atol=lim, rtol=0, msg=leaf)
+    for a, b in zip(gs.stats, cs.stats):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-6, rtol=1e-3)
+    return cm
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda_device):
+    m = _train_step_card_vs_cpu(cuda_device, GaussianSplatConfig())
+    assert int(m["overflow"]) == int(m["pair_overflow"]) == 0
+
+
+# the 12 tiles of _scene hold 258..605 pairs (4914 in all): K 512 clips
+# the three busiest, and B = 12 * 384 = 4608 ends the stream inside its
+# last tile (overflow 158, pair_overflow 306 on the CPU path)
+CLIPPED_RASTER = RasterizeConfig(max_gaussians_per_tile=512, pair_budget_per_tile=384)
+
+
+@pytest.mark.gpu
+def test_train_step_with_pairs_dropped_on_card_matches_cpu(cuda_device):
+    """The same step on a stream clipped by both K and B (the regime of a
+    run past its capacity): overflow and pair_overflow positive, the card's
+    equal to the CPU path's, and the step held as above."""
+    m = _train_step_card_vs_cpu(cuda_device, GaussianSplatConfig(raster=CLIPPED_RASTER))
+    assert int(m["overflow"]) > 0 and int(m["pair_overflow"]) > 0
 
 
 @pytest.mark.gpu

@@ -9,9 +9,12 @@
 - `cv_segment.connected_components` equal to `cv2.connectedComponents` on
   random masks, and components whose first blocks share a block row.
 - `classic_instance_masks`, `main` (the .npy files of a two-image capture)
-  and the SAM glue (a stub with transformers' interface) equal to the JAX
-  functions; `--backend sam` without transformers exits with the JAX
-  message.
+  and the SAM glue (one stub's fixed outputs behind transformers'
+  interface for the JAX glue and behind the port's SamModel /
+  SamProcessor interface) equal to the JAX functions; `--backend sam`
+  without transformers and without a snapshot exits in the JAX message's
+  form, naming the paths searched (tests/test_torch_foundation.py holds
+  SAM itself).
 """
 
 import sys
@@ -19,6 +22,7 @@ import sys
 import cv2
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from gaussiangrasper_torch.data.synthetic import generate_tabletop
@@ -210,13 +214,36 @@ def _sam_stub(h, w):
     return Model(), Processor()
 
 
+def _port_sam_stub(h, w):
+    """The same fixed outputs behind the port's SamModel / SamProcessor
+    interface (masks already at the image's size)."""
+    model, processor = _sam_stub(h, w)
+    out = model()
+
+    class Model:
+        def __call__(self, pixel_values, input_points):
+            return out.pred_masks, out.iou_scores
+
+    class Processor:
+        def __call__(self, img, points, device):
+            assert len(points) == out.pred_masks.shape[1]
+            return {"pixel_values": None, "input_points": None,
+                    "original_sizes": torch.tensor([[h, w]]),
+                    "reshaped_input_sizes": torch.tensor([[h, w]])}
+
+        def post_process_masks(self, masks, orig, reshaped):
+            return [masks[0] > 0]
+
+    return Model(), Processor()
+
+
 def test_sam_glue_matches_jax():
     from gaussiangrasper_tpu.scripts import segment as jseg
 
     h, w = 32, 48
     img = np.zeros((h, w, 3), np.uint8)
     want = jseg.sam_instance_masks(img, "stub", 50, *_sam_stub(h, w))
-    got = tseg.sam_instance_masks(img, "stub", 50, *_sam_stub(h, w))
+    got = tseg.sam_instance_masks(img, "stub", 50, *_port_sam_stub(h, w), device="cpu")
     assert set(np.unique(got)) == {-1, 0, 1, 2}
     np.testing.assert_array_equal(got, want)
 
@@ -227,10 +254,16 @@ def test_sam_backend_without_transformers_exits_with_jax_message(frames, tmp_pat
     (tmp_path / "images").mkdir()
     Image.fromarray(frames[0]).save(tmp_path / "images" / "a.png")
     monkeypatch.setitem(sys.modules, "transformers", None)  # import fails, nothing fetched
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "hub"))  # the port finds no snapshot
+    monkeypatch.delenv("HF_HOME", raising=False)
+    monkeypatch.setenv("HOME", str(tmp_path))
     messages = []
-    for seg in (jseg, tseg):
+    for seg, extra in ((jseg, []), (tseg, ["--device", "cpu"])):
         with pytest.raises(SystemExit) as e:
-            seg.main(["--data", str(tmp_path), "--backend", "sam"])
+            seg.main(["--data", str(tmp_path), "--backend", "sam", *extra])
         messages.append(str(e.value))
     assert messages[0].startswith("SAM backend unavailable (ModuleNotFoundError")
-    assert messages[1] == messages[0]
+    tail = "; use --backend classic or pre-cache the weights"
+    assert messages[0].endswith(tail) and messages[1].endswith(tail)
+    assert messages[1].startswith("SAM backend unavailable (SnapshotNotFound: no snapshot of "
+                                  f"facebook/sam-vit-base at {tmp_path / 'hub'}")
