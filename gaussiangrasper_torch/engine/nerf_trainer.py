@@ -40,6 +40,7 @@ from gaussiangrasper_torch.engine.dynamic_batch import DynamicBatchSizer
 from gaussiangrasper_torch.models import occupancy
 from gaussiangrasper_torch.models.nerf import NerfConfig, NerfField, _field, init_nerf, render_rays
 from gaussiangrasper_torch.models.tensorf_field import tensorf_l1_reg
+from gaussiangrasper_torch.utils.profiler import PROFILER
 from gaussiangrasper_torch.utils.writer import MetricsWriter
 
 ADAM_EPS = 1e-8  # optax.adam's default
@@ -133,28 +134,33 @@ def nerf_loss(field: NerfField, cfg: NerfConfig, out: Dict[str, torch.Tensor], t
 def nerf_step(field: NerfField, opt: Dict, camera: Camera, coords: torch.Tensor,
               target: torch.Tensor, target_depth: torch.Tensor, target_sem: torch.Tensor,
               t_frame, app_idx, grid: Optional[occupancy.OccupancyGrid], rng: Draws,
-              cfg: NerfConfig, lr: float, weights: Dict[str, float]) -> Dict[str, torch.Tensor]:
+              cfg: NerfConfig, lr: float, weights: Dict[str, float],
+              step: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """One step: render, loss, gradients, Adam (in place on `field` and
     `opt`). Returns the metrics loss (the rgb mse), psnr and, for
-    instant-ngp, num_samples."""
-    params = dict(field.named_parameters())
-    with full_f32():
-        out = render_rays(field, generate_rays(camera, coords), rng, cfg, grid=grid, times=t_frame,
-                          appearance_idx=app_idx)
-        loss, mse = nerf_loss(field, cfg, out, target, target_depth, target_sem, weights)
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-    with torch.no_grad():
-        g = {n: torch.zeros_like(p) if gr is None else gr
-             for (n, p), gr in zip(params.items(), grads)}
-        upd, opt["mu"], opt["nu"], opt["count"] = optim._adam(g, opt["mu"], opt["nu"],
-                                                              opt["count"], ADAM_EPS)
-        for n, p in params.items():
-            p.add_(upd[n] * (-lr))  # optax: scale by -lr, then add
-        mse = mse.detach()
-        metrics = {"loss": mse, "psnr": -10.0 * torch.log10(torch.clamp(mse, min=1e-12))}
-        if "num_live_samples" in out:
-            metrics["num_samples"] = out["num_live_samples"]
-    return metrics
+    instant-ngp, num_samples. Traced, it is the span `nerf_step` (`step`
+    its argument) with children render (with the loss), backward and adam."""
+    with PROFILER.section("nerf_step", step=step):
+        params = dict(field.named_parameters())
+        with full_f32():
+            with PROFILER.section("render"):
+                out = render_rays(field, generate_rays(camera, coords), rng, cfg, grid=grid,
+                                  times=t_frame, appearance_idx=app_idx)
+                loss, mse = nerf_loss(field, cfg, out, target, target_depth, target_sem, weights)
+            with PROFILER.section("backward"):
+                grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        with torch.no_grad(), PROFILER.section("adam"):
+            g = {n: torch.zeros_like(p) if gr is None else gr
+                 for (n, p), gr in zip(params.items(), grads)}
+            upd, opt["mu"], opt["nu"], opt["count"] = optim._adam(g, opt["mu"], opt["nu"],
+                                                                  opt["count"], ADAM_EPS)
+            for n, p in params.items():
+                p.add_(upd[n] * (-lr))  # optax: scale by -lr, then add
+            mse = mse.detach()
+            metrics = {"loss": mse, "psnr": -10.0 * torch.log10(torch.clamp(mse, min=1e-12))}
+            if "num_live_samples" in out:
+                metrics["num_samples"] = out["num_live_samples"]
+        return metrics
 
 
 def grid_update(grid: occupancy.OccupancyGrid, field: NerfField, rng: Draws,
@@ -247,7 +253,7 @@ class NerfTrainer:
                 self.field, self.opt, cam, coords, view["image"][ys, xs], view["depth"][ys, xs],
                 view["sam_mask"][ys, xs], torch.tensor(float(self.times[idx]), device=self.device),
                 idx % max(c.model.num_appearance_embeds, 1), self.grid,
-                self._rng("step", len(pix)), c.model, c.lr, weights)
+                self._rng("step", len(pix)), c.model, c.lr, weights, step=step)
             if self.sizer is not None:
                 measured = metrics.get("num_samples")
                 # a dense renderer: every sample lives
@@ -255,7 +261,8 @@ class NerfTrainer:
                             if measured is None else int(measured))
                 self.sizer.update(measured)
                 metrics["num_rays_per_batch"] = sampler.rays_per_batch
-            self.history.append({k: float(v) for k, v in metrics.items()})
+            with PROFILER.section("history"):
+                self.history.append({k: float(v) for k, v in metrics.items()})
             writer.step(step, metrics, pixels=len(pix))
             if (step + 1) % c.steps_per_save == 0 or step + 1 == c.max_iterations:
                 print(f"saved {self._save(step + 1)}")

@@ -22,6 +22,7 @@ from gaussiangrasper_torch.engine import optimizers as optim
 from gaussiangrasper_torch.engine.refinement import DensifyStats, accumulate_stats, refine
 from gaussiangrasper_torch.models.gaussian_field import GaussianParams
 from gaussiangrasper_torch.models.model import GaussianSplatConfig, train_loss
+from gaussiangrasper_torch.utils.profiler import PROFILER
 
 
 @dataclasses.dataclass
@@ -80,45 +81,55 @@ def train_step(state: TrainState, camera: Camera, batch: Dict[str, torch.Tensor]
                group_cfgs: Dict[str, optim.GroupConfig] = optim.DEFAULT_GROUPS,
                ) -> Tuple[TrainState, Dict[str, Any]]:
     """One optimization step. Returns (new state, metrics); the metrics
-    are device tensors (no host sync)."""
-    field = GaussianParams(*(x.detach().requires_grad_(True) for x in state.field))
-    fea_up = {k: v.detach().requires_grad_(True) for k, v in state.fea_up.items()}
-    pose = None if state.pose is None else state.pose.detach().requires_grad_(True)
-    probe = torch.zeros(state.field.capacity, 2, dtype=field.means.dtype,
-                        device=field.means.device, requires_grad=True)
-    model_state = {"field": field, "fea_up": fea_up, "pose": pose}
-    total, aux = train_loss(model_state, state.alive, camera, batch, state.step, cfg, probe=probe)
+    are device tensors (no host sync). Traced, it is the span `train_step`
+    (the step number its argument) with children forward, backward,
+    stats, adam and metrics."""
+    with PROFILER.section("train_step", step=state.step):
+        field = GaussianParams(*(x.detach().requires_grad_(True) for x in state.field))
+        fea_up = {k: v.detach().requires_grad_(True) for k, v in state.fea_up.items()}
+        pose = None if state.pose is None else state.pose.detach().requires_grad_(True)
+        probe = torch.zeros(state.field.capacity, 2, dtype=field.means.dtype,
+                            device=field.means.device, requires_grad=True)
+        model_state = {"field": field, "fea_up": fea_up, "pose": pose}
+        with PROFILER.section("forward"):
+            total, aux = train_loss(model_state, state.alive, camera, batch, state.step, cfg,
+                                    probe=probe)
 
-    extra = [probe] if pose is None else [pose, probe]
-    leaves = list(field) + list(fea_up.values()) + extra
-    grad_list = torch.autograd.grad(total, leaves, allow_unused=True)
-    grad_list = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grad_list)]
-    n_field, n_fea = len(field), len(fea_up)
-    grads = {"field": GaussianParams(*grad_list[:n_field]),
-             "fea_up": dict(zip(fea_up, grad_list[n_field:n_field + n_fea])),
-             "pose": None if pose is None else grad_list[-2]}
-    probe_grad = grad_list[-1]
+        extra = [probe] if pose is None else [pose, probe]
+        leaves = list(field) + list(fea_up.values()) + extra
+        with PROFILER.section("backward"):
+            grad_list = torch.autograd.grad(total, leaves, allow_unused=True)
+            grad_list = [torch.zeros_like(x) if g is None else g
+                         for x, g in zip(leaves, grad_list)]
+        n_field, n_fea = len(field), len(fea_up)
+        grads = {"field": GaussianParams(*grad_list[:n_field]),
+                 "fea_up": dict(zip(fea_up, grad_list[n_field:n_field + n_fea])),
+                 "pose": None if pose is None else grad_list[-2]}
+        probe_grad = grad_list[-1]
 
-    stats = accumulate_stats(state.stats, probe_grad, aux["radii"].detach(),
-                             camera.width, camera.height)
-    new_model, new_opt = optim.apply_updates_grouped(
-        {"field": state.field, "fea_up": state.fea_up, "pose": state.pose}, grads, state.opt,
-        state.step, group_cfgs)
+        with PROFILER.section("stats"):
+            stats = accumulate_stats(state.stats, probe_grad, aux["radii"].detach(),
+                                     camera.width, camera.height)
+        with PROFILER.section("adam"):
+            new_model, new_opt = optim.apply_updates_grouped(
+                {"field": state.field, "fea_up": state.fea_up, "pose": state.pose}, grads,
+                state.opt, state.step, group_cfgs)
 
-    metrics = {
-        "loss": total.detach(),
-        "psnr": aux["psnr"].detach(),
-        "gaussian_count": state.num_alive,
-        "overflow": aux["overflow"],
-        "dropped_tiles": aux["dropped_tiles"],
-        "pair_overflow": aux["pair_overflow"],
-        **{k: v.detach() for k, v in aux["loss_dict"].items()},
-        **{f"grad_norm/{name}": optim.global_norm(g)
-           for name, g in optim.to_groups(grads).items()},
-    }
-    new_state = dataclasses.replace(state, step=state.step + 1, field=new_model["field"],
-                                    fea_up=new_model["fea_up"], opt=new_opt, stats=stats,
-                                    pose=new_model.get("pose"))
+        with PROFILER.section("metrics"):
+            metrics = {
+                "loss": total.detach(),
+                "psnr": aux["psnr"].detach(),
+                "gaussian_count": state.num_alive,
+                "overflow": aux["overflow"],
+                "dropped_tiles": aux["dropped_tiles"],
+                "pair_overflow": aux["pair_overflow"],
+                **{k: v.detach() for k, v in aux["loss_dict"].items()},
+                **{f"grad_norm/{name}": optim.global_norm(g)
+                   for name, g in optim.to_groups(grads).items()},
+            }
+        new_state = dataclasses.replace(state, step=state.step + 1, field=new_model["field"],
+                                        fea_up=new_model["fea_up"], opt=new_opt, stats=stats,
+                                        pose=new_model.get("pose"))
     return new_state, metrics
 
 

@@ -11,7 +11,8 @@ and at the end. All device work is in `train_state.train_step` /
 `train_state.refine_step`. `viewer_port` serves the live state through
 `scripts/viewer.py` while the loop runs (renders time-shared with
 training); `profiler="trace"` writes a `torch.profiler` trace of steps
-12..16 under `<run_dir>/profiler_traces/`.
+12..16, with the loop's and the step's `ggt::` spans, under
+`<run_dir>/profiler_traces/`.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from gaussiangrasper_torch.engine import train_state
 from gaussiangrasper_torch.engine.train_state import TrainState, init_train_state
 from gaussiangrasper_torch.models.gaussian_field import init_from_seeds, init_random
 from gaussiangrasper_torch.models.model import GaussianSplatConfig
+from gaussiangrasper_torch.utils.profiler import PROFILER
 from gaussiangrasper_torch.utils.writer import MetricsWriter
 
 
@@ -212,6 +214,10 @@ class Trainer:
         self.writer.image(step, "eval/rgb", outs["rgb"].clamp(0, 1).cpu().numpy())
 
     def train(self) -> TrainState:
+        """Run the loop from the state's step to `max_iterations`. Under a
+        recording `torch.profiler` (`profiler="trace"`, say) each stage is a
+        `ggt::` span (utils/profiler.py): data_wait, downscale, train_step
+        (with its own children), loss_check, refine, log, eval_image, save."""
         cfg = self.config
         mcfg = cfg.model
         if self.state is None:
@@ -248,9 +254,11 @@ class Trainer:
                 if tracer is not None:
                     tracer.maybe_step(step)
                 t_wait = time.perf_counter()
-                cam_idx, cam, batch = source.next_train()
+                with PROFILER.section("data_wait"):
+                    cam_idx, cam, batch = source.next_train()
                 self.data_wait_s.append(time.perf_counter() - t_wait)
-                cam_s, batch_s = downscale_batch(batch, cam, _downscale_factor(mcfg, step))
+                with PROFILER.section("downscale"):
+                    cam_s, batch_s = downscale_batch(batch, cam, _downscale_factor(mcfg, step))
                 if state.pose is not None:
                     batch_s = dict(batch_s, cam_idx=cam_idx)
                 state, metrics = train_state.train_step(state, cam_s, batch_s, mcfg)
@@ -258,22 +266,31 @@ class Trainer:
 
                 # a non-finite loss poisons the run: save a post-mortem
                 # checkpoint and stop instead of training on NaNs
-                if step % 10 == 0 and not math.isfinite(float(metrics["loss"])):
-                    path = ckpt.save_checkpoint(cfg.ckpt_dir, state, step=step)
-                    raise FloatingPointError(
-                        f"non-finite loss at step {step}; post-mortem state saved to {path}")
+                if step % 10 == 0:
+                    with PROFILER.section("loss_check"):
+                        finite = math.isfinite(float(metrics["loss"]))
+                    if not finite:
+                        path = ckpt.save_checkpoint(cfg.ckpt_dir, state, step=step)
+                        raise FloatingPointError(
+                            f"non-finite loss at step {step}; post-mortem state saved to {path}")
 
                 if (step + 1) % mcfg.refine_every == 0:
-                    state = train_state.refine_step(state, mcfg, cam_s.width, cam_s.height,
-                                                    num_train)
+                    with PROFILER.section("refine"):
+                        state = train_state.refine_step(state, mcfg, cam_s.width, cam_s.height,
+                                                        num_train)
                     self.state = state
 
-                self.writer.step(step, {k: metrics[k] for k in ("loss", "psnr", "gaussian_count")},
-                                 pixels=cam_s.width * cam_s.height)
+                with PROFILER.section("log"):
+                    self.writer.step(step,
+                                     {k: metrics[k] for k in ("loss", "psnr", "gaussian_count")},
+                                     pixels=cam_s.width * cam_s.height)
                 if self.writer.has_backend and (step + 1) % cfg.steps_per_eval_image == 0:
-                    self._eval_image(state, step)
+                    with PROFILER.section("eval_image"):
+                        self._eval_image(state, step)
                 if (step + 1) % cfg.steps_per_save == 0 or step + 1 == cfg.max_iterations:
-                    print(f"saved {ckpt.save_checkpoint(cfg.ckpt_dir, state)}")
+                    with PROFILER.section("save"):
+                        path = ckpt.save_checkpoint(cfg.ckpt_dir, state)
+                    print(f"saved {path}")
         finally:
             if tracer is not None:
                 tracer.close()

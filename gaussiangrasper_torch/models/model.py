@@ -25,6 +25,7 @@ from gaussiangrasper_torch.models.efd import mlp_apply
 from gaussiangrasper_torch.models.gaussian_field import GaussianParams
 from gaussiangrasper_torch.ops.projection import project_gaussians
 from gaussiangrasper_torch.ops.rasterize import RasterizeConfig, rasterize_projected
+from gaussiangrasper_torch.utils.profiler import PROFILER
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,7 +134,8 @@ def render(
     if pose_delta is not None and cfg.pose_opt_mode != "off":
         camera = dataclasses.replace(camera, camera_to_world=apply_pose_delta(
             camera.camera_to_world, pose_delta, cfg.pose_opt_mode))
-    proj, colors, opac, bg = render_inputs(field, alive, camera, step, cfg, crop_mask, probe)
+    with PROFILER.section("project"):
+        proj, colors, opac, bg = render_inputs(field, alive, camera, step, cfg, crop_mask, probe)
     composite = compositor if compositor is not None else rasterize_projected
     out = composite(proj, colors, opac, bg, camera.width, camera.height, cfg.raster)
     img = out["image"]
@@ -192,17 +194,19 @@ def train_loss(
     depth_loss = losses.masked_l1(outs["depth"][..., 0], depth_gt, depth_mask)
     normal_l = losses.normal_loss(outs["normal"], gt_normal, depth_mask)
 
-    # one fused pixel gather for pair_a, pair_b and the distillation points
-    fea = outs["feature"]
-    g, p_, _ = batch["pair_a"].shape
-    idx = torch.cat([batch["pair_a"].reshape(-1, 2), batch["pair_b"].reshape(-1, 2),
-                     batch["points"]], dim=0).long()
-    feats = fea[idx[:, 0], idx[:, 1]]  # (2 G P + S, F)
-    fa = feats[: g * p_].reshape(g, p_, -1)
-    fb = feats[g * p_: 2 * g * p_].reshape(g, p_, -1)
-    fea_loss = losses.contrastive_pairs_loss(fa, fb, batch["pair_valid"], batch["group_valid"])
-    lifted = mlp_apply(state["fea_up"], feats[2 * g * p_:])
-    up_loss = losses.distillation_loss(lifted, batch["gt_clip"], batch["point_valid"])
+    with PROFILER.section("efd"):
+        # one fused pixel gather for pair_a, pair_b and the distillation points
+        fea = outs["feature"]
+        g, p_, _ = batch["pair_a"].shape
+        idx = torch.cat([batch["pair_a"].reshape(-1, 2), batch["pair_b"].reshape(-1, 2),
+                         batch["points"]], dim=0).long()
+        feats = fea[idx[:, 0], idx[:, 1]]  # (2 G P + S, F)
+        fa = feats[: g * p_].reshape(g, p_, -1)
+        fb = feats[g * p_: 2 * g * p_].reshape(g, p_, -1)
+        fea_loss = losses.contrastive_pairs_loss(fa, fb, batch["pair_valid"],
+                                                 batch["group_valid"])
+        lifted = mlp_apply(state["fea_up"], feats[2 * g * p_:])
+        up_loss = losses.distillation_loss(lifted, batch["gt_clip"], batch["point_valid"])
 
     # every-10-step regularizers, multiplied in as the JAX package does
     reg_on = float(int(step) % 10 == 0)

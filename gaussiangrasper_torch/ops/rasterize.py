@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from gaussiangrasper_torch.ops.projection import ProjectedGaussians, project_gaussians
+from gaussiangrasper_torch.utils.profiler import PROFILER
 
 ALPHA_CLAMP = 0.999
 ALPHA_CUTOFF = 1.0 / 255.0
@@ -170,6 +171,12 @@ def bin_gaussians(
     rows carry the sentinel tile T with depth +0.0, so the bit order of the
     non-negative depths is their float order, and stability keeps index
     order on ties."""
+    with PROFILER.section("bin"):
+        return _bin(proj, width, height, config, opacities, build_table, keep_pairs)
+
+
+def _bin(proj: ProjectedGaussians, width: int, height: int, config: RasterizeConfig,
+         opacities: Optional[torch.Tensor], build_table: bool, keep_pairs: bool) -> TileBins:
     ts = config.tile_size
     tw, th = tile_grid(width, height, ts)
     T = tw * th
@@ -180,6 +187,9 @@ def bin_gaussians(
     keys_tile, keys_depth, row_counts, span = enumerate_pairs(
         proj, width, height, config, opacities
     )
+    if PROFILER.on():  # the keys the sort takes, and the pairs kept (summed on the device)
+        PROFILER.count("bin/pairs_sorted", n * MT)
+        PROFILER.count("bin/pairs_kept", row_counts.sum())
     depth_bits = keys_depth.contiguous().view(torch.int32).to(torch.int64)
     _, perm = torch.sort((keys_tile << 32) | depth_bits, stable=True)
     sorted_tile = keys_tile[perm]
@@ -258,20 +268,21 @@ def rasterize_projected(
     if bins is None:
         bins = bin_gaussians(proj, width, height, config, opacities=opacities,
                              build_table=False, keep_pairs=True)
-    if bins.pair_gidx is not None:
-        K = min(config.max_gaussians_per_tile, proj.xys.shape[0])
-        out, alpha = rasterize_cuda.composite_pair_stream(
-            bins.pair_gidx, bins.pair_starts, bins.tile_count,
-            proj.xys, proj.conics, opacities, colors, background, tw, ts, k_cap=K,
-        )
-    else:
-        out, alpha = rasterize_cuda.composite_binned(
-            bins.tile_gidx, bins.tile_count, proj.xys, proj.conics, opacities, colors,
-            background, tw, ts,
-        )
-    # (T, P, C) -> (th, tw, ts, ts, C) -> (H, W, C), cropping tile padding
-    image = out.reshape(th, tw, ts, ts, C).transpose(1, 2).reshape(th * ts, tw * ts, C)
-    alpha_image = alpha.reshape(th, tw, ts, ts).transpose(1, 2).reshape(th * ts, tw * ts)
+    with PROFILER.section("composite"):
+        if bins.pair_gidx is not None:
+            K = min(config.max_gaussians_per_tile, proj.xys.shape[0])
+            out, alpha = rasterize_cuda.composite_pair_stream(
+                bins.pair_gidx, bins.pair_starts, bins.tile_count,
+                proj.xys, proj.conics, opacities, colors, background, tw, ts, k_cap=K,
+            )
+        else:
+            out, alpha = rasterize_cuda.composite_binned(
+                bins.tile_gidx, bins.tile_count, proj.xys, proj.conics, opacities, colors,
+                background, tw, ts,
+            )
+        # (T, P, C) -> (th, tw, ts, ts, C) -> (H, W, C), cropping tile padding
+        image = out.reshape(th, tw, ts, ts, C).transpose(1, 2).reshape(th * ts, tw * ts, C)
+        alpha_image = alpha.reshape(th, tw, ts, ts).transpose(1, 2).reshape(th * ts, tw * ts)
     return {
         "image": image[:height, :width],
         "alpha": alpha_image[:height, :width],

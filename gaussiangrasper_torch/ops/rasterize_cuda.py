@@ -56,6 +56,7 @@ import torch
 from gaussiangrasper_torch._build import check_error as _check, entry as _entry
 from gaussiangrasper_torch._device import full_f32
 from gaussiangrasper_torch.ops.rasterize import ALPHA_CLAMP, ALPHA_CUTOFF, _LOG_EPS
+from gaussiangrasper_torch.utils.profiler import PROFILER
 
 WALK_CHUNK = 128
 """K1 walks 128-row chunks and counts the zero-alpha rows past `count` in
@@ -631,14 +632,15 @@ class _CompositePairs(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, g_alpha):
         pair_gidx, starts, counts, attrs, bg, logt, ncomp = ctx.saved_tensors
-        g_out, g_alpha = g_out.float().contiguous(), g_alpha.float().contiguous()
-        # the forward already checked the stream against the table: no second host sync
-        _check_bwd_inputs(attrs.device, starts.shape[0], attrs.shape[1] - 6, g_out, g_alpha, logt,
-                          ncomp, ctx.tiles[1])
-        gpairs = _bwd_dispatch(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
-                               *ctx.tiles, two_tile=ctx.two_tile)
-        acc = torch.zeros_like(attrs).index_add_(0, pair_gidx.to(torch.int64), gpairs)
-        gbg = torch.einsum("tp,tpc->c", torch.exp(logt), g_out)
+        with PROFILER.section("composite_bwd"):
+            g_out, g_alpha = g_out.float().contiguous(), g_alpha.float().contiguous()
+            # the forward already checked the stream against the table: no second host sync
+            _check_bwd_inputs(attrs.device, starts.shape[0], attrs.shape[1] - 6, g_out, g_alpha,
+                              logt, ncomp, ctx.tiles[1])
+            gpairs = _bwd_dispatch(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt,
+                                   ncomp, *ctx.tiles, two_tile=ctx.two_tile)
+            acc = torch.zeros_like(attrs).index_add_(0, pair_gidx.to(torch.int64), gpairs)
+            gbg = torch.einsum("tp,tpc->c", torch.exp(logt), g_out)
         return (None, None, None, acc[:, 0:2], acc[:, 2:5], acc[:, 5], acc[:, 6:], gbg,
                 None, None)
 
@@ -830,13 +832,15 @@ class _CompositeBinned(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, g_alpha):
         tile_gidx, counts, tables, bg, logt, ncomp = ctx.saved_tensors
-        g_out, g_alpha = g_out.float().contiguous(), g_alpha.float().contiguous()
-        # the forward already checked counts against the table: no second host sync
-        _check_bwd_inputs(tables.device, tables.shape[0], tables.shape[2] - 6, g_out, g_alpha,
-                          logt, ncomp, ctx.tiles[1])
-        gattr = _table_bwd_dispatch(counts, tables, bg, g_out, g_alpha, logt, ncomp, *ctx.tiles)
-        acc = scatter_table(tile_gidx, ctx.n, gattr)
-        gbg = torch.einsum("tp,tpc->c", torch.exp(logt), g_out)
+        with PROFILER.section("composite_bwd"):
+            g_out, g_alpha = g_out.float().contiguous(), g_alpha.float().contiguous()
+            # the forward already checked counts against the table: no second host sync
+            _check_bwd_inputs(tables.device, tables.shape[0], tables.shape[2] - 6, g_out,
+                              g_alpha, logt, ncomp, ctx.tiles[1])
+            gattr = _table_bwd_dispatch(counts, tables, bg, g_out, g_alpha, logt, ncomp,
+                                        *ctx.tiles)
+            acc = scatter_table(tile_gidx, ctx.n, gattr)
+            gbg = torch.einsum("tp,tpc->c", torch.exp(logt), g_out)
         return (None, None, acc[:, 0:2], acc[:, 2:5], acc[:, 5], acc[:, 6:], gbg, None, None)
 
 

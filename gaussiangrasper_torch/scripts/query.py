@@ -34,6 +34,7 @@ from gaussiangrasper_torch.models.clip_text import ClipTextEncoder
 from gaussiangrasper_torch.scripts.render import lift, load_trainer_run, render_view
 from gaussiangrasper_torch.utils import hub_snapshot
 from gaussiangrasper_torch.utils.image_io import write_png
+from gaussiangrasper_torch.utils.profiler import PROFILER
 
 CLIP_MODEL = "openai/clip-vit-base-patch16"
 CANONICAL_PHRASES = ("object", "things", "stuff", "texture")
@@ -52,15 +53,17 @@ def encode_text(prompts, device=None, encoder=None) -> np.ndarray:
 def relevancy_map(clip_map: torch.Tensor, query: torch.Tensor,
                   canonical: torch.Tensor) -> torch.Tensor:
     """LERF relevancy of an (H, W, 512) map against a (512,) query and
-    (K, 512) canonical phrases: min over canonicals of the pairwise softmax."""
-    f = clip_map / (torch.linalg.vector_norm(clip_map, dim=-1, keepdim=True) + 1e-8)
-    q = query / (torch.linalg.vector_norm(query) + 1e-8)
-    c = canonical / (torch.linalg.vector_norm(canonical, dim=-1, keepdim=True) + 1e-8)
-    with full_f32():
-        pos = f @ q  # (H, W)
-        negs = f @ c.T  # (H, W, K)
-    pair = torch.exp(pos)[..., None] / (torch.exp(pos)[..., None] + torch.exp(negs))
-    return pair.min(dim=-1).values
+    (K, 512) canonical phrases: min over canonicals of the pairwise softmax
+    (the span `relevancy`)."""
+    with PROFILER.section("relevancy"):
+        f = clip_map / (torch.linalg.vector_norm(clip_map, dim=-1, keepdim=True) + 1e-8)
+        q = query / (torch.linalg.vector_norm(query) + 1e-8)
+        c = canonical / (torch.linalg.vector_norm(canonical, dim=-1, keepdim=True) + 1e-8)
+        with full_f32():
+            pos = f @ q  # (H, W)
+            negs = f @ c.T  # (H, W, K)
+        pair = torch.exp(pos)[..., None] / (torch.exp(pos)[..., None] + torch.exp(negs))
+        return pair.min(dim=-1).values
 
 
 def main(argv=None) -> None:

@@ -41,16 +41,20 @@ from gaussiangrasper_torch.models.efd import FeaUp
 from gaussiangrasper_torch.models.model import GaussianSplatConfig, render
 from gaussiangrasper_torch.utils import perceptual
 from gaussiangrasper_torch.utils.image_io import depth2color, write_png
+from gaussiangrasper_torch.utils.profiler import PROFILER
 
 
 def render_view(state: ServeState, cam: Camera, cfg: GaussianSplatConfig) -> Dict:
-    with torch.no_grad():
+    """Traced, the span `render_view`, with `render`'s project / bin /
+    composite as its children."""
+    with PROFILER.section("render_view"), torch.no_grad():
         return render(state.field, state.alive, cam, state.step, cfg)
 
 
 def lift(fea_up: FeaUp, feature: torch.Tensor) -> torch.Tensor:
-    """(H, W, F) rendered features -> (H, W, 512) CLIP space."""
-    with torch.no_grad():
+    """(H, W, F) rendered features -> (H, W, 512) CLIP space (the span
+    `lift`)."""
+    with PROFILER.section("lift"), torch.no_grad():
         return fea_up(feature.reshape(-1, feature.shape[-1])).reshape(
             feature.shape[0], feature.shape[1], -1)
 

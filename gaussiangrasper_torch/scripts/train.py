@@ -50,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--load-dir", type=Path, default=None)
     p.add_argument("--profiler", type=str, default="none", choices=("none", "trace"),
                    help="'trace': a torch.profiler trace of steps 12..16 under "
-                        "<run>/profiler_traces/")
+                        "<run>/profiler_traces/, with the loop's and the step's ggt:: spans")
     p.add_argument("--feature-dim", type=int, default=32)
     p.add_argument("--sh-degree", type=int, default=4)
     p.add_argument("--max-tiles-per-gaussian", type=int, default=None,

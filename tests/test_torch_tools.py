@@ -111,8 +111,7 @@ def test_profiler_summary_matches_jax():
     assert tp.summary() == jp.summary()
     with tp.section("timed"):
         pass
-    wrapped = tp.time_function(lambda x: x + 1, name="fn")
-    assert wrapped(1) == 2 and tp.counts["timed"] == tp.counts["fn"] == 1
+    assert tp.counts["timed"] == 1
 
 
 @pytest.fixture(scope="module")
