@@ -160,7 +160,15 @@ Phases, one JSON line each:
            normals against the ray tracer's, the result parsed and trained
            20 steps); a seeded 1024x512 panorama's 8 crops on the card
            against the CPU path, bit-equal, ms a crop
-Then the kernels line (nine kernels), the nvidia-smi line and, last, the
+  hash_grid  csrc/hash_grid.cu at nerfacto-train-800's three lookups a step
+           (4096 rays of 256, 96 and 48 samples; 5, 5 and 16 levels): each
+           kernel's ms, a lookup's forward and backward by the kernels (launch
+           counts set to 0 just before: one of each) and by the plain path,
+           errors against the plain path, bytes bounds; at the field's lookup
+           the double backward (neus-facto's) against the plain path's
+Then the kernels line (twelve kernels: the nine TPU kernels' ports and the
+three hash-grid kernels, H1-H3, whose launches by path come from the
+nerf_zoo CLIs and the hash_grid phase), the nvidia-smi line and, last, the
 ok line. Any
 failure exits non-zero without the ok line. Without a card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -176,6 +184,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -1132,24 +1141,40 @@ def timed_train_step(train_step, steps: list):
     return timed_step
 
 
-def counted_cli(seconds: dict, launches: dict, name: str, fn, argv):
-    """Run one CLI's main in-process on the card, every compositor's launch
-    count set to 0 just before and read just after; its seconds and counts
-    go into `seconds` / `launches` under `name`."""
+def counted_cli(seconds: dict, launches: dict, name: str, fn, argv, hashes: Optional[dict] = None):
+    """Run one CLI's main in-process on the card, every compositor's and
+    hash-grid kernel's launch count set to 0 just before and read just
+    after; its seconds and compositor counts go into `seconds` / `launches`
+    under `name`, and the hash-grid kernels' (h1 forward, h2 backward, h3
+    double backward) into `hashes`, where given."""
     import torch
     from gaussiangrasper_torch.ops import rasterize_cuda as rc
 
     kernels = {"k1": rc.composite_pairs_fwd, "k2": rc.composite_pairs_bwd,
                "k5": rc.composite_pairs_fwd2, "k6": rc.composite_pairs_bwd2}
     torch.cuda.synchronize()
-    for k in kernels.values():
+    for k in list(kernels.values()) + list(hash_kernels().values()):
         k.launches = 0
     t0 = time.perf_counter()
     out = fn([str(a) for a in argv])
     torch.cuda.synchronize()
     seconds[name] = time.perf_counter() - t0
     launches[name] = {n: k.launches for n, k in kernels.items()}
+    if hashes is not None:
+        hashes[name] = hash_launches()
     return out
+
+
+def hash_kernels() -> dict:
+    """csrc/hash_grid.cu's three wrappers by their short names."""
+    from gaussiangrasper_torch.models import encodings as enc
+
+    return {"h1": enc.hash_grid_fwd_cuda, "h2": enc.hash_grid_bwd_cuda,
+            "h3": enc.hash_grid_bwd2_cuda}
+
+
+def hash_launches() -> dict:
+    return {n: k.launches for n, k in hash_kernels().items()}
 
 
 def trainer_phase(scene: Path, out_dir: Path, label: str, tp: int) -> dict:
@@ -1499,7 +1524,11 @@ def multi_scene_phase(scene: Path, moved: Path, tmp: Path, trainer_row: dict, de
 
 ZOO_STEPS = 150  # nerfacto at its registered widths on trainer's 800x800 tabletop
 ZOO_CLI_STEPS = 20  # every other ray-marched name, and generfacto
-ZOO_INGP_STEPS = 1200  # instant-ngp: ~70 grid updates, for the EMA to empty cells and move the sizer
+# instant-ngp: ~100 grid updates, for the EMA to empty cells and move the sizer. The sizer first
+# moves near step 1160 (the plain lookup's deterministic table gradient: step 1159 on every run;
+# the hash kernels' float-atomic one: steps 1113-1188 over runs, once past step 1200), so the run
+# goes on well past that
+ZOO_INGP_STEPS = 1600
 ZOO_SMALL_SCENE = dict(width=200, height=200, n_views=4, seed_points=2000, seed=0)
 ZOO_RAYS = 256  # rays of each field's card-against-CPU render
 ZOO_OUT_ERR = 1e-5  # outputs, card against CPU, plus 4x the CPU's own float32 spread
@@ -1638,6 +1667,44 @@ def zoo_fields(cam, device, seed: int = 11, fields=None, check: bool = True) -> 
     return rows
 
 
+# hash-grid launches (h1, h2, h3) in one nerf_step of each method that has a grid (models/nerf.py):
+# the proposal family looks up proposal 0, proposal 1 and the field, and runs each one's backward;
+# the hierarchical nerfacto fields look the field up twice (coarse, fine); instant-ngp once.
+# neus-facto looks up in sdf_and_features and in sdf_gradient; sdf_gradient's create_graph
+# backward is one h2, the loss's backward runs the other lookup's h2, the double backward h3, and
+# an h2 of zeros into sdf_gradient's lookup (relu's double backward hands its input zeros).
+ZOO_HASH_STEP = {
+    "nerfacto": [3, 3, 0], "nerfacto-big": [3, 3, 0], "nerfacto-huge": [3, 3, 0],
+    "depth-nerfacto": [2, 2, 0], "semantic-nerfw": [2, 2, 0], "phototourism": [2, 2, 0],
+    "instant-ngp": [1, 1, 0], "instant-ngp-bounded": [1, 1, 0], "neus-facto": [2, 3, 1]}
+
+
+def zoo_hash_faults(hashes: dict, step_hashes: dict, nerfacto_eval_calls: int,
+                    steps: dict) -> dict:
+    """Each CLI's hash-grid launches against ZOO_HASH_STEP: every nerf_step
+    exactly its method's count (no grid: none), the whole run none for a
+    method without a grid, the forward alone outside the steps (the eval
+    renders, instant-ngp's grid updates) for one with, and nerfacto's eval
+    exactly 3 forwards a render_rays call. Returns what is off, by name."""
+    faults = {}
+    for name, total in hashes.items():
+        want = ZOO_HASH_STEP.get(name, [0, 0, 0])
+        per_step = step_hashes.get(name, [])
+        outside = [total[h] - sum(s[i] for s in per_step) for i, h in enumerate(total)]
+        ok = len(per_step) == steps.get(name, 0) and all(s == want for s in per_step)
+        if name not in ZOO_HASH_STEP:
+            ok = ok and total == {"h1": 0, "h2": 0, "h3": 0}
+        elif name == "nerfacto":
+            ok = ok and outside == [3 * nerfacto_eval_calls, 0, 0] and nerfacto_eval_calls > 0
+        elif name != "neus-facto":  # neus-facto's eval renders take sdf_gradient's backward
+            ok = ok and outside[0] > 0 and outside[1:] == [0, 0]
+        if not ok:
+            faults[name] = {"total": total, "want_a_step": want, "steps": len(per_step),
+                            "off_steps": [s for s in per_step if s != want][:3],
+                            "outside_steps": outside}
+    return faults
+
+
 def nerf_zoo_phase(scene: Path, tmp: Path, device) -> dict:
     """The ray-marched zoo on the card: nerfacto as registered through the
     train CLI on trainer's tabletop (ZOO_STEPS steps, then the 4-view eval),
@@ -1655,13 +1722,31 @@ def nerf_zoo_phase(scene: Path, tmp: Path, device) -> dict:
 
     t_phase = time.perf_counter()
     step_ms, eval_s, captured = [], [], {}
-    step, render_image = nt.nerf_step, nt.NerfTrainer.render_image
+    step, render_image, render_rays = nt.nerf_step, nt.NerfTrainer.render_image, nt.render_rays
+    # each CLI's hash-grid launches in every nerf_step, and its render_rays calls outside them
+    current, in_step, step_hashes, eval_calls = [""], [False], {}, {}
+
+    def counted_step(*a, **k):
+        before = hash_launches()
+        in_step[0] = True
+        try:
+            out = step(*a, **k)
+        finally:
+            in_step[0] = False
+        after = hash_launches()
+        step_hashes.setdefault(current[0], []).append([after[h] - before[h] for h in after])
+        return out
+
+    def counted_render_rays(*a, **k):
+        if not in_step[0]:
+            eval_calls[current[0]] = eval_calls.get(current[0], 0) + 1
+        return render_rays(*a, **k)
 
     def timed_step(*a, **k):
         captured["args"] = (a, k)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = step(*a, **k)
+        out = counted_step(*a, **k)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         return out
@@ -1674,15 +1759,16 @@ def nerf_zoo_phase(scene: Path, tmp: Path, device) -> dict:
         eval_s.append(time.perf_counter() - t0)
         return out
 
-    seconds, counts = {}, {}
+    seconds, counts, hashes = {}, {}, {}
     nt.nerf_step, nt.NerfTrainer.render_image = timed_step, timed_render
+    nt.render_rays, current[0] = counted_render_rays, "nerfacto"
     try:
         trainer = counted_cli(seconds, counts, "nerfacto", train.main,
                               ["--method", "nerfacto", "--data", scene, "--output-dir", tmp / "zoo",
                                "--experiment-name", "nerfacto", "--max-iterations", ZOO_STEPS,
-                               "--steps-per-save", ZOO_STEPS])
+                               "--steps-per-save", ZOO_STEPS], hashes)
     finally:
-        nt.nerf_step, nt.NerfTrainer.render_image = step, render_image
+        nt.nerf_step, nt.NerfTrainer.render_image, nt.render_rays = step, render_image, render_rays
     psnr = [h["psnr"] for h in trainer.history]
     evals = json.loads((tmp / "zoo" / "nerfacto" / "renders" / "metrics.json").read_text())
     # one more step of the trained state, traced: device busy ms and top ops
@@ -1696,19 +1782,15 @@ def nerf_zoo_phase(scene: Path, tmp: Path, device) -> dict:
         torch.cuda.synchronize()
         wall.append(1e3 * (time.perf_counter() - t0))
     wall_ms = float(np.median(wall))
-    full = device_profile(lambda: step(*a, **k), top=200)
-    scatter_ms = sum(ms for name, ms in full["top_ms"]
-                     if "index_put" in name.lower() or "indexing_backward" in name.lower()
-                     or "scatter" in name.lower())
     nerfacto = {
         "steps": len(step_ms), "ms_per_step_median": float(np.median(step_ms)),
         "psnr_first_50": float(np.mean(psnr[:50])), "psnr_last_50": float(np.mean(psnr[-50:])),
         "eval_psnr": [r["psnr"] for r in evals], "eval_s_per_view": eval_s,
         "traced_step": {"device_busy_ms": prof["device_busy_ms"], "wall_ms_median": wall_ms,
                         "idle_share": 1.0 - prof["device_busy_ms"] / wall_ms,
-                        "top5_ms": prof["top_ms"], "hash_scatter_add_ms": scatter_ms,
-                        "hash_scatter_add_share_of_busy": scatter_ms / max(full["device_busy_ms"], 1e-9)},
-        "launches": counts["nerfacto"], "wall_s": seconds["nerfacto"]}
+                        "top5_ms": prof["top_ms"]},
+        "launches": counts["nerfacto"], "wall_s": seconds["nerfacto"],
+        "hash_launches": hashes["nerfacto"], "eval_render_rays_calls": eval_calls.get("nerfacto", 0)}
     del trainer, captured, a, k
     torch.cuda.empty_cache()
 
@@ -1726,25 +1808,27 @@ def nerf_zoo_phase(scene: Path, tmp: Path, device) -> dict:
              "phototourism", "neus", "neus-facto"]
     cli, sizer_check = {}, None
     os.environ["GGT_GUIDANCE"] = "color"
+    nt.nerf_step = counted_step
     try:
         for name in names + ["generfacto"]:
             steps = ZOO_INGP_STEPS if name == "instant-ngp" else ZOO_CLI_STEPS
+            current[0] = name
             out = counted_cli(seconds, counts, name, train.main,
                               ["--method", name, "--data", small, "--output-dir", tmp / "zoo",
                                "--experiment-name", name, "--max-iterations", steps,
-                               "--steps-per-save", steps])
+                               "--steps-per-save", steps], hashes)
             run = tmp / "zoo" / name
             if name == "generfacto":
                 img = read_png(run / "generated.png")
                 cli[name] = {"seconds": seconds[name], "generated_png": list(img.shape),
-                             "launches": counts[name]}
+                             "launches": counts[name], "hash_launches": hashes[name]}
                 continue
             rows = json.loads((run / "renders" / "metrics.json").read_text())
             ckpt = sorted(p.name for p in (run / "checkpoints").iterdir())
             cli[name] = {"seconds": seconds[name], "steps": len(out.history),
                          "checkpoints": ckpt, "eval_psnr": [r["psnr"] for r in rows],
                          "loss_first_last": [out.history[0]["loss"], out.history[-1]["loss"]],
-                         "launches": counts[name]}
+                         "launches": counts[name], "hash_launches": hashes[name]}
             if name == "instant-ngp":
                 # the ray counts against the control law replayed on the
                 # measured live samples
@@ -1767,6 +1851,7 @@ def nerf_zoo_phase(scene: Path, tmp: Path, device) -> dict:
             del out
             torch.cuda.empty_cache()
     finally:
+        nt.nerf_step = step
         os.environ.pop("GGT_GUIDANCE", None)
 
     # LPIPS with seeded random VGG16 weights: view 0 and the nerfacto render of it
@@ -1799,6 +1884,11 @@ def nerf_zoo_phase(scene: Path, tmp: Path, device) -> dict:
            "seconds": time.perf_counter() - t_phase}
     emit(row)
     no_kernels = {"k1": 0, "k2": 0, "k5": 0, "k6": 0}
+    hash_faults = zoo_hash_faults(hashes, step_hashes, eval_calls.get("nerfacto", 0),
+                                  {"nerfacto": nerfacto["steps"],
+                                   **{n: c["steps"] for n, c in cli.items() if "steps" in c}})
+    if hash_faults:
+        raise RuntimeError(f"nerf_zoo hash-grid launches: {hash_faults}")
     if nerfacto["psnr_last_50"] <= nerfacto["psnr_first_50"] or nerfacto["steps"] != ZOO_STEPS \
             or len(nerfacto["eval_psnr"]) != 4 \
             or not all(math.isfinite(p) for p in nerfacto["eval_psnr"]) \
@@ -1807,6 +1897,141 @@ def nerf_zoo_phase(scene: Path, tmp: Path, device) -> dict:
             or any(c != no_kernels for c in counts.values() if isinstance(c, dict)):
         raise RuntimeError(f"nerf_zoo: {row}")
     return row
+
+
+# nerfacto-train-800's three hash-grid lookups a step (portbench/configs/nerfacto.json): name,
+# samples a ray, levels, log2 of the table, the finest resolution
+HASH_LOOKUPS = (("proposal_0", 256, 5, 17, 256), ("proposal_1", 96, 5, 17, 256),
+                ("field", 48, 16, 19, 2048))
+HASH_RAYS = 4096
+HASH_GRAD_ERR = 1e-4  # kernels against the plain path on the card: each gradient, of its largest
+# entry (table U(-1, 1)); the outputs bit-equal
+
+
+def hash_points(rays: int, samples: int, seed: int, device):
+    """(rays x samples, 3) points in [0, 1]: sorted uniform depths in [0.05,
+    6] along rays from a 3-unit orbit toward the [-1, 1]^3 middle of the
+    scene, mapped as the nerfacto cell maps positions (scene_scale 2)."""
+    import torch
+
+    g = torch.Generator(device).manual_seed(seed)
+    ang = torch.rand(rays, generator=g, device=device) * (2 * math.pi)
+    origins = torch.stack([3 * torch.cos(ang), 3 * torch.sin(ang), torch.full_like(ang, 0.5)], -1)
+    target = torch.rand(rays, 3, generator=g, device=device) * 2 - 1
+    dirs = torch.nn.functional.normalize(target - origins, dim=-1)
+    t = torch.sort(0.05 + 5.95 * torch.rand(rays, samples, generator=g, device=device), -1)[0]
+    pts = origins[:, None] + dirs[:, None] * t[..., None]
+    return torch.clamp(pts / 4.0 + 0.5, 0.0, 1.0).reshape(-1, 3).contiguous()
+
+
+def hash_grid_phase(device) -> dict:
+    """csrc/hash_grid.cu at the nerfacto cell's three lookups, rays along
+    `hash_points`: a lookup's forward and backward through `hash_grid_encode`
+    with every launch count set to 0 just before (one forward and one
+    backward, no double backward) against the plain path on the card (the
+    outputs bit-equal, the gradients within HASH_GRAD_ERR); each kernel's ms
+    (CUDA events, the wrapper's zero fill in the backward's), the backward
+    with and without dL/dx, the plain path's forward and its backward alone;
+    and two bytes bounds: every input and output byte once, and the 8
+    corner reads of every lookup as 8-byte words. At the field's lookup also
+    the double backward (h3, neus-facto's path; the cell never runs it)
+    against the plain path's, and each path's time."""
+    import torch
+    from gaussiangrasper_torch.models import encodings as enc
+
+    rows = {}
+    for i, (name, samples, levels, log2, max_res) in enumerate(HASH_LOOKUPS):
+        grid = enc.HashGrid(num_levels=levels, log2_hashmap_size=log2, max_res=max_res).to(device)
+        gen = torch.Generator(device).manual_seed(20 + i)
+        with torch.no_grad():
+            grid.table.uniform_(-1.0, 1.0, generator=gen)
+        x = hash_points(HASH_RAYS, samples, i, device)
+        n, table, res = x.shape[0], grid.table.detach(), grid.resolutions
+        g_out = torch.randn(n, 2 * levels, generator=gen, device=device)
+        want_x = i > 0  # the proposal 1 and field positions take a gradient, proposal 0's not
+
+        def lookup(kernel: bool):
+            grid.table.grad = None
+            xp = x.clone().requires_grad_(want_x)
+            out = (enc.hash_grid_encode(grid, xp) if kernel
+                   else enc.encode_plain(grid.table, res, xp))
+            out.backward(g_out)
+            return out.detach(), grid.table.grad, xp.grad
+
+        for k in hash_kernels().values():
+            k.launches = 0
+        got = lookup(True)
+        launched = hash_launches()
+        want = lookup(False)
+        errs = [float((got[0] - want[0]).abs().max())]
+        errs += [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got[1:], want[1:])
+                 if b is not None]
+        plain_out = enc.encode_plain(grid.table, res, x.clone().requires_grad_(want_x))
+        table_bytes, point_bytes = table.numel() * 4, n * (12 + 8 * levels)
+        rows[name] = {
+            "points": n, "levels": levels, "table_rows": 2 ** log2, "launches": launched,
+            "fwd_ms": cuda_ms(lambda: enc.hash_grid_fwd_cuda(x, table, res), 20),
+            "bwd_ms": cuda_ms(lambda: enc.hash_grid_bwd_cuda(x, table, res, g_out, False, True),
+                              20),
+            "bwd_dx_ms": cuda_ms(lambda: enc.hash_grid_bwd_cuda(x, table, res, g_out, True, True),
+                                 20),
+            "kernel_fwd_bwd_ms": cuda_ms(lambda: lookup(True), 10),
+            "plain_fwd_bwd_ms": cuda_ms(lambda: lookup(False), 5),
+            "plain_fwd_ms": cuda_ms(lambda: enc.encode_plain(table, res, x), 5),
+            "plain_bwd_ms": cuda_ms(lambda: plain_out.backward(g_out, retain_graph=True), 5),
+            "out_max_abs_err": errs[0], "grad_rel_errs": errs[1:],
+            # either kernel: the table (or its gradient) once, x and out (or dL/dout) once
+            "bound_ms": 1e3 * (table_bytes + point_bytes) / HBM_BYTES_PER_S,
+            "gather_bound_ms": 1e3 * (n * levels * 64 + point_bytes) / HBM_BYTES_PER_S}
+        if name == "field":
+            rows[name]["double_backward"] = hash_double_backward(grid, x, g_out)
+        del grid, x, g_out, got, want, plain_out
+        torch.cuda.empty_cache()
+        double = rows[name].get("double_backward", {"grad_rel_errs": [0.0]})
+        if errs[0] != 0 or max(errs[1:]) > HASH_GRAD_ERR \
+                or max(double["grad_rel_errs"]) > HASH_GRAD_ERR \
+                or launched != {"h1": 1, "h2": 1, "h3": 0}:
+            raise RuntimeError(f"hash_grid {name}: {rows[name]}")
+    row = {"phase": "hash_grid", "rows": rows}
+    emit(row)
+    return row
+
+
+def hash_double_backward(grid, x, g_out) -> dict:
+    """dL/dx of a lookup with create_graph, differentiated again (the
+    gradient a random gg_x, as neus-facto's eikonal loss does): dL/dg_out,
+    the table's and x's gradients by the kernels (one h2, then one h3)
+    against the plain path's, and the time of that second backward alone by
+    each path (the bwd2 kernel; autograd's VJP of the plain backward)."""
+    import torch
+    from gaussiangrasper_torch.models import encodings as enc
+
+    gen = torch.Generator(x.device).manual_seed(31)
+    gg_x = torch.randn(x.shape, generator=gen, device=x.device)
+    res, got = grid.resolutions, {}
+    for path in ("kernel", "plain"):
+        for k in hash_kernels().values():
+            k.launches = 0
+        xp, g = x.clone().requires_grad_(True), g_out.clone().requires_grad_(True)
+        out = enc.hash_grid_encode(grid, xp) if path == "kernel" else \
+            enc.encode_plain(grid.table, res, xp)
+        (dx,) = torch.autograd.grad(out, xp, g, create_graph=True)
+        inputs = [g, grid.table, xp]
+        grads = torch.autograd.grad(dx, inputs, gg_x, retain_graph=True)
+        got[path] = {"grads": grads, "launches": hash_launches(),
+                     "ms": cuda_ms(lambda: torch.autograd.grad(dx, inputs, gg_x,
+                                                               retain_graph=True), 5)}
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(got["kernel"]["grads"], got["plain"]["grads"])]
+    if got["kernel"]["launches"] != {"h1": 1, "h2": 1, "h3": 1}:
+        errs.append(float("inf"))
+    table = grid.table.detach()
+    return {"grad_rel_errs": errs, "launches": got["kernel"]["launches"],
+            "bwd2_ms": cuda_ms(lambda: enc.hash_grid_bwd2_cuda(x, table, res, g_out, gg_x, True,
+                                                               True, True), 20),
+            "kernel_ms": got["kernel"]["ms"], "plain_ms": got["plain"]["ms"],
+            "bound_ms": 1e3 * (2 * table.numel() * 4 + x.shape[0] * (36 + 16 * table.shape[0]))
+            / HBM_BYTES_PER_S}
 
 
 CAPTURE_LENS = (-0.08, 0.02, 5e-4, -5e-4)  # OpenCV k1, k2, p1, p2 of the capture phase
@@ -3362,7 +3587,9 @@ def main() -> int:
         multi = multi_scene_phase(scene, Path(tmp) / "after_updating", Path(tmp), trainer, device)
         shutil.rmtree(Path(tmp) / "multi")
         torch.cuda.empty_cache()
-        nerf_zoo_phase(scene, Path(tmp), device)
+        zoo = nerf_zoo_phase(scene, Path(tmp), device)
+    torch.cuda.empty_cache()
+    hashg = hash_grid_phase(device)
     torch.cuda.empty_cache()
     pose = pose_phase(device)
     torch.cuda.empty_cache()
@@ -3379,6 +3606,33 @@ def main() -> int:
     def large_row(row):
         return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                                     "bound_by", "bound_share")}
+
+    def hash_rows():
+        """H1-H3's rows: ms and bounds summed over the cell's three lookups
+        a step (H2: proposal 0 without dL/dx, the others with), H3 at the
+        field's lookup; launches by path from the zoo's CLIs (the runs'
+        own counts, set to 0 before each) and this script's hash phase."""
+        r, d = hashg["rows"], hashg["rows"]["field"]["double_backward"]
+        cli_hashes = {"nerfacto": zoo["nerfacto"]["hash_launches"],
+                      **{n: c["hash_launches"] for n, c in zoo["cli"].items()}}
+
+        def by_path(h, phase):
+            return {**{n: c[h] for n, c in cli_hashes.items() if c[h]}, "hash_grid_phase": phase}
+
+        total = lambda key: sum(v[key] for v in r.values())  # noqa: E731
+        h1 = {"max_abs_err": max(v["out_max_abs_err"] for v in r.values()), "ms": total("fwd_ms"),
+              "plain_ms": total("plain_fwd_ms"), "bound_ms": total("bound_ms"),
+              "bound_by": "bytes"}
+        h2 = {"max_abs_err": max(max(v["grad_rel_errs"]) for v in r.values()),
+              "ms": r["proposal_0"]["bwd_ms"] + r["proposal_1"]["bwd_dx_ms"]
+              + r["field"]["bwd_dx_ms"], "plain_ms": total("plain_bwd_ms"),
+              "bound_ms": total("bound_ms"), "bound_by": "bytes"}
+        h3 = {"max_abs_err": max(d["grad_rel_errs"]), "ms": d["bwd2_ms"],
+              "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"], "bound_by": "bytes"}
+        src, none = "hash_grid", "none (models/encodings.py's plain lookup)"
+        return [kernel_row("hash_grid_fwd", src, none, h1, by_path("h1", 3 + 1)),
+                kernel_row("hash_grid_bwd", src, none, h2, by_path("h2", 3 + 1)),
+                kernel_row("hash_grid_bwd2", src, none, h3, by_path("h3", 1))]
 
     def c71_row(row):
         return {k: row[k] for k in ("max_abs_err", "ms", "piece_kernel_ms", "plain_ms", "bound_ms",
@@ -3452,7 +3706,7 @@ def main() -> int:
         {**kernel_row("probe_write_at", "probes", "dma_probe.py:65 (_write_kernel)",
                       probes["p3"], {"copy_probe": probes["launches"]["p3"]}),
          "large": large_row(probes["p3_large"])},
-    ]})
+    ] + hash_rows()})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

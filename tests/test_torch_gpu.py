@@ -1228,6 +1228,115 @@ def test_nerf_step_on_the_card_matches_cpu(cuda_device):
         assert (fields["cuda"][n] - a).abs().max() <= 2 * 5e-3, n
 
 
+# tests/test_torch_nerf.py's GRIDS (that file imports JAX): tiny_cfg's grid, the registered
+# methods' grids (nerfacto, -big, -huge, the proposal fields) and a one-level grid
+HASH_GRIDS = [dict(num_levels=4, log2_hashmap_size=8), dict(num_levels=12, log2_hashmap_size=17),
+              dict(num_levels=16, log2_hashmap_size=19), dict(num_levels=16, log2_hashmap_size=21),
+              dict(num_levels=5, log2_hashmap_size=15, max_res=256),
+              dict(num_levels=1, log2_hashmap_size=4)]
+
+
+def _hash_grid_id(g):
+    return f"L{g['num_levels']}H{g['log2_hashmap_size']}"
+
+
+def _hash_points(seed=11):
+    """(8219, 3) float32 points: 4096 in one 1/64-wide box (at resolution 16
+    one cell, so thousands of lookups on each of its 8 rows, a warp's 32 on
+    one row), then those again shuffled among 4096 uniform ones (a warp's
+    equal rows on scattered lanes), and the 27 points of {0, 0.5, 1}^3."""
+    rng = np.random.default_rng(seed)
+    packed = 0.4 + rng.random((4096, 3)) / 64
+    mixed = np.concatenate([packed, rng.random((4096, 3))])[rng.permutation(8192)]
+    edges = np.stack(np.meshgrid(*[[0.0, 0.5, 1.0]] * 3, indexing="ij"), -1).reshape(-1, 3)
+    return np.concatenate([packed, mixed, edges]).astype(np.float32)
+
+
+def _hash_grid_on(device, grid, seed=12):
+    from gaussiangrasper_torch.models import encodings as enc
+
+    g = enc.HashGrid(**grid).to(device)
+    with torch.no_grad():
+        g.table.uniform_(-1.0, 1.0, generator=torch.Generator(device).manual_seed(seed))
+    return g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_grad", [False, True], ids=["x-fixed", "x-grad"])
+@pytest.mark.parametrize("grid", HASH_GRIDS, ids=_hash_grid_id)
+def test_hash_grid_kernel_matches_plain(cuda_device, grid, x_grad):
+    """`hash_grid_encode` through the kernels against the plain path on the
+    card, one table U(-1, 1): outputs bit-equal (the same products, summed
+    in the order of torch's CUDA sum over the corner axis), the table
+    gradient and dL/dx within 1e-4 of each one's largest entry
+    (test_nerf_field_on_the_card_matches_cpu's bound, without its spread
+    term; the kernel sums them by float atomics in another order). dL/dx
+    only where x takes a gradient, and then from the same backward launch."""
+    from gaussiangrasper_torch.models import encodings as enc
+
+    g = _hash_grid_on(cuda_device, grid)
+    x = torch.tensor(_hash_points(), device=cuda_device)
+    cot = torch.randn(x.shape[0], 2 * grid["num_levels"], device=cuda_device,
+                      generator=torch.Generator(cuda_device).manual_seed(13))
+    grads = {}
+    for path in ("kernel", "plain"):
+        g.table.grad = None
+        xp = x.clone().requires_grad_(x_grad)
+        fwd, bwd = enc.hash_grid_fwd_cuda.launches, enc.hash_grid_bwd_cuda.launches
+        if path == "kernel":
+            out = enc.hash_grid_encode(g, xp)
+            assert enc.hash_grid_fwd_cuda.launches == fwd + 1
+        else:
+            out = enc.encode_plain(g.table, g.resolutions, xp)
+        (out * cot).sum().backward()
+        assert enc.hash_grid_bwd_cuda.launches == bwd + (path == "kernel")
+        grads[path] = (out.detach(), g.table.grad, xp.grad)
+    (ok, gtk, gxk), (op, gtp, gxp) = grads["kernel"], grads["plain"]
+    assert torch.equal(ok, op)
+    scale = float(gtp.abs().max())
+    assert scale > 0 and float((gtk - gtp).abs().max()) <= 1e-4 * scale
+    if x_grad:
+        scale = float(gxp.abs().max())
+        assert scale > 0 and float((gxk - gxp).abs().max()) <= 1e-4 * scale
+    else:
+        assert gxk is None and gxp is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inner", ["x", "x-and-table"])
+@pytest.mark.parametrize("grid", [HASH_GRIDS[0], HASH_GRIDS[2]], ids=_hash_grid_id)
+def test_hash_grid_kernel_double_backward(cuda_device, grid, inner):
+    """A gradient taken with create_graph through the kernel path (of x
+    alone, as neus-facto's SDF gradient, or of x and the table), then
+    differentiated again: the inner gradients, the table's and x's within
+    1e-4 of the plain path's largest entries, with the double backward
+    kernel launched once and no plain op in its place."""
+    from gaussiangrasper_torch.models import encodings as enc
+
+    g = _hash_grid_on(cuda_device, grid)
+    x = torch.tensor(_hash_points(), device=cuda_device)
+    w = torch.randn(x.shape[0], 2 * grid["num_levels"], device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(14))
+    got = {}
+    for path in ("kernel", "plain"):
+        g.table.grad = None
+        xp = x.clone().requires_grad_(True)
+        bwd2 = enc.hash_grid_bwd2_cuda.launches
+        out = enc.hash_grid_encode(g, xp) if path == "kernel" else \
+            enc.encode_plain(g.table, g.resolutions, xp)
+        wrt = [xp] if inner == "x" else [xp, g.table]
+        grads = torch.autograd.grad((torch.sin(out) * w).sum(), wrt, create_graph=True)
+        loss = (grads[0] ** 2).sum()
+        if inner != "x":
+            loss = loss + (grads[1] ** 3).sum()
+        loss.backward()
+        assert enc.hash_grid_bwd2_cuda.launches == bwd2 + (path == "kernel")
+        got[path] = [gr.detach() for gr in grads] + [g.table.grad, xp.grad]
+    for k, p in zip(got["kernel"], got["plain"]):
+        scale = float(p.abs().max())
+        assert scale > 0 and float((k - p).abs().max()) <= 1e-4 * scale
+
+
 @pytest.mark.gpu
 def test_lpips_on_the_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
     """LPIPS with seeded random VGG16 weights, card against CPU within 1e-5."""

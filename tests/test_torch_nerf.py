@@ -319,6 +319,195 @@ def test_encodings_match_jax():
     assert tg.resolutions.requires_grad is False and "resolutions" not in dict(tg.named_parameters())
 
 
+def _encode_before(grid, x):
+    """hash_grid_encode as the port had it before the hash-grid kernels,
+    statement for statement."""
+    table = grid.table
+    num_levels, hashmap_size, f = table.shape
+    batch = x.shape[:-1]
+    xf = x.reshape(-1, 3)
+    h, frac = tenc.hash_indices(xf, grid.resolutions.detach(), hashmap_size)
+    rows = h + (torch.arange(num_levels, device=x.device) * hashmap_size)[:, None, None]
+    vals = table.reshape(num_levels * hashmap_size, f)[rows]  # (L, N, 8, F)
+    offs = torch.tensor(tenc._OFFSETS, device=x.device)
+    axis_w = torch.where(offs == 1, frac[:, :, None, :], 1.0 - frac[:, :, None, :])
+    w = axis_w[..., 0] * axis_w[..., 1] * axis_w[..., 2]  # (L, N, 8)
+    feats = torch.sum(vals * w[..., None], dim=2)  # (L, N, F)
+    return feats.permute(1, 0, 2).reshape(*batch, num_levels * f)
+
+
+@pytest.mark.parametrize("x_grad", [False, True], ids=["x-fixed", "x-grad"])
+@pytest.mark.parametrize("grid", [GRIDS[0], GRIDS[4], GRIDS[5]],
+                         ids=lambda g: f"L{g['num_levels']}H{g['log2_hashmap_size']}")
+def test_hash_grid_cpu_path_unchanged_and_counted(grid, x_grad):
+    """CPU tensors take the plain path: the output, the table gradient and
+    dL/dx bit-equal to the code before the kernels. While a profiler
+    records, `hash/lookups` counts N x L a call and `hash/lookups_kernel`
+    nothing."""
+    from gaussiangrasper_torch.utils.profiler import PROFILER
+
+    tg = tenc.HashGrid(**grid, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        tg.table.uniform_(-1.0, 1.0, generator=torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(9)
+    x_np = rng.random((2, 33, 3)).astype(np.float32)
+    x_np[0, :3] = [[0, 0, 0], [1, 1, 1], [1, 0, 0.5]]
+    x = T(x_np).requires_grad_(x_grad)
+    cot = T(rng.normal(size=(2, 33, 2 * grid["num_levels"])))
+    PROFILER.reset()
+    try:
+        PROFILER.count("hash/lookups", 5)  # no profiler records: not counted
+        with torch.profiler.profile():
+            out = tenc.hash_grid_encode(tg, x)
+            tenc.hash_grid_encode(tg, x[1, :7])
+        assert PROFILER.counter("hash/lookups") == (66 + 7) * grid["num_levels"]
+        assert PROFILER.counter("hash/lookups_kernel") == 0
+        assert PROFILER.counts["hash"] == 2
+    finally:
+        PROFILER.reset()
+    (out * cot).sum().backward()
+    got = [tg.table.grad.clone()] + ([x.grad.clone()] if x_grad else [])
+    tg.table.grad, x.grad = None, None
+    before = _encode_before(tg, x)
+    (before * cot).sum().backward()
+    want = [tg.table.grad] + ([x.grad] if x_grad else [])
+    assert torch.equal(out, before)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _kernel_stand_ins():
+    """csrc/hash_grid.cu's three kernels as plain torch ops, statement by
+    statement after their math (the corner rows and weights of
+    `hash_indices`), for the autograd Functions on the CPU."""
+    offs = torch.tensor(tenc._OFFSETS)
+
+    def geometry(x, table, res):
+        num_levels, size, _ = table.shape
+        h, frac = tenc.hash_indices(x, res, size)  # (L, N, 8), (L, N, 3)
+        a = torch.where(offs == 1, frac[:, :, None, :], 1.0 - frac[:, :, None, :])
+        sgn = torch.where(offs == 1, 1.0, -1.0).to(x.dtype)
+        rows = (h + torch.arange(num_levels)[:, None, None] * size).reshape(-1)
+        return a, sgn, rows, table.reshape(-1, 2)[rows].reshape(*h.shape, 2)
+
+    def fwd(x, table, res):
+        return tenc.encode_plain(table, res, x)
+
+    def scatter(table, rows, v):
+        out = torch.zeros_like(table)
+        out.view(-1, 2).index_add_(0, rows, v.reshape(-1, 2))
+        return out
+
+    def bwd(x, table, res, g_out, want_x, want_table):
+        a, sgn, rows, t = geometry(x, table, res)
+        g = g_out.reshape(x.shape[0], -1, 2).permute(1, 0, 2)[:, :, None]  # (L, N, 1, 2)
+        w = a[..., 0] * a[..., 1] * a[..., 2]
+        dw = torch.stack([a[..., 1] * a[..., 2], a[..., 0] * a[..., 2], a[..., 0] * a[..., 1]],
+                         -1) * sgn
+        g_x = (((t * g).sum(-1)[..., None] * dw).sum(2) * res[:, None, None]).sum(0)
+        return (g_x if want_x else None,
+                scatter(table, rows, w[..., None] * g) if want_table else None)
+
+    def bwd2(x, table, res, g_out, gg_x, want_g_out, want_table, want_x):
+        a, s, rows, t = geometry(x, table, res)
+        g = g_out.reshape(x.shape[0], -1, 2).permute(1, 0, 2)[:, :, None]
+        q, r = gg_x[None, :, None, :], res[:, None, None]
+        a0, a1, a2, s0, s1, s2 = a[..., 0], a[..., 1], a[..., 2], s[:, 0], s[:, 1], s[:, 2]
+        u = r * (s0 * q[..., 0] * a1 * a2 + s1 * q[..., 1] * a0 * a2 + s2 * q[..., 2] * a0 * a1)
+        p = (t * g).sum(-1)
+        dfrac = torch.stack([p * s0 * (s1 * q[..., 1] * a2 + s2 * q[..., 2] * a1),
+                             p * s1 * (s0 * q[..., 0] * a2 + s2 * q[..., 2] * a0),
+                             p * s2 * (s0 * q[..., 0] * a1 + s1 * q[..., 1] * a0)], -1)
+        gg_out = (u[..., None] * t).sum(2).permute(1, 0, 2).reshape(g_out.shape)
+        return (gg_out if want_g_out else None,
+                scatter(table, rows, u[..., None] * g) if want_table else None,
+                (dfrac.sum(2) * r * r).sum(0) if want_x else None)
+
+    return fwd, bwd, bwd2
+
+
+@pytest.mark.parametrize("inner", ["x", "x-and-table"])
+def test_hash_grid_functions_double_backward_match_plain(monkeypatch, inner):
+    """`HashGridEncode` and `HashGridGrad` on the CPU, the kernels
+    stood in for by `_kernel_stand_ins`: a gradient taken with create_graph
+    (of x alone, as neus-facto's SDF gradient, or of x and the table), then
+    differentiated again, within 1e-12 of the plain path's autograd in
+    float64, and each stand-in called as the card would launch its kernel."""
+    launched = {"fwd": 0, "bwd": 0, "bwd2": 0}
+
+    def counted(name, fn):
+        def run(*a):
+            launched[name] += 1
+            return fn(*a)
+        return run
+
+    fwd, bwd, bwd2 = _kernel_stand_ins()
+    monkeypatch.setattr(tenc, "hash_grid_fwd_cuda", counted("fwd", fwd))
+    monkeypatch.setattr(tenc, "hash_grid_bwd_cuda", counted("bwd", bwd))
+    monkeypatch.setattr(tenc, "hash_grid_bwd2_cuda", counted("bwd2", bwd2))
+    tg = tenc.HashGrid(num_levels=3, log2_hashmap_size=6).to(torch.float64)
+    with torch.no_grad():
+        tg.table.uniform_(-1.0, 1.0, generator=torch.Generator().manual_seed(1))
+    res = tg.resolutions.to(torch.float64)
+    gen = torch.Generator().manual_seed(2)
+    x0 = torch.rand(200, 3, dtype=torch.float64, generator=gen)
+    x0[:60] = 0.4 + x0[:60] / 64  # one coarse cell's rows shared by many points
+    w = torch.randn(200, 6, dtype=torch.float64, generator=gen)
+    got = {}
+    for path in ("kernels", "plain"):
+        tg.table.grad = None
+        x = x0.clone().requires_grad_(True)
+        out = tenc.HashGridEncode.apply(x, tg.table, res) if path == "kernels" \
+            else tenc.encode_plain(tg.table, res, x)
+        wrt = [x] if inner == "x" else [x, tg.table]
+        grads = torch.autograd.grad((torch.sin(out) * w).sum(), wrt, create_graph=True)
+        loss = (grads[0] ** 2).sum() + torch.cos(grads[0]).sum()
+        if inner != "x":
+            loss = loss + (grads[1] ** 3).sum()
+        loss.backward()
+        got[path] = [grads[0].detach(), tg.table.grad, x.grad]
+    # the lookup, its backward in create_graph and again in loss.backward (sin's gradient takes
+    # the output), the double backward; with the table's gradient, the forward and the backward
+    # once more for that gradient's own gradient
+    extra = int(inner != "x")
+    assert launched == {"fwd": 1 + extra, "bwd": 2 + extra, "bwd2": 1}
+    for a, b in zip(got["kernels"], got["plain"]):
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
+
+
+def test_hash_span_nests_under_the_render_span():
+    """A traced CPU nerfacto `nerf_step`: the `hash` span opens under
+    `nerf_step/render` once for each proposal level and once for the field,
+    and counts every sample's lookups at every level of its grid."""
+    from gaussiangrasper_torch.engine import nerf_trainer as nt
+    from gaussiangrasper_torch.utils.profiler import PROFILER
+
+    cfg = tnerf.NerfConfig(field="nerfacto", use_proposal=True, num_proposal_samples=(8, 6),
+                           num_coarse=8, num_fine=5, hidden=16, hash_levels=4,
+                           log2_hashmap_size=8, far=4.0)
+    field = tnerf.init_nerf(cfg, seed=4)
+    rng = np.random.default_rng(3)
+    rays = 16
+    coords = torch.tensor(np.stack([rng.integers(0, 12, rays), rng.integers(0, 16, rays)], -1))
+    draws = {k: rng.random(s).astype(np.float32) for k, s in tnerf.draw_shapes(cfg, rays).items()}
+    c2w = np.concatenate([np.eye(3), [[0.1], [-0.2], [1.5]]], 1)
+    cam = TCamera.create(12.0, 12.0, 8.0, 6.0, c2w, 16, 12)
+    PROFILER.reset()
+    try:
+        with torch.profiler.profile():
+            nt.nerf_step(field, nt.init_adam(field), cam, coords, T(rng.random((rays, 3))),
+                         T(rng.uniform(0, 3, rays)), torch.full((rays,), -1), torch.tensor(0.0), 0,
+                         None, draws, cfg, 5e-3, nt.loss_weights(nt.NerfTrainerConfig(model=cfg)))
+        assert PROFILER.counts["nerf_step/render/hash"] == 3
+        assert not any(p.endswith("/hash") and p != "nerf_step/render/hash"
+                       for p in PROFILER.counts)
+        assert "hash_bwd" not in PROFILER.counts  # the plain path's backward is autograd's
+        assert PROFILER.counter("hash/lookups") == rays * (
+            (8 + 6) * cfg.proposal_hash_levels + 5 * cfg.hash_levels)
+        assert PROFILER.counter("hash/lookups_kernel") == 0
+    finally:
+        PROFILER.reset()
+
+
 def test_mip_matches_jax():
     rng = np.random.default_rng(8)
     o = rng.normal(size=(5, 3)).astype(np.float32)

@@ -235,8 +235,8 @@ def test_serve_request_and_nerf_step_spans(runs, scene, tmp_path):
     steps = [e for e in prof.events() if e.name == "ggt::nerf_step"]
     assert len(steps) == 2
     names = {e.name for e in prof.events() if e.name.startswith(profiler.PREFIX)}
-    assert names == {"ggt::nerf_step", "ggt::nerf_step/render", "ggt::nerf_step/backward",
-                     "ggt::nerf_step/adam", "ggt::history"}
+    assert names == {"ggt::nerf_step", "ggt::nerf_step/render", "ggt::nerf_step/render/hash",
+                     "ggt::nerf_step/backward", "ggt::nerf_step/adam", "ggt::history"}
 
 
 def test_spans_from_many_threads_keep_their_own_paths():
