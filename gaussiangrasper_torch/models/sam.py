@@ -20,7 +20,14 @@ Attention is transformers' eager path (matmul, softmax, matmul); the
 caller runs the model under `_device.full_f32` (TF32 would round the
 products to about three digits). Widths come from the snapshot's
 config.json over SamConfig's defaults, and the state-dict keys are
-transformers' own, so a cached `facebook/sam-vit-base` loads as it is.
+transformers' own, so a cached `facebook/sam-vit-base` or
+`facebook/sam-vit-huge` loads as it is.
+
+Spans (`utils/profiler.PROFILER`, on only while a torch.profiler records):
+`sam/encode` with `patch_embed`, each block's `window_attn` or
+`global_attn` and `mlp`, and `neck`; `sam/decode`. Counters:
+`sam/window_rows` (the padded rows through windowed attention) and
+`sam/prompts`.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gaussiangrasper_torch.utils import hub_snapshot
+from gaussiangrasper_torch.utils.profiler import PROFILER
 
 TIED_KEY = "prompt_encoder.shared_embedding.positional_embedding"
 SHARED_KEY = "shared_image_embedding.positional_embedding"
@@ -210,21 +218,24 @@ class VisionLayer(nn.Module):
         self.window_size = window_size
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.layer_norm1(x)
         ws = self.window_size
-        if ws > 0:
-            b, h, w, ch = y.shape
-            ph, pw = -h % ws, -w % ws
-            y = F.pad(y, (0, 0, 0, pw, 0, ph))
-            hp, wp = h + ph, w + pw
-            y = y.reshape(b, hp // ws, ws, wp // ws, ws, ch).permute(0, 1, 3, 2, 4, 5)
-            y = self.attn(y.contiguous().reshape(-1, ws, ws, ch))
-            y = y.reshape(b, hp // ws, wp // ws, ws, ws, -1).permute(0, 1, 3, 2, 4, 5)
-            y = y.contiguous().reshape(b, hp, wp, -1)[:, :h, :w, :].contiguous()
-        else:
-            y = self.attn(y)
-        x = x + y
-        return x + self.mlp(self.layer_norm2(x))
+        with PROFILER.section("window_attn" if ws > 0 else "global_attn"):
+            y = self.layer_norm1(x)
+            if ws > 0:
+                b, h, w, ch = y.shape
+                ph, pw = -h % ws, -w % ws
+                y = F.pad(y, (0, 0, 0, pw, 0, ph))
+                hp, wp = h + ph, w + pw
+                PROFILER.count("sam/window_rows", b * hp * wp)
+                y = y.reshape(b, hp // ws, ws, wp // ws, ws, ch).permute(0, 1, 3, 2, 4, 5)
+                y = self.attn(y.contiguous().reshape(-1, ws, ws, ch))
+                y = y.reshape(b, hp // ws, wp // ws, ws, ws, -1).permute(0, 1, 3, 2, 4, 5)
+                y = y.contiguous().reshape(b, hp, wp, -1)[:, :h, :w, :].contiguous()
+            else:
+                y = self.attn(y)
+            x = x + y
+        with PROFILER.section("mlp"):
+            return x + self.mlp(self.layer_norm2(x))
 
 
 class VisionNeck(nn.Module):
@@ -253,12 +264,14 @@ class VisionEncoder(nn.Module):
         self.neck = VisionNeck(c)
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
-        x = self.patch_embed(pixels)
-        if self.pos_embed is not None:
-            x = x + self.pos_embed
+        with PROFILER.section("patch_embed"):
+            x = self.patch_embed(pixels)
+            if self.pos_embed is not None:
+                x = x + self.pos_embed
         for layer in self.layers:
             x = layer(x)
-        return self.neck(x)
+        with PROFILER.section("neck"):
+            return self.neck(x)
 
 
 # --- the prompt encoder -------------------------------------------------------------
@@ -481,13 +494,16 @@ class SamModel(nn.Module):
         return self.shared_image_embedding(torch.stack([x, y], dim=-1)).permute(2, 0, 1)[None]
 
     def image_embeddings(self, pixel_values: torch.Tensor) -> torch.Tensor:
-        return self.vision_encoder(pixel_values)
+        with PROFILER.section("sam/encode"):
+            return self.vision_encoder(pixel_values)
 
     def decode(self, image_embeddings: torch.Tensor, input_points: torch.Tensor):
-        pe = self.image_positional_embeddings().repeat(image_embeddings.shape[0], 1, 1, 1)
-        labels = torch.ones_like(input_points[..., 0], dtype=torch.int)
-        sparse, dense = self.prompt_encoder(input_points, labels)
-        return self.mask_decoder(image_embeddings, pe, sparse, dense)
+        with PROFILER.section("sam/decode"):
+            PROFILER.count("sam/prompts", input_points.shape[0] * input_points.shape[1])
+            pe = self.image_positional_embeddings().repeat(image_embeddings.shape[0], 1, 1, 1)
+            labels = torch.ones_like(input_points[..., 0], dtype=torch.int)
+            sparse, dense = self.prompt_encoder(input_points, labels)
+            return self.mask_decoder(image_embeddings, pe, sparse, dense)
 
     def forward(self, pixel_values: torch.Tensor, input_points: torch.Tensor):
         return self.decode(self.image_embeddings(pixel_values), input_points)

@@ -11,6 +11,13 @@ JAX package's scripts/grasp.py).
    sign-aligned), closing axis and width from the cluster's spread
    perpendicular to it.
 
+`grasp_request` is one served request, from a loaded state and a query
+embedding to the grasp dict; `main` calls it and writes the files. Spans
+(`utils/profiler.PROFILER`, on only while a torch.profiler records):
+`grasp/relevancy`, `grasp/cluster` and `grasp/propose`; counters
+`grasp/selected` (Gaussians above the threshold) and `grasp/voxels` (their
+occupied voxels).
+
 Writes <output>/grasp.json {position, approach, axis, width, score,
 num_gaussians} and <output>/selected.ply.
 
@@ -33,6 +40,7 @@ from gaussiangrasper_torch.models.efd import mlp_apply
 from gaussiangrasper_torch.models.model import smallest_axis_normals
 from gaussiangrasper_torch.scripts.common import load_run
 from gaussiangrasper_torch.scripts.export_pointcloud import write_ply_points
+from gaussiangrasper_torch.utils.profiler import PROFILER
 
 
 def gaussian_relevancy(fea_up: Mapping[str, torch.Tensor], features: torch.Tensor,
@@ -61,6 +69,7 @@ def largest_cluster(points: np.ndarray, voxel: float = 0.02) -> np.ndarray:
     dims = idx.max(0) + 1
     lin = np.ravel_multi_index(idx.T, dims)
     occupied = np.unique(lin)
+    PROFILER.count("grasp/voxels", len(occupied))
     parent = np.arange(len(occupied))
 
     def find(a):
@@ -112,6 +121,40 @@ def propose_grasp(points: np.ndarray, normals: np.ndarray, opacities: np.ndarray
     }
 
 
+def grasp_request(state, query: torch.Tensor, canonical: torch.Tensor,
+                  threshold: float = 0.6, voxel: float = 0.02) -> dict:
+    """One grasp request on a loaded state (anything with `field`, `alive`
+    and `fea_up`, the latter a FeaUp or its parameter dict): the grasp.json
+    payload, plus `selected` and `cluster`, the indices of the Gaussians
+    above `threshold` and of those in its largest cluster. Exits where no
+    Gaussian is above `threshold`."""
+    field, fea_up = state.field, state.fea_up
+    if isinstance(fea_up, torch.nn.Module):
+        fea_up = fea_up.state_dict()
+    with PROFILER.section("grasp/relevancy"):
+        alive = state.alive.cpu().numpy()
+        rel = gaussian_relevancy(fea_up, field.features, query, canonical).cpu().numpy()
+    sel = alive & (rel > threshold)
+    if not sel.any():
+        raise SystemExit(f"no gaussians above relevancy {threshold} "
+                         f"(max {rel[alive].max():.3f})")
+    PROFILER.count("grasp/selected", int(sel.sum()))
+    selected = np.flatnonzero(sel)
+    with PROFILER.section("grasp/cluster"):
+        means = field.means.cpu().numpy()
+        cluster = largest_cluster(means[sel], voxel)
+    with PROFILER.section("grasp/propose"), torch.no_grad():
+        idx = selected[cluster]
+        normals = smallest_axis_normals(field.log_scales, field.quats).cpu().numpy()
+        opac = torch.sigmoid(field.opacity_logits).cpu().numpy()
+        grasp = propose_grasp(means[idx], normals[idx], opac[idx])
+    grasp["score"] = float(rel[idx].mean())
+    grasp["num_gaussians"] = int(cluster.sum())
+    grasp["selected"] = selected
+    grasp["cluster"] = idx
+    return grasp
+
+
 def main(argv=None) -> dict:
     """Propose a grasp; returns the grasp.json payload."""
     p = argparse.ArgumentParser(description="Open-vocabulary grasp proposal")
@@ -133,22 +176,9 @@ def main(argv=None) -> dict:
              else np.zeros((1, 512), np.float32))
     canon = torch.as_tensor(canon, dtype=torch.float32, device=device)
 
-    field = state.field
-    alive = state.alive.cpu().numpy()
-    rel = gaussian_relevancy(state.fea_up, field.features, query, canon).cpu().numpy()
-    sel = alive & (rel > args.threshold)
-    if not sel.any():
-        raise SystemExit(f"no gaussians above relevancy {args.threshold} "
-                         f"(max {rel[alive].max():.3f})")
-    pts = field.means.cpu().numpy()[sel]
-    cluster = largest_cluster(pts, args.voxel)
-    pts = pts[cluster]
-    with torch.no_grad():
-        normals = smallest_axis_normals(field.log_scales, field.quats).cpu().numpy()
-        opac = torch.sigmoid(field.opacity_logits).cpu().numpy()
-    grasp = propose_grasp(pts, normals[sel][cluster], opac[sel][cluster])
-    grasp["score"] = float(rel[sel][cluster].mean())
-    grasp["num_gaussians"] = int(cluster.sum())
+    grasp = grasp_request(state, query, canon, args.threshold, args.voxel)
+    del grasp["selected"]
+    pts = state.field.means.cpu().numpy()[grasp.pop("cluster")]
 
     out_dir = args.output or (args.run_dir / "grasp")
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -15,13 +15,21 @@ Two backends, as in the JAX tool:
                      `utils/sam_processor.py`) on --device from the cached
                      hub snapshot that transformers would load
                      (`utils/hub_snapshot.py`); exits naming the paths
-                     searched where there is none.
+                     searched where there is none. ViT-B
+                     (`facebook/sam-vit-base`, the default) and ViT-H
+                     (`facebook/sam-vit-huge`) run at their published widths.
+
+Spans (`utils/profiler.PROFILER`, on only while a torch.profiler
+records): `segment/preprocess` (the processor's resize, normalisation and
+upload) and `segment/post` (the masks' upscaling, their copy out and the
+ordering loop), beside the model's own; counter `sam/masks_kept`.
 
 Writes <data>/masks/<stem>.npy (int32 instance ids, -1 = background) and
 <data>/boundary_mask/<stem>.npy (uint8 validity).
 
     python -m gaussiangrasper_torch.scripts.segment --data SCENE [--backend classic|sam] \\
-        [--sam-model facebook/sam-vit-base] [--n-colors 8] [--min-area 200] [--device cpu]
+        [--sam-model facebook/sam-vit-base|facebook/sam-vit-huge] [--n-colors 8] \\
+        [--min-area 200] [--device cpu]
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from gaussiangrasper_torch._device import full_f32, resolve_device
 from gaussiangrasper_torch.models import sam
 from gaussiangrasper_torch.utils import cv_segment, hub_snapshot
 from gaussiangrasper_torch.utils.image_io import read_image
+from gaussiangrasper_torch.utils.profiler import PROFILER
 from gaussiangrasper_torch.utils.sam_processor import SamProcessor
 
 
@@ -88,18 +97,20 @@ def sam_instance_masks(img: np.ndarray, model_name: str, min_area: int = 200,
     out = np.full((h, w), -1, np.int32)
     next_id = 0
     with torch.no_grad(), full_f32():
-        inputs = proc(img, points, dev)
+        with PROFILER.section("segment/preprocess"):
+            inputs = proc(img, points, dev)
         pred_masks, iou_scores = model(inputs["pixel_values"], inputs["input_points"])
-        # the first of the three masks a point is the one kept: only it is upscaled
-        masks = proc.post_process_masks(pred_masks[:, :, :1], inputs["original_sizes"],
-                                        inputs["reshaped_input_sizes"])[0][:, 0].cpu().numpy()
-        scores = iou_scores.cpu().numpy()[0]
-    order = np.argsort(scores[:, 0])
-    for i in order:
-        m = masks[i]
-        if m.sum() >= min_area:
-            out[m] = next_id
-            next_id += 1
+        scores = iou_scores.cpu().numpy()[0]  # the wait for the model
+        with PROFILER.section("segment/post"):
+            # the first of the three masks a point is the one kept: only it is upscaled
+            masks = proc.post_process_masks(pred_masks[:, :, :1], inputs["original_sizes"],
+                                            inputs["reshaped_input_sizes"])[0][:, 0].cpu().numpy()
+            for i in np.argsort(scores[:, 0]):
+                m = masks[i]
+                if m.sum() >= min_area:
+                    out[m] = next_id
+                    next_id += 1
+    PROFILER.count("sam/masks_kept", next_id)
     return out
 
 

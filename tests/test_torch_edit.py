@@ -358,3 +358,29 @@ def test_query_cli_on_a_trainer_run_matches_jax(updated, tmp_path):
             want = np.load(tmp_path / "jax" / name)
             assert want.shape == (WH[1], WH[0])
             close(np.load(tmp_path / "torch" / name), want, atol=1e-5, rtol=1e-4, msg=name)
+
+
+def test_grasp_main_writes_grasp_request_dict(updated, tmp_path):
+    """`main` on a trainer run writes `grasp_request`'s dict (its index
+    arrays left out) and the cluster's points, for a threshold that keeps
+    half the alive Gaussians."""
+    from gaussiangrasper_torch.scripts.common import load_run
+
+    rng = np.random.default_rng(12)
+    q, c = rng.normal(size=512).astype(np.float32), rng.normal(size=(3, 512)).astype(np.float32)
+    np.save(tmp_path / "q.npy", q)
+    np.save(tmp_path / "c.npy", c)
+    _, _, state = load_run(updated["trun"], device="cpu")
+    rel = tgrasp.gaussian_relevancy(state.fea_up, state.field.features, torch.as_tensor(q),
+                                    torch.as_tensor(c)).numpy()
+    thr = float(np.median(rel[state.alive.numpy()]))
+    want = tgrasp.grasp_request(state, torch.as_tensor(q), torch.as_tensor(c), thr, 0.02)
+    idx, sel = want.pop("cluster"), want.pop("selected")
+    assert 0 < len(idx) <= len(sel) < int(state.alive.sum())
+    got = tgrasp.main(["--run-dir", str(updated["trun"]), "--text-embedding", str(tmp_path / "q.npy"),
+                       "--canonical-embedding", str(tmp_path / "c.npy"), "--threshold", repr(thr),
+                       "--output", str(tmp_path / "out"), "--device", "cpu"])
+    assert got == want
+    assert json.loads((tmp_path / "out" / "grasp.json").read_text()) == want
+    head = (tmp_path / "out" / "selected.ply").read_bytes().split(b"end_header")[0]
+    assert f"element vertex {len(idx)}".encode() in head
