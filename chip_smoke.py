@@ -105,13 +105,15 @@ Phases, one JSON line each:
            export_texture (the CLI's defaults) on the edited run; seconds a
            CLI, Gaussians moved, ms per step at each resolution, the grasp's
            distance from sphere 1 in radii, PSNR on after-view 0 of the
-           pre-edit and the edited state, the exports' counts
+           pre-edit and the edited state, the exports' counts; the grasp
+           must launch V1 (csrc/voxel_cluster.cu) once
   e2e_small  tests/test_e2e_tabletop.py's setting (64x64, 6 views, 300 steps,
            feature 16, then 80 update iterations) on the card with that
            test's bars, each failing it; the grasp's bar (within 3 radii of
            sphere 1) over the first five of the ten trainer seeds, each a
            train and a grasp: no more of them may miss it than miss it in
-           the JAX package at those seeds (ROADMAP.md queue 3, F4)
+           the JAX package at those seeds (ROADMAP.md queue 3, F4); each
+           grasp must launch V1 once
   capture  trainer's tabletop rewritten through an OPENCV lens (k1 -0.08,
            k2 0.02, p1 5e-4, p2 -5e-4; `distort_frame` on the host), the
            poses of views 1-7 moved by 0.5 degrees and 5 mm, trained by
@@ -166,10 +168,16 @@ Phases, one JSON line each:
            counts set to 0 just before: one of each) and by the plain path,
            errors against the plain path, bytes bounds; at the field's lookup
            the double backward (neus-facto's) against the plain path's
-Then the kernels line (twelve kernels: the nine TPU kernels' ports and the
+  voxel_cluster  csrc/voxel_cluster.cu at efd-grasp-query's shape (the 10,000
+           Gaussians of a 200k-point field nearest a seeded centre, 0.02 voxels):
+           the kernels' roots equal to the host union-find's, the kernels' ms
+           (CUDA events), `largest_component` and `grasp.largest_cluster` on the
+           card (host clock, the copies in), the host union-find's ms
+Then the kernels line (thirteen kernels: the nine TPU kernels' ports, the
 three hash-grid kernels, H1-H3, whose launches by path come from the
-nerf_zoo CLIs and the hash_grid phase), the nvidia-smi line and, last, the
-ok line. Any
+nerf_zoo CLIs and the hash_grid phase, and the voxel labelling, V1, whose
+launches come from edit's and e2e_small's grasp CLIs and its own phase), the
+nvidia-smi line and, last, the ok line. Any
 failure exits non-zero without the ok line. Without a card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -1141,19 +1149,22 @@ def timed_train_step(train_step, steps: list):
     return timed_step
 
 
-def counted_cli(seconds: dict, launches: dict, name: str, fn, argv, hashes: Optional[dict] = None):
-    """Run one CLI's main in-process on the card, every compositor's and
-    hash-grid kernel's launch count set to 0 just before and read just
-    after; its seconds and compositor counts go into `seconds` / `launches`
-    under `name`, and the hash-grid kernels' (h1 forward, h2 backward, h3
-    double backward) into `hashes`, where given."""
+def counted_cli(seconds: dict, launches: dict, name: str, fn, argv, hashes: Optional[dict] = None,
+                voxels: Optional[dict] = None):
+    """Run one CLI's main in-process on the card, every compositor's,
+    hash-grid kernel's and the voxel labelling's launch count set to 0 just
+    before and read just after; its seconds and compositor counts go into
+    `seconds` / `launches` under `name`, the hash-grid kernels' (h1
+    forward, h2 backward, h3 double backward) into `hashes` and the voxel
+    labelling's (V1) into `voxels`, where given."""
     import torch
     from gaussiangrasper_torch.ops import rasterize_cuda as rc
+    from gaussiangrasper_torch.ops import voxel_cluster as vc
 
     kernels = {"k1": rc.composite_pairs_fwd, "k2": rc.composite_pairs_bwd,
                "k5": rc.composite_pairs_fwd2, "k6": rc.composite_pairs_bwd2}
     torch.cuda.synchronize()
-    for k in list(kernels.values()) + list(hash_kernels().values()):
+    for k in list(kernels.values()) + list(hash_kernels().values()) + [vc.roots_cuda]:
         k.launches = 0
     t0 = time.perf_counter()
     out = fn([str(a) for a in argv])
@@ -1162,6 +1173,8 @@ def counted_cli(seconds: dict, launches: dict, name: str, fn, argv, hashes: Opti
     launches[name] = {n: k.launches for n, k in kernels.items()}
     if hashes is not None:
         hashes[name] = hash_launches()
+    if voxels is not None:
+        voxels[name] = vc.roots_cuda.launches
     return out
 
 
@@ -1997,6 +2010,62 @@ def hash_grid_phase(device) -> dict:
     return row
 
 
+VOXEL_OBJECT, VOXEL_SIZE = 10_000, 0.02  # efd-grasp-query's object size and voxel
+VOXEL_BOX = ((-0.6, -0.6, -3.2), (0.6, 0.6, -2.8))  # its objects' centre box
+
+
+def voxel_cluster_phase(device) -> dict:
+    """csrc/voxel_cluster.cu at efd-grasp-query's shape: the VOXEL_OBJECT
+    Gaussians of bench_field(N_FULL) nearest a seeded centre in VOXEL_BOX,
+    voxelized by `voxel_cluster.voxel_keys`, as `grasp.largest_cluster` does. The kernels' roots equal to
+    the host union-find's on each of 20 launches; medians of 20 calls: the
+    kernels' ms (CUDA events), `largest_component` and `largest_cluster` on
+    the card between syncs (host clock: the copies, the bincount and, for
+    the latter, the voxelization), and the host union-find's ms (3 calls).
+    Bound: the keys read and the roots written once, though at ~8,300
+    voxels three launches' latency sets the time."""
+    import torch
+    from gaussiangrasper_torch.ops import voxel_cluster as vc
+    from gaussiangrasper_torch.scripts import grasp
+
+    field, _ = bench_field(N_FULL, seed=0, device="cpu")
+    centre = np.random.default_rng(20).uniform(*VOXEL_BOX)
+    d = ((field.means.numpy() - centre) ** 2).sum(-1)
+    points = field.means.numpy()[np.argsort(d, kind="stable")[:VOXEL_OBJECT]]
+    keys, inverse, dims = vc.voxel_keys(points, VOXEL_SIZE)
+    keys_t = torch.as_tensor(keys, device=device)
+
+    def host_ms(fn, reps: int) -> tuple:
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return out, float(np.median(times))
+
+    want, union_find_ms = host_ms(lambda: vc.roots_host(keys, dims), 3)
+    vc.roots_cuda.launches = 0
+    mismatched = sum(not np.array_equal(vc.roots_cuda(keys_t, dims).cpu().numpy(), want)
+                     for _ in range(20))
+    mask, card_ms = host_ms(lambda: vc.largest_component(keys, inverse, dims), 20)
+    _, cluster_ms = host_ms(lambda: grasp.largest_cluster(points, VOXEL_SIZE), 20)
+    kernel_ms = cuda_ms(lambda: vc.roots_cuda(keys_t, dims), 20)
+    labels = want[inverse]
+    row = {"phase": "voxel_cluster", "points": len(points), "voxels": len(keys),
+           "dims": dims.tolist(), "components": int(len(np.unique(want))),
+           "cluster_points": int(mask.sum()), "launches": vc.roots_cuda.launches,
+           "roots_mismatched_launches": mismatched,
+           "kernel_ms": kernel_ms,
+           "largest_component_ms": card_ms, "largest_cluster_ms": cluster_ms,
+           "host_union_find_ms": union_find_ms,
+           "bound_ms": 1e3 * 12 * len(keys) / HBM_BYTES_PER_S}
+    emit(row)
+    if mismatched or not np.array_equal(mask, labels == np.bincount(labels).argmax()):
+        raise RuntimeError(f"voxel_cluster: the kernels' roots or mask differ from the host's: {row}")
+    return row
+
+
 def hash_double_backward(grid, x, g_out) -> dict:
     """dL/dx of a lookup with create_graph, differentiated again (the
     gradient a random gg_x, as neus-facto's eikonal loss does): dL/dg_out,
@@ -2695,11 +2764,11 @@ def edit_phase(scene: Path, run: Path, tmp: Path) -> dict:
     for name, arr in files.items():
         np.save(tmp / f"{name}.npy", arr)
     obj_p, move_p, q_p, canon_p = (tmp / f"{n}.npy" for n in files)
-    seconds, launches = {}, {}
+    seconds, launches, voxels = {}, {}, {}
 
     g = counted_cli(seconds, launches, "grasp", grasp.main,
                     ["--run-dir", run, "--text-embedding", q_p, "--canonical-embedding", canon_p,
-                     "--threshold", "0.5", "--output", tmp / "grasp"])
+                     "--threshold", "0.5", "--output", tmp / "grasp"], voxels=voxels)
     grasp_radii = sphere1_radii(g, resolve_parser(scene, "auto").parse())
     selected = ply_counts(tmp / "grasp" / "selected.ply")["vertex"]
 
@@ -2757,7 +2826,8 @@ def edit_phase(scene: Path, run: Path, tmp: Path) -> dict:
     by_width = {w: [ms for w2, ms, _, _ in steps if w2 == w] for w in (WIDTH // 2, WIDTH)}
     loss = [l for _, _, l, _ in steps]
     row = {"phase": "edit", "after_capture_s": after_s, "cli_seconds": seconds,
-           "launches": launches, "steps": len(steps), "gaussians_moved": moved,
+           "launches": launches, "v1_launches": voxels, "steps": len(steps),
+           "gaussians_moved": moved,
            "alive_after_finetune": alive_after,
            "ms_per_step_median": {f"{w}x{w}": float(np.median(v)) for w, v in by_width.items() if v},
            "steps_at": {f"{w}x{w}": len(v) for w, v in by_width.items()},
@@ -2778,8 +2848,8 @@ def edit_phase(scene: Path, run: Path, tmp: Path) -> dict:
             "update": {**none, "k1": EDIT_STEPS, "k2": EDIT_STEPS},
             "export_pointcloud": {**none, "k1": views}, "export_texture": {**none, "k1": views},
             "psnr_renders": {**none, "k1": 2}}
-    if launches != want:
-        raise RuntimeError(f"edit: launches {launches}, want {want}")
+    if launches != want or voxels != {"grasp": 1}:
+        raise RuntimeError(f"edit: launches {launches}, want {want}; V1's {voxels}, want 1")
     if len(steps) != EDIT_STEPS or not all(math.isfinite(x) for x in loss) or not loss[-1] < loss[0]:
         raise RuntimeError(f"edit: {len(steps)} steps, losses {loss[::100]}")
     if moved == 0:
@@ -2837,7 +2907,7 @@ def e2e_small_phase() -> dict:
     def psnr(a, b):
         return -10.0 * math.log10(float(torch.mean((a - b) ** 2)) + 1e-12)
 
-    seconds, launches = {}, {}
+    seconds, launches, voxels = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         scene = generate_tabletop(tmp / "scene", **E2E)
@@ -2899,7 +2969,8 @@ def e2e_small_phase() -> dict:
                     "--canonical-embedding", tmp / "canon.npy", "--threshold", "0.5",
                     "--output", tmp / f"grasp{seed}"]
 
-        g = counted_cli(seconds, launches, "grasp", grasp.main, grasp_argv(run, E2E_SEEDS[0]))
+        g = counted_cli(seconds, launches, "grasp", grasp.main, grasp_argv(run, E2E_SEEDS[0]),
+                        voxels=voxels)
         radii = {E2E_SEEDS[0]: sphere1_radii(g, trainer.dm.outputs)}
 
         # the other seeds' train and grasp, as the test runs them: view 0's
@@ -2913,7 +2984,7 @@ def e2e_small_phase() -> dict:
                 radii[seed] = sphere1_radii(grasp.main([str(a) for a in grasp_argv(
                     t.config.run_dir, seed)]), t.dm.outputs)
 
-        counted_cli(seconds, launches, "grasp_sweep", sweep, [])
+        counted_cli(seconds, launches, "grasp_sweep", sweep, [], voxels=voxels)
 
         after, obj = move_object(tmp / "after", delta=EDIT_DELTA, **E2E)
         np.save(tmp / "obj.npy", obj)
@@ -2935,7 +3006,7 @@ def e2e_small_phase() -> dict:
     misses = [seed for seed, r in radii.items() if not r < 3]
     jax_misses = [seed for seed in E2E_JAX_GRASP_MISSES if seed in E2E_SWEEP_SEEDS]
     row = {"phase": "e2e_small", **E2E, "steps": E2E_STEPS, "update_steps": E2E_UPDATE_STEPS,
-           "cli_seconds": seconds, "launches": launches,
+           "cli_seconds": seconds, "launches": launches, "v1_launches": voxels,
            "psnr_before_after": [psnr_before, psnr_after], "median_depth_err": depth_err,
            "feature_own_cross": [float(np.mean(own)), float(np.mean(cross))],
            "query_peak": [int(peak[0]), int(peak[1])], "query_peak_object": int(ids[peak]),
@@ -2958,8 +3029,9 @@ def e2e_small_phase() -> dict:
     want_sweep = {"k1": sweep * E2E_STEPS, "k2": sweep * E2E_STEPS, "k5": 0, "k6": 0}
     if (launches["train"] != want_train or launches["update"] != want_update
             or launches["query"] != {"k1": 1, "k2": 0, "k5": 0, "k6": 0}
-            or launches["grasp_sweep"] != want_sweep):
-        raise RuntimeError(f"e2e_small: launches {launches}")
+            or launches["grasp_sweep"] != want_sweep
+            or voxels != {"grasp": 1, "grasp_sweep": sweep}):
+        raise RuntimeError(f"e2e_small: launches {launches}, V1's {voxels} (one a grasp)")
     missed = [k for k, v in bars.items() if not v]
     if missed:
         raise RuntimeError(f"e2e_small: bars missed {missed}")
@@ -3594,6 +3666,7 @@ def main() -> int:
     pose = pose_phase(device)
     torch.cuda.empty_cache()
     e2e = e2e_small_phase()
+    voxel = voxel_cluster_phase(device)
 
     def kernel_row(name, source, replaces, row, launches):
         return {"name": name, "route": "cuda", "source": f"gaussiangrasper_torch/csrc/{source}.cu",
@@ -3633,6 +3706,19 @@ def main() -> int:
         return [kernel_row("hash_grid_fwd", src, none, h1, by_path("h1", 3 + 1)),
                 kernel_row("hash_grid_bwd", src, none, h2, by_path("h2", 3 + 1)),
                 kernel_row("hash_grid_bwd2", src, none, h3, by_path("h3", 1))]
+
+    def voxel_row():
+        """V1's row: launches of the grasp CLIs (edit and e2e_small, each
+        counted from 0, one a grasp) and the phase's own."""
+        row = {"max_abs_err": voxel["roots_mismatched_launches"], "ms": voxel["kernel_ms"],
+               "plain_ms": voxel["host_union_find_ms"], "bound_ms": voxel["bound_ms"],
+               "bound_by": "launch latency (bytes bound given)"}
+        return kernel_row("voxel_cluster", "voxel_cluster",
+                          "none (scripts/grasp.py's host union-find)", row,
+                          {"edit_grasp": edit["v1_launches"]["grasp"],
+                           "e2e_small_grasp": e2e["v1_launches"]["grasp"],
+                           "e2e_small_grasp_sweep": e2e["v1_launches"]["grasp_sweep"],
+                           "voxel_cluster_phase": voxel["launches"]})
 
     def c71_row(row):
         return {k: row[k] for k in ("max_abs_err", "ms", "piece_kernel_ms", "plain_ms", "bound_ms",
@@ -3706,7 +3792,7 @@ def main() -> int:
         {**kernel_row("probe_write_at", "probes", "dma_probe.py:65 (_write_kernel)",
                       probes["p3"], {"copy_probe": probes["launches"]["p3"]}),
          "large": large_row(probes["p3_large"])},
-    ] + hash_rows()})
+    ] + hash_rows() + [voxel_row()]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,7 +5,8 @@ JAX package's scripts/grasp.py).
    score it against the query CLIP embedding (the LERF relevancy of
    scripts/query.py);
 2. keep the alive Gaussians above --threshold and their largest spatial
-   cluster (26-connected components on a voxel grid);
+   cluster (26-connected components on a voxel grid, labelled by the
+   kernels of `csrc/voxel_cluster.cu` where a card is present);
 3. propose a grasp: position = opacity-weighted centroid, approach =
    against the dominant surface normal (the smallest-scale axes,
    sign-aligned), closing axis and width from the cluster's spread
@@ -15,8 +16,8 @@ JAX package's scripts/grasp.py).
 embedding to the grasp dict; `main` calls it and writes the files. Spans
 (`utils/profiler.PROFILER`, on only while a torch.profiler records):
 `grasp/relevancy`, `grasp/cluster` and `grasp/propose`; counters
-`grasp/selected` (Gaussians above the threshold) and `grasp/voxels` (their
-occupied voxels).
+`grasp/selected` (Gaussians above the threshold), `grasp/voxels` (their
+occupied voxels) and `grasp/voxels_kernel` (those the kernels label).
 
 Writes <output>/grasp.json {position, approach, axis, width, score,
 num_gaussians} and <output>/selected.ply.
@@ -38,6 +39,7 @@ import torch
 from gaussiangrasper_torch._device import full_f32, resolve_device
 from gaussiangrasper_torch.models.efd import mlp_apply
 from gaussiangrasper_torch.models.model import smallest_axis_normals
+from gaussiangrasper_torch.ops import voxel_cluster
 from gaussiangrasper_torch.scripts.common import load_run
 from gaussiangrasper_torch.scripts.export_pointcloud import write_ply_points
 from gaussiangrasper_torch.utils.profiler import PROFILER
@@ -60,40 +62,17 @@ def gaussian_relevancy(fea_up: Mapping[str, torch.Tensor], features: torch.Tenso
 
 
 def largest_cluster(points: np.ndarray, voxel: float = 0.02) -> np.ndarray:
-    """Mask of the largest 26-connected voxel component (union-find; ties
-    go to the smallest root, as `np.bincount(...).argmax()` takes it)."""
+    """Mask of the points in the largest 26-connected component of their
+    occupied voxels, a component's size being its count of points
+    (`ops/voxel_cluster.largest_component`: the kernels on a card, else
+    the host's union-find). Ties go to the component whose lowest voxel
+    comes first in raster order, the one `scipy.ndimage.label` numbers
+    first."""
     if len(points) == 0:
         return np.zeros(0, bool)
-    idx = np.floor(points / voxel).astype(np.int64)
-    idx -= idx.min(0)
-    dims = idx.max(0) + 1
-    lin = np.ravel_multi_index(idx.T, dims)
-    occupied = np.unique(lin)
-    PROFILER.count("grasp/voxels", len(occupied))
-    parent = np.arange(len(occupied))
-
-    def find(a):
-        while parent[a] != a:
-            parent[a] = parent[parent[a]]
-            a = parent[a]
-        return a
-
-    occ3 = np.stack(np.unravel_index(occupied, dims), -1)
-    occ_set = {tuple(v): i for i, v in enumerate(occ3)}
-    for i, v in enumerate(occ3):
-        for dz in (-1, 0, 1):
-            for dy in (-1, 0, 1):
-                for dx in (-1, 0, 1):
-                    if dx == dy == dz == 0:
-                        continue
-                    j = occ_set.get((v[0] + dx, v[1] + dy, v[2] + dz))
-                    if j is not None:
-                        ra, rb = find(i), find(j)
-                        if ra != rb:
-                            parent[ra] = rb
-    roots = np.array([find(i) for i in range(len(occupied))])
-    labels = roots[np.searchsorted(occupied, lin)]
-    return labels == np.bincount(labels).argmax()
+    keys, inverse, dims = voxel_cluster.voxel_keys(points, voxel)
+    PROFILER.count("grasp/voxels", len(keys))
+    return voxel_cluster.largest_component(keys, inverse, dims)
 
 
 def propose_grasp(points: np.ndarray, normals: np.ndarray, opacities: np.ndarray) -> dict:
@@ -142,7 +121,8 @@ def grasp_request(state, query: torch.Tensor, canonical: torch.Tensor,
     selected = np.flatnonzero(sel)
     with PROFILER.section("grasp/cluster"):
         means = field.means.cpu().numpy()
-        cluster = largest_cluster(means[sel], voxel)
+        # means[sel], gathered by index: a boolean mask scans all N rows again
+        cluster = largest_cluster(np.take(means, selected, axis=0), voxel)
     with PROFILER.section("grasp/propose"), torch.no_grad():
         idx = selected[cluster]
         normals = smallest_axis_normals(field.log_scales, field.quats).cpu().numpy()

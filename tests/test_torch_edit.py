@@ -8,7 +8,9 @@ The same seeded numpy inputs go into the JAX function and the port's:
 - `points_inside_convex_hull` equal, `rigid_transform_gaussians` within
   1e-6;
 - `gaussian_relevancy` within 1e-5 (float32 products in another order),
-  `largest_cluster` equal (a tie included), `propose_grasp` within 1e-5;
+  `largest_cluster` equal (a tie of one-voxel components included; a tie
+  of multi-voxel components goes the way scipy's labels order it, not the
+  JAX package's), `propose_grasp` within 1e-5;
 - the update CLI on a 32x24 tabletop: one state (with nonzero Adam moments
   and densify stats) saved by each package, 3 fine-tune iterations in each,
   the step-0 checkpoints equal (the moved means / quats within 1e-6), the
@@ -187,6 +189,23 @@ def test_largest_cluster_matches_jax(layout):
     np.testing.assert_array_equal(got, want)
     if layout == "tie":
         assert want.sum() == 7
+
+
+def test_largest_cluster_tie_departs_from_jax():
+    """Two multi-voxel components of 12 points each, the long line's lowest
+    voxel first in raster order and the short line's voxels between its own
+    (tests/test_torch_voxel_cluster.py's `tie_long_first`): the JAX package
+    links a root under its neighbour's and hands the tie to the short line
+    (4 voxels); the port takes the component whose lowest voxel comes first,
+    as `scipy.ndimage.label` numbers it, the long line (6 voxels)."""
+    from test_torch_voxel_cluster import layout
+
+    pts, voxel = layout("tie_long_first")
+    want = jgrasp.largest_cluster(pts, voxel)
+    got = tgrasp.largest_cluster(pts, voxel)
+    assert want.sum() == got.sum() == 12 and not (want & got).any()
+    voxels = lambda mask: len(np.unique(np.floor(pts[mask] / voxel), axis=0))  # noqa: E731
+    assert (voxels(want), voxels(got)) == (4, 6)
 
 
 def test_propose_grasp_matches_jax():

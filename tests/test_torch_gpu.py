@@ -1399,3 +1399,101 @@ def test_segment_on_the_card_matches_cpu(cuda_device, tmp_path, stage):
         assert host.max() >= 1
     print("segment_card_vs_cpu", stage, json.dumps(seconds))
     np.testing.assert_array_equal(np.asarray(card), np.asarray(host))
+
+
+def _voxel_layout(name: str):
+    """tests/test_torch_voxel_cluster.py's layouts, and three of the card's
+    own: a one-voxel-wide chain of 2,000 voxels (diagonal neighbours, so
+    deep unions), a full 32^3 block (every neighbour present), and a blob
+    with strays tens of metres out (prod(dims) past 2^31)."""
+    from test_torch_voxel_cluster import layout
+
+    if name == "chain":
+        i = np.arange(2000, dtype=np.float64)
+        return (np.stack([i, i, i], 1) + 0.5) * 0.02, 0.02
+    if name == "block32":
+        g = np.stack(np.meshgrid(*[np.arange(32)] * 3, indexing="ij"), -1).reshape(-1, 3)
+        return (g + 0.5) * 0.02, 0.02
+    if name == "wide":
+        rng = np.random.default_rng(31)
+        return np.concatenate([rng.normal(0.0, 0.1, (3000, 3)),
+                               rng.uniform(-30.0, 30.0, (200, 3))]), 0.02
+    return layout(name)
+
+
+VOXEL_CASES = [(n, d) for n in ("blobs", "tie_long_first", "tie_short_first", "faces")
+               for d in ("float32", "float64")] + [(n, "float64") for n in ("chain", "block32",
+                                                                            "wide")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dtype", VOXEL_CASES, ids=lambda v: v)
+def test_voxel_cluster_kernel_roots_equal_host_roots(cuda_device, name, dtype):
+    """csrc/voxel_cluster.cu's roots equal the host union-find's, entry for
+    entry, on five launches (the unions meet in another order each time),
+    and `largest_component`'s mask on the card equals the host path's."""
+    from gaussiangrasper_torch.ops import voxel_cluster as vc
+    from test_torch_voxel_cluster import voxel_keys
+
+    points, voxel = _voxel_layout(name)
+    keys, inverse, dims = voxel_keys(points.astype(dtype), voxel)
+    if name == "wide":
+        assert np.prod(dims, dtype=object) > 2 ** 31
+    want = vc.roots_host(keys, dims)
+    keys_t = torch.as_tensor(keys, device=cuda_device)
+    before = vc.roots_cuda.launches
+    for _ in range(5):
+        np.testing.assert_array_equal(vc.roots_cuda(keys_t, dims).cpu().numpy(), want)
+    assert vc.roots_cuda.launches == before + 5
+    card = vc.largest_component(keys, inverse, dims)
+    assert vc.roots_cuda.launches == before + 6
+    with mock.patch("torch.cuda.is_available", return_value=False):
+        host = vc.largest_component(keys, inverse, dims)
+    np.testing.assert_array_equal(card, host)
+    assert 0 < card.sum()
+
+
+@pytest.mark.gpu
+def test_grasp_request_on_the_card_matches_cpu(cuda_device):
+    """`grasp_request` on a served state on the card (the kernels label the
+    voxels) against the same state on the CPU (the host union-find): equal
+    selection and cluster indices, the pose and score within 1e-5 (the axis
+    a line: up to sign). The threshold lies in the widest gap between the
+    CPU's scores about their median, so no score sits near it."""
+    from gaussiangrasper_torch.engine.weights import state_from_numpy
+    from gaussiangrasper_torch.scripts import grasp
+
+    rng = np.random.default_rng(21)
+    f32 = np.float32
+    blobs = [rng.normal(c, 0.03, (3000, 3)) for c in ([0, 0, -3], [0.4, 0, -3], [0, 0.4, -3])]
+    means = np.concatenate(blobs + [rng.uniform(-1, 1, (3000, 3)) + [0, 0, -3]]).astype(f32)
+    n = len(means)
+    q = rng.standard_normal((n, 4)).astype(f32)
+    arrays = {"means": means, "log_scales": rng.normal(-4, 0.5, (n, 3)).astype(f32),
+              "quats": q / np.linalg.norm(q, axis=1, keepdims=True),
+              "opacity_logits": rng.normal(0, 1, n).astype(f32),
+              "sh_coeffs": rng.normal(0, 0.3, (n, 16, 3)).astype(f32),
+              "features": rng.normal(0, 1, (n, 32)).astype(f32)}
+    fea = {"w0": rng.normal(0, 0.2, (32, 128)).astype(f32), "b0": np.zeros(128, f32),
+           "w1": rng.normal(0, 0.1, (128, 512)).astype(f32), "b1": np.zeros(512, f32)}
+    alive = rng.random(n) > 0.05
+    state = state_from_numpy(arrays, alive, fea, step=4000)
+    query = torch.as_tensor(rng.standard_normal(512).astype(f32))
+    canon = torch.as_tensor(rng.standard_normal((3, 512)).astype(f32))
+    rel = grasp.gaussian_relevancy(state.fea_up.state_dict(), state.field.features, query,
+                                   canon).numpy()
+    s = np.sort(rel[alive])[len(rel) // 2 - 200:len(rel) // 2 + 200]
+    g = int(np.argmax(np.diff(s)))
+    thr = float(s[g] + s[g + 1]) / 2
+    with mock.patch("torch.cuda.is_available", return_value=False):
+        want = grasp.grasp_request(state, query, canon, thr, 0.02)
+    got = grasp.grasp_request(state.to(cuda_device), query.to(cuda_device), canon.to(cuda_device),
+                              thr, 0.02)
+    for k in ("selected", "cluster"):
+        np.testing.assert_array_equal(got[k], want[k])
+    assert got["num_gaussians"] == want["num_gaussians"]
+    assert 0 < len(got["cluster"]) < len(got["selected"])
+    for k in ("position", "approach", "width", "score"):
+        np.testing.assert_allclose(got[k], want[k], atol=1e-5, rtol=0)
+    a, b = np.asarray(got["axis"]), np.asarray(want["axis"])
+    assert min(np.abs(a - b).max(), np.abs(a + b).max()) <= 1e-5
