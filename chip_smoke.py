@@ -217,6 +217,33 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+KERNELS = {"k1": "ggt_composite_pairs_fwd", "k2": "ggt_composite_pairs_bwd",
+           "k3": "ggt_composite_tables_fwd", "k4": "ggt_composite_tables_bwd",
+           "k5": "ggt_composite_pairs_fwd2", "k6": "ggt_composite_pairs_bwd2",
+           "p1": "ggt_probe_affine", "p2": "ggt_probe_read_at", "p3": "ggt_probe_write_at",
+           "h1": "ggt_hash_grid_fwd", "h2": "ggt_hash_grid_bwd", "h3": "ggt_hash_grid_bwd2",
+           "v1": "ggt_voxel_cluster"}
+"""This script's short names of the kernels, and the C entry by which the
+port's launch counter (`gaussiangrasper_torch._build.launches`) counts
+each one's launches."""
+COMPOSITORS = ("k1", "k2", "k5", "k6")
+HASH_KERNELS = ("h1", "h2", "h3")
+
+
+def reset_launches() -> None:
+    """Every launch count set to 0."""
+    from gaussiangrasper_torch._build import launches
+
+    launches.clear()
+
+
+def launch_counts(*names: str) -> dict:
+    """The launch counts of the kernels `names` (KERNELS' short names)."""
+    from gaussiangrasper_torch._build import launches
+
+    return {n: launches[KERNELS[n]] for n in names}
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -585,7 +612,7 @@ def check_k5(label: str, args, time_it: bool, plain: bool) -> dict:
     import torch
     from gaussiangrasper_torch.ops import rasterize_cuda as rc
 
-    got = rc.composite_pairs_fwd2(*args)
+    got = rc.composite_pairs_fwd(*args, two_tile=True)
     k1 = rc._launch_kernel(*args)
     torch.cuda.synchronize()
     equal = [bool(torch.equal(a, b)) for a, b in zip(got, k1)]
@@ -604,7 +631,7 @@ def check_k5(label: str, args, time_it: bool, plain: bool) -> dict:
         ok = ok and err <= K1_ERR_MAX and float(dn.max()) <= 1 \
             and int((dn > 0).sum()) <= K1_NCOMP_SHARE_MAX * dn.numel()
     if time_it:
-        row["ms"] = cuda_ms(lambda: rc._launch_kernel2(*args), 20)
+        row["ms"] = cuda_ms(lambda: rc._launch_kernel(*args, two_tile=True), 20)
         row["k1_ms"] = cuda_ms(lambda: rc._launch_kernel(*args), 20)
         row["plain_ms"] = cuda_ms(lambda: rc.composite_pairs_fwd_plain(*args), 3)
         row.update(k1_bound(args, want[3], want[4], want[5]))
@@ -622,7 +649,7 @@ def check_k6(label: str, k1_args, time_it: bool) -> dict:
     from gaussiangrasper_torch.ops import rasterize_cuda as rc
 
     args = k2_inputs(k1_args, seed=5)
-    got = per_gaussian(args, rc.composite_pairs_bwd2(*args))
+    got = per_gaussian(args, rc.composite_pairs_bwd(*args, two_tile=True))
     k2 = per_gaussian(args, rc._launch_bwd_kernel(*args))
     want = per_gaussian(args, rc.composite_pairs_bwd_plain(*args))
     torch.cuda.synchronize()
@@ -634,7 +661,7 @@ def check_k6(label: str, k1_args, time_it: bool) -> dict:
            "scale": scales, "max_abs_err": float((got - want).abs().max()),
            "max_rel_err": max(max(errs.values()), max(errs_k2.values()))}
     if time_it:
-        row["ms"] = cuda_ms(lambda: rc._launch_bwd_kernel2(*args), 20)
+        row["ms"] = cuda_ms(lambda: rc._launch_bwd_kernel(*args, two_tile=True), 20)
         row["k2_ms"] = cuda_ms(lambda: rc._launch_bwd_kernel(*args), 20)
         row["plain_ms"] = cuda_ms(lambda: rc.composite_pairs_bwd_plain(*args), 1)
         live = rc.composite_pairs_fwd_plain(*k1_args, count_live=True)[4]
@@ -797,15 +824,9 @@ def table_phase(device, cfg) -> dict:
     import torch
     from gaussiangrasper_torch.models.gaussian_field import GaussianParams
     from gaussiangrasper_torch.models.model import render, train_loss
-    from gaussiangrasper_torch.ops import rasterize_cuda as rc
 
-    kernels = {"k3": rc.composite_tables_fwd, "k4": rc.composite_tables_bwd,
-               "k1": rc.composite_pairs_fwd, "k2": rc.composite_pairs_bwd}
+    kernels = ("k3", "k4", "k1", "k2")
     paths = {"table": table_compositor, "pairs": None}
-
-    def reset():
-        for k in kernels.values():
-            k.launches = 0
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -817,14 +838,14 @@ def table_phase(device, cfg) -> dict:
     field, alive = bench_field(N_FULL, seed=0, device=device)
     cam = bench_camera(WIDTH, HEIGHT, device)
     render_ms = {p: [] for p in paths}
-    reset()
+    reset_launches()
     with torch.no_grad():
         for _ in range(TABLE_RENDERS):
             outs = {}
             for p, comp in paths.items():
                 outs[p], ms = timed(lambda: render(field, alive, cam, STEP, cfg, compositor=comp))
                 render_ms[p].append(ms)
-    render_launches = {n: k.launches for n, k in kernels.items()}
+    render_launches = launch_counts(*kernels)
     tb, pb = outs["table"]["bins"], outs["pairs"]["bins"]
     if int(tb.overflow) or int(pb.pair_overflow) or tb.pair_gidx is not None:
         raise RuntimeError(f"table render: overflow {int(tb.overflow)}, pair_overflow "
@@ -847,14 +868,14 @@ def table_phase(device, cfg) -> dict:
 
     iter_ms = {p: [] for p in paths}
     first = {}
-    reset()
+    reset_launches()
     for i in range(TABLE_ITERS):
         for p, comp in paths.items():
             res, ms = timed(lambda: iteration(comp))
             iter_ms[p].append(ms)
             if i == 0:
                 first[p] = res
-    launches = {n: k.launches for n, k in kernels.items()}
+    launches = launch_counts(*kernels)
     (lt, auxt, gt), (lp, auxp, gp) = first["table"], first["pairs"]
     if int(auxp["overflow"]) or int(auxp["pair_overflow"]) or int(auxt["overflow"]):
         raise RuntimeError("table train: overflow or pair_overflow at the train point")
@@ -913,17 +934,13 @@ def probes_phase(device) -> dict:
     its plain version on the card (exact) and timed, at the probes' shapes
     and, for P1 and P3, at a shape where bytes decide."""
     import torch
-    from gaussiangrasper_torch.ops import rasterize_cuda as rc
     from gaussiangrasper_torch.probes import copy_probe, kernel_probe
     from gaussiangrasper_torch.probes import kernels as pk
 
-    kernels = {"p1": pk.affine, "p2": pk.read_at, "p3": pk.write_at,
-               "k3": rc.composite_tables_fwd}
-    for k in kernels.values():
-        k.launches = 0
+    reset_launches()
     rcs = {"kernel_probe": kernel_probe.main([]), "copy_probe": copy_probe.main([])}
     torch.cuda.synchronize()
-    launches = {n: k.launches for n, k in kernels.items()}
+    launches = launch_counts("p1", "p2", "p3", "k3")
     if any(rcs.values()) or launches != {"p1": 1, "p2": 2, "p3": 1, "k3": 3}:
         raise RuntimeError(f"probes: exit codes {rcs}, launches {launches}")
 
@@ -1081,14 +1098,12 @@ def train_phase(device, cfg) -> dict:
     """Full-width train steps 4000..4099 and a refine step, bench.py's point."""
     import torch
     from gaussiangrasper_torch.engine.train_state import refine_step, train_step
-    from gaussiangrasper_torch.ops import rasterize_cuda as rc
 
     state = train_state_at(N_FULL, CAPACITY, seed=0, device=device)
     batch = train_batch(WIDTH, HEIGHT, 32, 800, 1000, seed=8, device=device)
     cam = bench_camera(WIDTH, HEIGHT, device)
     torch.cuda.synchronize()
-    rc.composite_pairs_fwd.launches = 0
-    rc.composite_pairs_bwd.launches = 0
+    reset_launches()
     batch_s, losses = [], []
     for _ in range(TRAIN_STEPS // 10):
         t0 = time.perf_counter()
@@ -1106,7 +1121,7 @@ def train_phase(device, cfg) -> dict:
     refined = refine_step(state, cfg, WIDTH, HEIGHT, num_train_data=4)
     alive_after = int(refined.alive.sum())
     torch.cuda.synchronize()
-    launches = {"k1": rc.composite_pairs_fwd.launches, "k2": rc.composite_pairs_bwd.launches}
+    launches = launch_counts("k1", "k2")
     if launches != {"k1": TRAIN_STEPS, "k2": TRAIN_STEPS}:
         raise RuntimeError(f"launches {launches} for {TRAIN_STEPS} train steps")
     if alive_after == alive_before or not all(bool(torch.isfinite(x).all()) for x in refined.field):
@@ -1158,36 +1173,19 @@ def counted_cli(seconds: dict, launches: dict, name: str, fn, argv, hashes: Opti
     forward, h2 backward, h3 double backward) into `hashes` and the voxel
     labelling's (V1) into `voxels`, where given."""
     import torch
-    from gaussiangrasper_torch.ops import rasterize_cuda as rc
-    from gaussiangrasper_torch.ops import voxel_cluster as vc
 
-    kernels = {"k1": rc.composite_pairs_fwd, "k2": rc.composite_pairs_bwd,
-               "k5": rc.composite_pairs_fwd2, "k6": rc.composite_pairs_bwd2}
     torch.cuda.synchronize()
-    for k in list(kernels.values()) + list(hash_kernels().values()) + [vc.roots_cuda]:
-        k.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = fn([str(a) for a in argv])
     torch.cuda.synchronize()
     seconds[name] = time.perf_counter() - t0
-    launches[name] = {n: k.launches for n, k in kernels.items()}
+    launches[name] = launch_counts(*COMPOSITORS)
     if hashes is not None:
-        hashes[name] = hash_launches()
+        hashes[name] = launch_counts(*HASH_KERNELS)
     if voxels is not None:
-        voxels[name] = vc.roots_cuda.launches
+        voxels[name] = launch_counts("v1")["v1"]
     return out
-
-
-def hash_kernels() -> dict:
-    """csrc/hash_grid.cu's three wrappers by their short names."""
-    from gaussiangrasper_torch.models import encodings as enc
-
-    return {"h1": enc.hash_grid_fwd_cuda, "h2": enc.hash_grid_bwd_cuda,
-            "h3": enc.hash_grid_bwd2_cuda}
-
-
-def hash_launches() -> dict:
-    return {n: k.launches for n, k in hash_kernels().items()}
 
 
 def trainer_phase(scene: Path, out_dir: Path, label: str, tp: int) -> dict:
@@ -1286,7 +1284,6 @@ def sharded_split(device, cfg) -> dict:
     backward and read just after; then the times of both paths."""
     import torch
     from gaussiangrasper_torch.models.model import render_inputs
-    from gaussiangrasper_torch.ops import rasterize_cuda as rc
     from gaussiangrasper_torch.ops.rasterize import rasterize_projected
     from gaussiangrasper_torch.parallel.tile_shard import composite_tile_split
 
@@ -1315,11 +1312,11 @@ def sharded_split(device, cfg) -> dict:
         return torch.cat([g[0], g[1], g[2][:, None], g[3]], 1)
 
     torch.cuda.synchronize()
-    rc.composite_pairs_fwd.launches = rc.composite_pairs_bwd.launches = 0
+    reset_launches()
     out_s, loss_s, leaves_s = forward(split)
     got = per_gaussian_grads(loss_s, leaves_s)
     torch.cuda.synchronize()
-    launches = {"k1": rc.composite_pairs_fwd.launches, "k2": rc.composite_pairs_bwd.launches}
+    launches = launch_counts("k1", "k2")
     out_w, loss_w, leaves_w = forward(whole)
     want = per_gaussian_grads(loss_w, leaves_w)
     errs, scales = grad_errors(got, want, c)
@@ -1359,8 +1356,8 @@ def sharded_train(scene: Path, out_dir: Path, trainer_row: dict) -> dict:
     record its gather stats; they are this script's instruments."""
     import torch
     import torch.distributed as dist
+    from gaussiangrasper_torch._build import launches
     from gaussiangrasper_torch.engine import train_state
-    from gaussiangrasper_torch.ops import rasterize_cuda as rc
     from gaussiangrasper_torch.parallel import host_loop
     from gaussiangrasper_torch.scripts import render, train
 
@@ -1383,9 +1380,10 @@ def sharded_train(scene: Path, out_dir: Path, trainer_row: dict) -> dict:
             if len(steps) == SHARDED_STEPS:
                 # the last step twice more, the second traced (a step leaves its input
                 # state as it was); the launch counts skip these runs
-                counted = rc.composite_pairs_fwd.launches, rc.composite_pairs_bwd.launches
+                counted = launches.copy()
                 profiles.append(device_profile(lambda: step(state, cam, batch), top=10))
-                rc.composite_pairs_fwd.launches, rc.composite_pairs_bwd.launches = counted
+                launches.clear()
+                launches.update(counted)
             return out
 
         return timed
@@ -1740,13 +1738,13 @@ def nerf_zoo_phase(scene: Path, tmp: Path, device) -> dict:
     current, in_step, step_hashes, eval_calls = [""], [False], {}, {}
 
     def counted_step(*a, **k):
-        before = hash_launches()
+        before = launch_counts(*HASH_KERNELS)
         in_step[0] = True
         try:
             out = step(*a, **k)
         finally:
             in_step[0] = False
-        after = hash_launches()
+        after = launch_counts(*HASH_KERNELS)
         step_hashes.setdefault(current[0], []).append([after[h] - before[h] for h in after])
         return out
 
@@ -1971,10 +1969,9 @@ def hash_grid_phase(device) -> dict:
             out.backward(g_out)
             return out.detach(), grid.table.grad, xp.grad
 
-        for k in hash_kernels().values():
-            k.launches = 0
+        reset_launches()
         got = lookup(True)
-        launched = hash_launches()
+        launched = launch_counts(*HASH_KERNELS)
         want = lookup(False)
         errs = [float((got[0] - want[0]).abs().max())]
         errs += [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got[1:], want[1:])
@@ -2045,7 +2042,7 @@ def voxel_cluster_phase(device) -> dict:
         return out, float(np.median(times))
 
     want, union_find_ms = host_ms(lambda: vc.roots_host(keys, dims), 3)
-    vc.roots_cuda.launches = 0
+    reset_launches()
     mismatched = sum(not np.array_equal(vc.roots_cuda(keys_t, dims).cpu().numpy(), want)
                      for _ in range(20))
     mask, card_ms = host_ms(lambda: vc.largest_component(keys, inverse, dims), 20)
@@ -2054,7 +2051,7 @@ def voxel_cluster_phase(device) -> dict:
     labels = want[inverse]
     row = {"phase": "voxel_cluster", "points": len(points), "voxels": len(keys),
            "dims": dims.tolist(), "components": int(len(np.unique(want))),
-           "cluster_points": int(mask.sum()), "launches": vc.roots_cuda.launches,
+           "cluster_points": int(mask.sum()), "launches": launch_counts("v1")["v1"],
            "roots_mismatched_launches": mismatched,
            "kernel_ms": kernel_ms,
            "largest_component_ms": card_ms, "largest_cluster_ms": cluster_ms,
@@ -2079,15 +2076,14 @@ def hash_double_backward(grid, x, g_out) -> dict:
     gg_x = torch.randn(x.shape, generator=gen, device=x.device)
     res, got = grid.resolutions, {}
     for path in ("kernel", "plain"):
-        for k in hash_kernels().values():
-            k.launches = 0
+        reset_launches()
         xp, g = x.clone().requires_grad_(True), g_out.clone().requires_grad_(True)
         out = enc.hash_grid_encode(grid, xp) if path == "kernel" else \
             enc.encode_plain(grid.table, res, xp)
         (dx,) = torch.autograd.grad(out, xp, g, create_graph=True)
         inputs = [g, grid.table, xp]
         grads = torch.autograd.grad(dx, inputs, gg_x, retain_graph=True)
-        got[path] = {"grads": grads, "launches": hash_launches(),
+        got[path] = {"grads": grads, "launches": launch_counts(*HASH_KERNELS),
                      "ms": cuda_ms(lambda: torch.autograd.grad(dx, inputs, gg_x,
                                                                retain_graph=True), 5)}
     errs = [float((a - b).abs().max() / b.abs().max())
@@ -2205,12 +2201,10 @@ def capture_phase(scene: Path, tmp: Path, trainer_row: dict, device) -> dict:
     from gaussiangrasper_torch.engine import train_state
     from gaussiangrasper_torch.engine.trainer import TrainerConfig, make_trainer
     from gaussiangrasper_torch.models.model import GaussianSplatConfig
-    from gaussiangrasper_torch.ops import rasterize_cuda as rc
 
     t0 = time.perf_counter()
     cap = distorted_capture(scene, tmp / "capture")
     data_s = time.perf_counter() - t0
-    kernels = {"k1": rc.composite_pairs_fwd, "k2": rc.composite_pairs_bwd}
     view_ms, steps, deltas = [], [], {}
     undistort_image = manager.undistort_image
 
@@ -2234,8 +2228,7 @@ def capture_phase(scene: Path, tmp: Path, trainer_row: dict, device) -> dict:
                            steps_per_save=TRAINER_STEPS, capacity=CAPACITY,
                            model=GaussianSplatConfig(pose_opt_mode="SO3xR3"))
     torch.cuda.synchronize()
-    for k in kernels.values():
-        k.launches = 0
+    reset_launches()
     train_step, manager.undistort_image = train_state.train_step, timed_undistort
     train_state.train_step = step_and_read
     t0 = time.perf_counter()
@@ -2247,7 +2240,7 @@ def capture_phase(scene: Path, tmp: Path, trainer_row: dict, device) -> dict:
         train_state.train_step, manager.undistort_image = train_step, undistort_image
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {n: k.launches for n, k in kernels.items()}
+    launches = launch_counts("k1", "k2")
 
     dm = trainer.dm
     cam0, new0 = dm.outputs.cameras[0], dm.cameras[0]
@@ -2650,16 +2643,13 @@ def pose_phase(device) -> dict:
     rows reversed) are printed beside it."""
     import torch
     from gaussiangrasper_torch.core.pose_opt import apply_pose_delta
-    from gaussiangrasper_torch.ops import rasterize_cuda as rc
 
-    kernels = {"k1": rc.composite_pairs_fwd, "k2": rc.composite_pairs_bwd}
     field, alive = bench_field(N_FULL, seed=0, device=device)
     cam = bench_camera(WIDTH, HEIGHT, device)
     rows = {}
     for mode in ("SO3xR3", "SE3"):
         torch.cuda.synchronize()
-        for k in kernels.values():
-            k.launches = 0
+        reset_launches()
         losses, delta, _, moved, step_ms = pose_recovery(field, alive, cam, mode, POSE_STEPS)
         final = apply_pose_delta(moved.camera_to_world, delta, mode).cpu().double().numpy()
         cos = np.clip((np.trace(final[:, :3]) - 1.0) / 2.0, -1.0, 1.0)
@@ -2669,7 +2659,7 @@ def pose_phase(device) -> dict:
                       "residual_translation": float(np.linalg.norm(final[:, 3])),
                       "ms_per_step_median": float(np.median(step_ms)),
                       "ms_first_step": step_ms[0],
-                      "launches": {n: k.launches for n, k in kernels.items()},
+                      "launches": launch_counts("k1", "k2"),
                       "bar_met": bool(losses[-1] < 0.2 * losses[0]
                                       and float(delta[:3].abs().max()) > 1e-3)}
     # the first step's gradient, card vs CPU, on a mid-size field
@@ -3427,7 +3417,6 @@ def serve_phase(device, cfg) -> dict:
     import torch
     from gaussiangrasper_torch.engine import checkpoint as ckpt
     from gaussiangrasper_torch.engine.weights import ServeState
-    from gaussiangrasper_torch.ops import rasterize_cuda as rc
     from gaussiangrasper_torch.scripts import query, render
 
     field, alive = bench_field(N_FULL, seed=0, device="cpu")
@@ -3450,14 +3439,14 @@ def serve_phase(device, cfg) -> dict:
         np.save(run / "q.npy", rng.standard_normal((1, 512)).astype(np.float32))
         np.save(run / "canon.npy", rng.standard_normal((4, 512)).astype(np.float32))
 
-        rc.composite_pairs_fwd.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         render.main(["--run-dir", str(run), "--num-views", str(views), "--device", "cuda"])
         query.main(["--run-dir", str(run), "--text-embedding", str(run / "q.npy"),
                     "--canonical-embedding", str(run / "canon.npy"),
                     "--views", *map(str, range(views)), "--device", "cuda"])
         torch.cuda.synchronize()
-        launches = rc.composite_pairs_fwd.launches
+        launches = launch_counts("k1")["k1"]
         cli_s = time.perf_counter() - t0
         if launches != 2 * views:
             raise RuntimeError(f"K1 launched {launches} times for {2 * views} renders")
@@ -3882,7 +3871,8 @@ def dense_tile_phase(device) -> dict:
     row = check_k1("dense_tile_c39", args, time_it=False)
     got = rc._launch_kernel(*args)
     want = rc.composite_pairs_fwd_plain(*args, count_live=True)
-    k5, k3 = rc._launch_kernel2(*args), rc._launch_table_fwd(*stream_table(args))
+    k5 = rc._launch_kernel(*args, two_tile=True)
+    k3 = rc._launch_table_fwd(*stream_table(args))
     torch.cuda.synchronize()
     d = (got[0] - want[0]).double()
     row = {"phase": "dense_tile", "max_abs_err": row["max_abs_err"],

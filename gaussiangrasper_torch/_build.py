@@ -11,11 +11,14 @@ alpha-cutoff test against their plain PyTorch versions. A library is rebuilt
 when its source, or a csrc/ header the source includes, is newer. Nothing here runs at
 import: a machine without nvcc or a GPU imports the package and uses the
 plain versions on CPU tensors. `build_all` starts one nvcc per source, all
-at once. `entry` binds one C entry point of a built library.
+at once. `entry` binds one C entry point of a built library, and `launch`
+calls one that launches a kernel: every kernel launch of the port goes
+through it and is counted in `launches`.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import re
@@ -23,14 +26,22 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[str, Tuple[ctypes.CDLL, object]] = {}
 _lock = threading.Lock()
+
+launches: collections.Counter = collections.Counter()
+"""Kernel launches made through `launch`, by C entry name (for example
+`ggt_composite_pairs_fwd2`). `launches.clear()` sets every count to 0."""
+_count_lock = threading.Lock()  # autograd's backward launches from its own thread
 
 
 def kernel_sources() -> List[str]:
@@ -85,23 +96,38 @@ def load_library(name: str) -> ctypes.CDLL:
             if _stale(name):
                 _finish(name, _start(name))
             lib = ctypes.CDLL(str(_paths(name)[1]))
+            lib.ggt_cuda_error_string.restype = ctypes.c_char_p
+            lib.ggt_cuda_error_string.argtypes = [ctypes.c_int]
             _loaded[name] = lib
         return lib
 
 
-def entry(source: str, name: str, argtypes):
-    """(library, C entry `name` of csrc/<source>.cu), built and loaded on
-    first use. Every entry returns a CUDA error code (0 is success), which
-    `check_error` turns into an exception."""
-    lib = load_library(source)
-    fn = getattr(lib, name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
-    lib.ggt_cuda_error_string.restype = ctypes.c_char_p
-    lib.ggt_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib, fn
+def entry(source: str, name: str, argtypes: Sequence):
+    """(library, C entry `name` of csrc/<source>.cu), built, loaded and
+    bound on first use; later calls return the same pair. Every entry
+    returns a CUDA error code (0 is success), which `check_error` turns
+    into an exception."""
+    bound = _entries.get(name)
+    if bound is None:
+        lib = load_library(source)
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        bound = _entries[name] = (lib, fn)
+    return bound
 
 
 def check_error(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} failed: " + lib.ggt_cuda_error_string(err).decode())
+
+
+def launch(source: str, name: str, argtypes: Sequence, *args, device: torch.device) -> None:
+    """Launch the kernel behind C entry `name` of csrc/<source>.cu: `args`
+    (of `argtypes`), then the current CUDA stream of `device`, which the
+    entry takes last. Raises RuntimeError on a nonzero return and counts
+    the launch in `launches[name]`."""
+    lib, fn = _entries.get(name) or entry(source, name, [*argtypes, ctypes.c_void_p])
+    check_error(lib, fn(*args, torch.cuda.current_stream(device).cuda_stream), f"{name} launch")
+    with _count_lock:
+        launches[name] += 1

@@ -2,7 +2,9 @@
 
 Entry points run on the card unless the caller asks for the CPU; a request
 for cuda on a machine without one raises instead of quietly moving to the
-CPU, so a measurement can never be taken on the wrong device.
+CPU, so a measurement can never be taken on the wrong device. A wrapper
+of a hand-written kernel picks the kernel or its plain version by its
+tensors' device (`use_kernel`).
 """
 
 from __future__ import annotations
@@ -22,6 +24,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "pass --device cpu / device='cpu' to run on the CPU"
         )
     return dev
+
+
+def use_kernel(device: torch.device, name: str) -> bool:
+    """The device rule of the kernel wrappers: True (launch the kernel) on
+    cuda, False (run its plain version) on cpu; any other device raises
+    ValueError naming the wrapper `name`."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"{name} runs on cuda or cpu, not {device}")
 
 
 @contextlib.contextmanager

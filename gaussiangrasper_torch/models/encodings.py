@@ -32,7 +32,7 @@ import torch
 from torch import nn
 from torch.autograd.function import once_differentiable
 
-from gaussiangrasper_torch._build import check_error as _check, entry as _entry
+from gaussiangrasper_torch._build import launch
 from gaussiangrasper_torch.core import sh as sh_mod
 from gaussiangrasper_torch.utils.profiler import PROFILER
 
@@ -135,9 +135,9 @@ def encode_plain(table: torch.Tensor, resolutions: torch.Tensor,
 _MAX_POINTS = 2 ** 31 - 256  # the kernels index points by int
 
 
-def _launch(x: torch.Tensor, table: torch.Tensor, *more: torch.Tensor) -> Tuple[int, int, int, int]:
-    """(N, L, T, stream) of a launch, after checking what every kernel
-    takes: contiguous float32 tensors on x's card, x (N, 3), table (L, T, 2)."""
+def _sizes(x: torch.Tensor, table: torch.Tensor, *more: torch.Tensor) -> Tuple[int, int, int]:
+    """(N, L, T) of a launch, after checking what every kernel takes:
+    contiguous float32 tensors on x's card, x (N, 3), table (L, T, 2)."""
     n = x.shape[0]
     num_levels, hashmap_size, f = table.shape
     tensors = (x, table) + more
@@ -148,7 +148,7 @@ def _launch(x: torch.Tensor, table: torch.Tensor, *more: torch.Tensor) -> Tuple[
             f"hash_grid kernels take contiguous float32 tensors on one card, x (N <= {_MAX_POINTS}, "
             f"3) and a table (1..65535, T, 2); got x {tuple(x.shape)}, table {tuple(table.shape)}, "
             + ", ".join(f"{t.dtype} on {t.device}" for t in tensors))
-    return n, num_levels, hashmap_size, torch.cuda.current_stream(x.device).cuda_stream
+    return n, num_levels, hashmap_size
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -159,41 +159,31 @@ def hash_grid_fwd_cuda(x: torch.Tensor, table: torch.Tensor,
                        resolutions: torch.Tensor) -> torch.Tensor:
     """The forward kernel: x (N, 3), table (L, T, 2), resolutions (L,) ->
     (N, 2 L)."""
-    n, num_levels, hashmap_size, stream = _launch(x, table, resolutions)
+    n, num_levels, hashmap_size = _sizes(x, table, resolutions)
     out = torch.empty(n, 2 * num_levels, dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    lib, fn = _entry("hash_grid", "ggt_hash_grid_fwd",
-                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
-    err = fn(x.data_ptr(), table.data_ptr(), resolutions.data_ptr(), n, num_levels, hashmap_size,
-             out.data_ptr(), stream)
-    _check(lib, err, "hash_grid_fwd launch")
-    hash_grid_fwd_cuda.launches += 1
+    launch("hash_grid", "ggt_hash_grid_fwd",
+           [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+           x.data_ptr(), table.data_ptr(), resolutions.data_ptr(), n, num_levels, hashmap_size,
+           out.data_ptr(), device=x.device)
     return out
-
-
-hash_grid_fwd_cuda.launches = 0
 
 
 def hash_grid_bwd_cuda(x: torch.Tensor, table: torch.Tensor, resolutions: torch.Tensor,
                        g_out: torch.Tensor, want_x: bool, want_table: bool):
     """The backward kernel: (dL/dx (N, 3) or None, dL/dtable (L, T, 2) or
     None) from g_out (N, 2 L), each given where wanted."""
-    n, num_levels, hashmap_size, stream = _launch(x, table, resolutions, g_out)
+    n, num_levels, hashmap_size = _sizes(x, table, resolutions, g_out)
     g_x = torch.zeros_like(x) if want_x else None
     g_table = torch.zeros_like(table) if want_table else None
     if n == 0 or not (want_x or want_table):
         return g_x, g_table
-    lib, fn = _entry("hash_grid", "ggt_hash_grid_bwd",
-                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
-    err = fn(x.data_ptr(), table.data_ptr(), resolutions.data_ptr(), g_out.data_ptr(), n,
-             num_levels, hashmap_size, _ptr(g_table), _ptr(g_x), stream)
-    _check(lib, err, "hash_grid_bwd launch")
-    hash_grid_bwd_cuda.launches += 1
+    launch("hash_grid", "ggt_hash_grid_bwd",
+           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
+           x.data_ptr(), table.data_ptr(), resolutions.data_ptr(), g_out.data_ptr(), n,
+           num_levels, hashmap_size, _ptr(g_table), _ptr(g_x), device=x.device)
     return g_x, g_table
-
-
-hash_grid_bwd_cuda.launches = 0
 
 
 def hash_grid_bwd2_cuda(x: torch.Tensor, table: torch.Tensor, resolutions: torch.Tensor,
@@ -202,23 +192,18 @@ def hash_grid_bwd2_cuda(x: torch.Tensor, table: torch.Tensor, resolutions: torch
     """The backward's backward kernel: from gg_x = dL/d(dL/dx) (N, 3), the
     gradients that L takes through the backward's dL/dx: (dL/dg_out (N, 2 L),
     dL/dtable (L, T, 2), dL/dx (N, 3)), each None where not wanted."""
-    n, num_levels, hashmap_size, stream = _launch(x, table, resolutions, g_out, gg_x)
+    n, num_levels, hashmap_size = _sizes(x, table, resolutions, g_out, gg_x)
     gg_out = torch.empty_like(g_out) if want_g_out else None
     g_table = torch.zeros_like(table) if want_table else None
     g_x = torch.zeros_like(x) if want_x else None
     if n == 0 or not (want_g_out or want_table or want_x):
         return gg_out, g_table, g_x
-    lib, fn = _entry("hash_grid", "ggt_hash_grid_bwd2",
-                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
-    err = fn(x.data_ptr(), table.data_ptr(), resolutions.data_ptr(), g_out.data_ptr(),
-             gg_x.data_ptr(), n, num_levels, hashmap_size, _ptr(gg_out), _ptr(g_table), _ptr(g_x),
-             stream)
-    _check(lib, err, "hash_grid_bwd2 launch")
-    hash_grid_bwd2_cuda.launches += 1
+    launch("hash_grid", "ggt_hash_grid_bwd2",
+           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3,
+           x.data_ptr(), table.data_ptr(), resolutions.data_ptr(), g_out.data_ptr(),
+           gg_x.data_ptr(), n, num_levels, hashmap_size, _ptr(gg_out), _ptr(g_table), _ptr(g_x),
+           device=x.device)
     return gg_out, g_table, g_x
-
-
-hash_grid_bwd2_cuda.launches = 0
 
 
 class HashGridEncode(torch.autograd.Function):
@@ -284,6 +269,8 @@ def hash_grid_encode(grid: HashGrid, x: torch.Tensor) -> torch.Tensor:
     num_levels, _, f = table.shape
     batch = x.shape[:-1]
     xf = x.reshape(-1, 3)
+    # not `_device.use_kernel`: a float64 table on the card takes the plain
+    # path, which is how the tests hold H1-H3 against it on the card
     kernel = table.is_cuda and table.dtype == torch.float32
     if PROFILER.on():  # host ints: no sync
         lookups = xf.shape[0] * num_levels

@@ -6,14 +6,14 @@ table kernels K3 and K4).
 `composite_pairs_bwd` (K2, `csrc/composite_pairs_bwd.cu`) launch their
 hand-written Hopper kernels for CUDA tensors and their plain PyTorch
 versions (`composite_pairs_fwd_plain`, `composite_pairs_bwd_plain`) for CPU
-tensors; for a CUDA tensor they launch the kernel or raise, never falling
-back. Every launch adds one to the wrapper's `launches`.
-`composite_pairs_fwd2` (K5) and `composite_pairs_bwd2` (K6) are the
-two-tile kernels, in the same two files: the same per-tile body launched
-in clusters that hold two tiles (K5: two CTAs, the same part of each of
-the two tiles; K6: four, two a tile, as K2 runs two CTAs a tile). They compute K1's and K2's
-functions, so on CPU tensors they run the same plain versions; each has
-its own `launches`.
+tensors (`_device.use_kernel`); for a CUDA tensor they launch the kernel or
+raise, never falling back. With `two_tile` they launch the two-tile kernels
+K5 / K6, in the same two files: the same per-tile body launched in
+clusters that hold two tiles (K5: two CTAs, the same part of each of the
+two tiles; K6: four, two a tile, as K2 runs two CTAs a tile). They compute
+K1's and K2's functions, so on CPU tensors `two_tile` changes nothing.
+Every launch goes through `_build.launch`, whose counter keys it by its C
+entry (`ggt_composite_pairs_fwd`, `ggt_composite_pairs_fwd2`, ...).
 
 `composite_pair_stream` is the differentiable entry the rasterizer calls:
 the forward kernel, the backward kernel, then one `index_add_` by the pair
@@ -53,8 +53,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from gaussiangrasper_torch._build import check_error as _check, entry as _entry
-from gaussiangrasper_torch._device import full_f32
+from gaussiangrasper_torch._build import check_error as _check, entry as _entry, launch
+from gaussiangrasper_torch._device import full_f32, use_kernel
 from gaussiangrasper_torch.ops.rasterize import ALPHA_CLAMP, ALPHA_CUTOFF, _LOG_EPS
 from gaussiangrasper_torch.utils.profiler import PROFILER
 
@@ -381,9 +381,6 @@ def _launch_kernel(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int, two_t
 def _kernel_fwd(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int, two_tile: bool):
     """The launch of K1 / K5 at an instantiated C."""
     C = attrs.shape[1] - 6
-    name = "composite_pairs_fwd2" if two_tile else "composite_pairs_fwd"
-    lib, fn = _entry("composite_pairs_fwd", f"ggt_{name}",
-                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
     if two_tile:
         _require_clusters("fwd2", C, ts)
 
@@ -394,48 +391,25 @@ def _kernel_fwd(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int, two_tile
                           for _ in range(3))
     if T == 0:
         return out, alpha, logt, ncomp
-    stream = torch.cuda.current_stream(attrs.device).cuda_stream
-    err = fn(pair_gidx.data_ptr(), starts.data_ptr(), counts.data_ptr(), attrs.data_ptr(),
-             bg.data_ptr(), T, tw, ts, C, out.data_ptr(), alpha.data_ptr(), logt.data_ptr(),
-             ncomp.data_ptr(), stream)
-    _check(lib, err, f"{name} launch")
-    (composite_pairs_fwd2 if two_tile else composite_pairs_fwd).launches += 1
+    name = "ggt_composite_pairs_fwd2" if two_tile else "ggt_composite_pairs_fwd"
+    launch("composite_pairs_fwd", name,
+           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4,
+           pair_gidx.data_ptr(), starts.data_ptr(), counts.data_ptr(), attrs.data_ptr(),
+           bg.data_ptr(), T, tw, ts, C, out.data_ptr(), alpha.data_ptr(), logt.data_ptr(),
+           ncomp.data_ptr(), device=attrs.device)
     return out, alpha, logt, ncomp
 
 
-def _launch_kernel2(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int):
-    """K5: K1's arguments and outputs, two tiles per instance: each two-CTA
-    cluster holds the same part of two tiles."""
-    return _launch_kernel(pair_gidx, starts, counts, attrs, bg, tw, ts, two_tile=True)
-
-
-def composite_pairs_fwd(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int):
+def composite_pairs_fwd(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int,
+                        two_tile: bool = False):
     """K1's four outputs (out (T, P, C), alpha, logt, ncomp (T, P)): the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors.
-    Arguments as in `composite_pairs_fwd_plain`."""
+    CUDA kernel for CUDA tensors (K5 with `two_tile`), the plain version
+    for CPU tensors. Arguments as in `composite_pairs_fwd_plain`."""
+    kernel = use_kernel(attrs.device, "composite_pairs_fwd")
     _check_inputs(pair_gidx, starts, counts, attrs, bg)
-    if attrs.device.type == "cuda":
-        return _launch_kernel(pair_gidx, starts, counts, attrs, bg, tw, ts)
-    if attrs.device.type != "cpu":
-        raise ValueError(f"composite_pairs_fwd runs on cuda or cpu, not {attrs.device}")
+    if kernel:
+        return _launch_kernel(pair_gidx, starts, counts, attrs, bg, tw, ts, two_tile)
     return composite_pairs_fwd_plain(pair_gidx, starts, counts, attrs, bg, tw, ts)
-
-
-composite_pairs_fwd.launches = 0
-
-
-def composite_pairs_fwd2(pair_gidx, starts, counts, attrs, bg, tw: int, ts: int):
-    """K5: K1's function and outputs, the two-tile CUDA kernel for CUDA
-    tensors, K1's plain version for CPU tensors."""
-    _check_inputs(pair_gidx, starts, counts, attrs, bg)
-    if attrs.device.type == "cuda":
-        return _launch_kernel2(pair_gidx, starts, counts, attrs, bg, tw, ts)
-    if attrs.device.type != "cpu":
-        raise ValueError(f"composite_pairs_fwd2 runs on cuda or cpu, not {attrs.device}")
-    return composite_pairs_fwd_plain(pair_gidx, starts, counts, attrs, bg, tw, ts)
-
-
-composite_pairs_fwd2.launches = 0
 
 
 def pack_attrs(xys, conics, opacities, colors) -> torch.Tensor:
@@ -556,9 +530,6 @@ def _kernel_bwd(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncom
                 ts: int, two_tile: bool):
     """The launch of K2 / K6 at an instantiated C."""
     C = attrs.shape[1] - 6
-    name = "composite_pairs_bwd2" if two_tile else "composite_pairs_bwd"
-    lib, fn = _entry("composite_pairs_bwd", f"ggt_{name}",
-                     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
     if two_tile:
         _require_clusters("bwd2", C, ts)
 
@@ -566,55 +537,37 @@ def _kernel_bwd(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncom
     gpairs = torch.zeros(pair_gidx.shape[0], 6 + C, dtype=torch.float32, device=attrs.device)
     if T == 0:
         return gpairs
-    stream = torch.cuda.current_stream(attrs.device).cuda_stream
-    err = fn(pair_gidx.data_ptr(), starts.data_ptr(), counts.data_ptr(), attrs.data_ptr(),
-             bg.data_ptr(), g_out.data_ptr(), g_alpha.data_ptr(), logt.data_ptr(),
-             ncomp.data_ptr(), T, tw, ts, C, gpairs.data_ptr(), stream)
-    _check(lib, err, f"{name} launch")
-    (composite_pairs_bwd2 if two_tile else composite_pairs_bwd).launches += 1
+    name = "ggt_composite_pairs_bwd2" if two_tile else "ggt_composite_pairs_bwd"
+    launch("composite_pairs_bwd", name,
+           [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+           pair_gidx.data_ptr(), starts.data_ptr(), counts.data_ptr(), attrs.data_ptr(),
+           bg.data_ptr(), g_out.data_ptr(), g_alpha.data_ptr(), logt.data_ptr(),
+           ncomp.data_ptr(), T, tw, ts, C, gpairs.data_ptr(), device=attrs.device)
     return gpairs
 
 
-def _launch_bwd_kernel2(*args):
-    """K6: K2's arguments and output, two tiles per four-CTA cluster."""
-    return _launch_bwd_kernel(*args, two_tile=True)
-
-
-def _bwd_dispatch(*args, two_tile: bool = False):
-    attrs = args[3]
-    if attrs.device.type == "cuda":
+def _pairs_bwd_unchecked(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
+                         tw: int, ts: int, two_tile: bool):
+    """`composite_pairs_bwd` past its input checks, whose reduction is a host
+    sync: the autograd backward's path, after a forward that checked the
+    same stream."""
+    args = (pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp, tw, ts)
+    if use_kernel(attrs.device, "composite_pairs_bwd"):
         return _launch_bwd_kernel(*args, two_tile=two_tile)
-    if attrs.device.type != "cpu":
-        raise ValueError(f"composite_pairs_bwd runs on cuda or cpu, not {attrs.device}")
     return composite_pairs_bwd_plain(*args)
 
 
 def composite_pairs_bwd(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
-                        tw: int, ts: int):
+                        tw: int, ts: int, two_tile: bool = False):
     """K2's per-stream-row gradients gpairs (B, 6 + C): the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors. Arguments as in
-    `composite_pairs_bwd_plain`."""
+    CUDA tensors (K6 with `two_tile`), the plain version for CPU tensors.
+    Arguments as in `composite_pairs_bwd_plain`."""
+    use_kernel(attrs.device, "composite_pairs_bwd")  # before the checks' sync
     _check_inputs(pair_gidx, starts, counts, attrs, bg)
     _check_bwd_inputs(attrs.device, starts.shape[0], attrs.shape[1] - 6, g_out, g_alpha, logt,
                       ncomp, ts)
-    return _bwd_dispatch(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp, tw, ts)
-
-
-composite_pairs_bwd.launches = 0
-
-
-def composite_pairs_bwd2(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
-                         tw: int, ts: int):
-    """K6: K2's function and output, the two-tile CUDA kernel for CUDA
-    tensors, K2's plain version for CPU tensors."""
-    _check_inputs(pair_gidx, starts, counts, attrs, bg)
-    _check_bwd_inputs(attrs.device, starts.shape[0], attrs.shape[1] - 6, g_out, g_alpha, logt,
-                      ncomp, ts)
-    return _bwd_dispatch(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp, tw, ts,
-                         two_tile=True)
-
-
-composite_pairs_bwd2.launches = 0
+    return _pairs_bwd_unchecked(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt, ncomp,
+                                tw, ts, two_tile)
 
 
 class _CompositePairs(torch.autograd.Function):
@@ -623,8 +576,8 @@ class _CompositePairs(torch.autograd.Function):
         attrs = pack_attrs(xys, conics, opacities, colors)
         bg = bg.float().contiguous()
         ctx.two_tile = tiles_per_instance(TP) == 2
-        fwd = composite_pairs_fwd2 if ctx.two_tile else composite_pairs_fwd
-        out, alpha, logt, ncomp = fwd(pair_gidx, starts, counts, attrs, bg, tw, ts)
+        out, alpha, logt, ncomp = composite_pairs_fwd(pair_gidx, starts, counts, attrs, bg, tw, ts,
+                                                      two_tile=ctx.two_tile)
         ctx.save_for_backward(pair_gidx, starts, counts, attrs, bg, logt, ncomp)
         ctx.tiles = (tw, ts)
         return out, alpha
@@ -637,8 +590,8 @@ class _CompositePairs(torch.autograd.Function):
             # the forward already checked the stream against the table: no second host sync
             _check_bwd_inputs(attrs.device, starts.shape[0], attrs.shape[1] - 6, g_out, g_alpha,
                               logt, ncomp, ctx.tiles[1])
-            gpairs = _bwd_dispatch(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha, logt,
-                                   ncomp, *ctx.tiles, two_tile=ctx.two_tile)
+            gpairs = _pairs_bwd_unchecked(pair_gidx, starts, counts, attrs, bg, g_out, g_alpha,
+                                          logt, ncomp, *ctx.tiles, two_tile=ctx.two_tile)
             acc = torch.zeros_like(attrs).index_add_(0, pair_gidx.to(torch.int64), gpairs)
             gbg = torch.einsum("tp,tpc->c", torch.exp(logt), g_out)
         return (None, None, None, acc[:, 0:2], acc[:, 2:5], acc[:, 5], acc[:, 6:], gbg,
@@ -728,19 +681,17 @@ def _kernel_table_fwd(counts, tables, bg, tw: int, ts: int):
     """The launch of K3 at an instantiated C."""
     T, kt, a = tables.shape
     C = a - 6
-    lib, fn = _entry("composite_pairs_fwd", "ggt_composite_tables_fwd",
-                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5)
     P = ts * ts
     out = torch.empty(T, P, C, dtype=torch.float32, device=tables.device)
     alpha, logt, ncomp = (torch.empty(T, P, dtype=torch.float32, device=tables.device)
                           for _ in range(3))
     if T == 0:
         return out, alpha, logt, ncomp
-    stream = torch.cuda.current_stream(tables.device).cuda_stream
-    err = fn(counts.data_ptr(), tables.data_ptr(), bg.data_ptr(), T, kt, tw, ts, C,
-             out.data_ptr(), alpha.data_ptr(), logt.data_ptr(), ncomp.data_ptr(), stream)
-    _check(lib, err, "composite_tables_fwd launch")
-    composite_tables_fwd.launches += 1
+    launch("composite_pairs_fwd", "ggt_composite_tables_fwd",
+           [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4,
+           counts.data_ptr(), tables.data_ptr(), bg.data_ptr(), T, kt, tw, ts, C,
+           out.data_ptr(), alpha.data_ptr(), logt.data_ptr(), ncomp.data_ptr(),
+           device=tables.device)
     return out, alpha, logt, ncomp
 
 
@@ -748,15 +699,11 @@ def composite_tables_fwd(counts, tables, bg, tw: int, ts: int):
     """K3's four outputs (out (T, P, C), alpha, logt, ncomp (T, P)): the
     CUDA kernel for CUDA tensors, the plain version for CPU tensors.
     Arguments as in `composite_tables_fwd_plain`."""
+    kernel = use_kernel(tables.device, "composite_tables_fwd")
     _check_table_inputs(counts, tables, bg)
-    if tables.device.type == "cuda":
+    if kernel:
         return _launch_table_fwd(counts, tables, bg, tw, ts)
-    if tables.device.type != "cpu":
-        raise ValueError(f"composite_tables_fwd runs on cuda or cpu, not {tables.device}")
     return composite_tables_fwd_plain(counts, tables, bg, tw, ts)
-
-
-composite_tables_fwd.launches = 0
 
 
 def _launch_table_bwd(counts, tables, bg, g_out, g_alpha, logt, ncomp, tw: int, ts: int):
@@ -771,26 +718,24 @@ def _kernel_table_bwd(counts, tables, bg, g_out, g_alpha, logt, ncomp, tw: int, 
     """The launch of K4 at an instantiated C."""
     T, kt, a = tables.shape
     C = a - 6
-    lib, fn = _entry("composite_pairs_bwd", "ggt_composite_tables_bwd",
-                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
     gattr = torch.zeros_like(tables)
     if T == 0:
         return gattr
-    stream = torch.cuda.current_stream(tables.device).cuda_stream
-    err = fn(counts.data_ptr(), tables.data_ptr(), bg.data_ptr(), g_out.data_ptr(),
-             g_alpha.data_ptr(), logt.data_ptr(), ncomp.data_ptr(), T, kt, tw, ts, C,
-             gattr.data_ptr(), stream)
-    _check(lib, err, "composite_tables_bwd launch")
-    composite_tables_bwd.launches += 1
+    launch("composite_pairs_bwd", "ggt_composite_tables_bwd",
+           [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+           counts.data_ptr(), tables.data_ptr(), bg.data_ptr(), g_out.data_ptr(),
+           g_alpha.data_ptr(), logt.data_ptr(), ncomp.data_ptr(), T, kt, tw, ts, C,
+           gattr.data_ptr(), device=tables.device)
     return gattr
 
 
-def _table_bwd_dispatch(*args):
-    tables = args[1]
-    if tables.device.type == "cuda":
+def _tables_bwd_unchecked(counts, tables, bg, g_out, g_alpha, logt, ncomp, tw: int, ts: int):
+    """`composite_tables_bwd` past its input checks, whose reduction is a
+    host sync: the autograd backward's path, after a forward that checked
+    the same counts."""
+    args = (counts, tables, bg, g_out, g_alpha, logt, ncomp, tw, ts)
+    if use_kernel(tables.device, "composite_tables_bwd"):
         return _launch_table_bwd(*args)
-    if tables.device.type != "cpu":
-        raise ValueError(f"composite_tables_bwd runs on cuda or cpu, not {tables.device}")
     return composite_tables_bwd_plain(*args)
 
 
@@ -798,13 +743,11 @@ def composite_tables_bwd(counts, tables, bg, g_out, g_alpha, logt, ncomp, tw: in
     """K4's per-(tile, slot) gradients gattr (T, Kt, 6 + C): the CUDA kernel
     for CUDA tensors, the plain version for CPU tensors. g_out (T, P, C),
     g_alpha and K3's logt and ncomp (T, P)."""
+    use_kernel(tables.device, "composite_tables_bwd")  # before the checks' sync
     _check_table_inputs(counts, tables, bg)
     _check_bwd_inputs(tables.device, tables.shape[0], tables.shape[2] - 6, g_out, g_alpha, logt,
                       ncomp, ts)
-    return _table_bwd_dispatch(counts, tables, bg, g_out, g_alpha, logt, ncomp, tw, ts)
-
-
-composite_tables_bwd.launches = 0
+    return _tables_bwd_unchecked(counts, tables, bg, g_out, g_alpha, logt, ncomp, tw, ts)
 
 
 def scatter_table(tile_gidx, n: int, gattr):
@@ -837,8 +780,8 @@ class _CompositeBinned(torch.autograd.Function):
             # the forward already checked counts against the table: no second host sync
             _check_bwd_inputs(tables.device, tables.shape[0], tables.shape[2] - 6, g_out,
                               g_alpha, logt, ncomp, ctx.tiles[1])
-            gattr = _table_bwd_dispatch(counts, tables, bg, g_out, g_alpha, logt, ncomp,
-                                        *ctx.tiles)
+            gattr = _tables_bwd_unchecked(counts, tables, bg, g_out, g_alpha, logt, ncomp,
+                                          *ctx.tiles)
             acc = scatter_table(tile_gidx, ctx.n, gattr)
             gbg = torch.einsum("tp,tpc->c", torch.exp(logt), g_out)
         return (None, None, acc[:, 0:2], acc[:, 2:5], acc[:, 5], acc[:, 6:], gbg, None, None)

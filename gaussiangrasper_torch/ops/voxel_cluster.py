@@ -26,7 +26,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from gaussiangrasper_torch._build import check_error as _check, entry as _entry
+from gaussiangrasper_torch._build import launch
 from gaussiangrasper_torch.utils.profiler import PROFILER
 
 _MAX_VOXELS = 2 ** 31 - 256  # the kernels index voxels, and count blocks, by int
@@ -110,17 +110,11 @@ def roots_cuda(keys: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
     scratch = torch.empty(2, n, dtype=torch.int32, device=keys.device)
     if n == 0:
         return scratch[1]
-    lib, fn = _entry("voxel_cluster", "ggt_voxel_cluster",
-                     [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 3
-                     + [ctypes.c_void_p] * 3)
-    err = fn(keys.data_ptr(), n, d0, d1, d2, scratch[0].data_ptr(), scratch[1].data_ptr(),
-             torch.cuda.current_stream(keys.device).cuda_stream)
-    _check(lib, err, "voxel_cluster launch")
-    roots_cuda.launches += 1
+    launch("voxel_cluster", "ggt_voxel_cluster",
+           [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 2,
+           keys.data_ptr(), n, d0, d1, d2, scratch[0].data_ptr(), scratch[1].data_ptr(),
+           device=keys.device)
     return scratch[1]
-
-
-roots_cuda.launches = 0
 
 
 def largest_component(keys: np.ndarray, inverse: np.ndarray, dims: Sequence[int]) -> np.ndarray:

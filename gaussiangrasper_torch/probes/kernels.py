@@ -12,7 +12,9 @@ PyTorch versions.
   probe reads in interpret mode).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
-version for CPU tensors, and adds one to its `launches` where it launches.
+version for CPU tensors (`_device.use_kernel`), and launches through
+`_build.launch`, whose counter keys each launch by its C entry
+(`ggt_probe_affine`, ...).
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import ctypes
 
 import torch
 
-from gaussiangrasper_torch._build import check_error, entry
+from gaussiangrasper_torch._build import launch
+from gaussiangrasper_torch._device import use_kernel
 
 BLOCK_ROWS = 128
 """Rows per block (the TPU probe's KC)."""
@@ -29,39 +32,23 @@ COLS = 128
 """Floats per row (the TPU probe's lane width)."""
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _check_device(name: str, x: torch.Tensor) -> None:
-    if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
-
-
 def affine_plain(x: torch.Tensor) -> torch.Tensor:
     return x * 2.0 + 1.0
 
 
 def _launch_affine(x: torch.Tensor) -> torch.Tensor:
-    lib, fn = entry("probes", "ggt_probe_affine",
-                    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     out = torch.empty_like(x)
-    check_error(lib, fn(x.data_ptr(), x.numel(), out.data_ptr(), _stream(x)), "probe_affine launch")
-    affine.launches += 1
+    launch("probes", "ggt_probe_affine", [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+           x.data_ptr(), x.numel(), out.data_ptr(), device=x.device)
     return out
 
 
 def affine(x: torch.Tensor) -> torch.Tensor:
     """P1: 2 x + 1 for a contiguous float32 tensor."""
+    kernel = use_kernel(x.device, "affine")
     if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() == 0:
         raise ValueError("affine takes a non-empty contiguous float32 tensor")
-    _check_device("affine", x)
-    if x.device.type == "cpu":
-        return affine_plain(x)
-    return _launch_affine(x)
-
-
-affine.launches = 0
+    return _launch_affine(x) if kernel else affine_plain(x)
 
 
 def _check_blocks(starts: torch.Tensor, rows: int, device) -> None:
@@ -80,11 +67,11 @@ def read_at_plain(x: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
 
 def read_at(x: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     """P2: (T, 128, 128) blocks of x (rows, 128) float32 at row offsets starts (T,) int32."""
+    kernel = use_kernel(x.device, "read_at")
     if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] != COLS or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous (rows, {COLS}) float32 tensor")
-    _check_device("read_at", x)
     _check_blocks(starts, x.shape[0], x.device)
-    if x.device.type == "cpu":
+    if not kernel:
         return read_at_plain(x, starts)
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned for the bulk copy")
@@ -92,16 +79,11 @@ def read_at(x: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_read_at(x: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
-    lib, fn = entry("probes", "ggt_probe_read_at", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                                    ctypes.c_void_p, ctypes.c_void_p])
     out = torch.empty(starts.shape[0], BLOCK_ROWS, COLS, dtype=torch.float32, device=x.device)
-    check_error(lib, fn(x.data_ptr(), starts.data_ptr(), starts.shape[0], out.data_ptr(),
-                        _stream(x)), "probe_read_at launch")
-    read_at.launches += 1
+    launch("probes", "ggt_probe_read_at", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_void_p],
+           x.data_ptr(), starts.data_ptr(), starts.shape[0], out.data_ptr(), device=x.device)
     return out
-
-
-read_at.launches = 0
 
 
 def write_at_plain(vals: torch.Tensor, starts: torch.Tensor, rows: int) -> torch.Tensor:
@@ -115,30 +97,23 @@ def write_at_plain(vals: torch.Tensor, starts: torch.Tensor, rows: int) -> torch
 def write_at(vals: torch.Tensor, starts: torch.Tensor, rows: int) -> torch.Tensor:
     """P3: a (rows, 128) float32 output with block t of vals (T, 128, 128) at
     row offset starts[t], the later block winning where blocks overlap."""
+    kernel = use_kernel(vals.device, "write_at")
     if vals.dtype != torch.float32 or vals.shape[1:] != (BLOCK_ROWS, COLS) \
             or not vals.is_contiguous():
         raise ValueError(f"vals must be a contiguous (T, {BLOCK_ROWS}, {COLS}) float32 tensor")
-    _check_device("write_at", vals)
     _check_blocks(starts, rows, vals.device)
     if starts.shape[0] != vals.shape[0]:
         raise ValueError(f"{starts.shape[0]} starts for {vals.shape[0]} blocks")
-    if vals.device.type == "cpu":
-        return write_at_plain(vals, starts, rows)
-    return _launch_write_at(vals, starts, rows)
+    return _launch_write_at(vals, starts, rows) if kernel else write_at_plain(vals, starts, rows)
 
 
 def _launch_write_at(vals: torch.Tensor, starts: torch.Tensor, rows: int) -> torch.Tensor:
-    lib, fn = entry("probes", "ggt_probe_write_at", [ctypes.c_void_p, ctypes.c_void_p,
-                                                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                                                     ctypes.c_void_p])
     out = torch.empty(rows, COLS, dtype=torch.float32, device=vals.device)
-    check_error(lib, fn(vals.data_ptr(), starts.data_ptr(), starts.shape[0], rows, out.data_ptr(),
-                        _stream(vals)), "probe_write_at launch")
-    write_at.launches += 1
+    launch("probes", "ggt_probe_write_at", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_void_p],
+           vals.data_ptr(), starts.data_ptr(), starts.shape[0], rows, out.data_ptr(),
+           device=vals.device)
     return out
-
-
-write_at.launches = 0
 
 
 def covered_rows(starts, rows: int) -> torch.Tensor:

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from gaussiangrasper_torch import _build
 from gaussiangrasper_torch.core.cameras import Camera
 from gaussiangrasper_torch.engine import optimizers as optim
 from gaussiangrasper_torch.engine.train_state import init_train_state, train_step
@@ -28,6 +29,16 @@ from gaussiangrasper_torch.ops.rasterize import RasterizeConfig, bin_gaussians
 from gaussiangrasper_torch.probes import kernels as pk
 
 W, H, STEP = 128, 96, 4000
+# the compositor kernels' C entries, as the launch counter (`_build.launches`) keys them
+K1, K2, K3, K4, K5, K6 = ("ggt_composite_pairs_fwd", "ggt_composite_pairs_bwd",
+                          "ggt_composite_tables_fwd", "ggt_composite_tables_bwd",
+                          "ggt_composite_pairs_fwd2", "ggt_composite_pairs_bwd2")
+
+
+def launched_since(before, *entries) -> tuple:
+    """The launches of each C entry counted since `before`, a copy of
+    `_build.launches`."""
+    return tuple(_build.launches[e] - before[e] for e in entries)
 
 
 @pytest.fixture
@@ -77,11 +88,11 @@ def _assert_grads_close(got, want, channels):
 def test_k1_kernel_matches_plain(cuda_device, channels, opacity):
     args = _k1_args(cuda_device, channels, opacity)
     counts = args[2]
-    before = rc.composite_pairs_fwd.launches
+    before = _build.launches.copy()
     got = rc.composite_pairs_fwd(*args)
     want = rc.composite_pairs_fwd_plain(*args)
     torch.cuda.synchronize()
-    assert rc.composite_pairs_fwd.launches == before + 1
+    assert launched_since(before, K1) == (1,)
     for name, a, b in zip(("out", "alpha", "logt"), got, want):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0, msg=name)
     torch.testing.assert_close(got[3], want[3], atol=0, rtol=0)
@@ -101,11 +112,11 @@ def test_k2_kernel_matches_plain(cuda_device, channels, opacity):
     g_out = torch.randn(*alpha.shape, channels, generator=gen, device=cuda_device)
     g_alpha = torch.randn(alpha.shape, generator=gen, device=cuda_device)
     bargs = args[:5] + (g_out, g_alpha, logt, ncomp) + args[5:]
-    before = rc.composite_pairs_bwd.launches
+    before = _build.launches.copy()
     got = rc.composite_pairs_bwd(*bargs)
     want = rc.composite_pairs_bwd_plain(*bargs)
     torch.cuda.synchronize()
-    assert rc.composite_pairs_bwd.launches == before + 1
+    assert launched_since(before, K2) == (1,)
     _assert_grads_close(_per_gaussian(args, got), _per_gaussian(args, want), channels)
 
 
@@ -158,13 +169,12 @@ def test_k2_and_k6_on_counts_around_sub_chunks_and_batches(cuda_device, channels
     else:  # some pixel of each tile walks all its rows
         walked = torch.minimum(ncomp, counts[:, None].float()).amax(1)
         assert torch.equal(walked, counts.float())
-    before = (rc.composite_pairs_bwd.launches, rc.composite_pairs_bwd2.launches)
+    before = _build.launches.copy()
     got = rc.composite_pairs_bwd(*bargs)
-    got2 = rc.composite_pairs_bwd2(*bargs)
+    got2 = rc.composite_pairs_bwd(*bargs, two_tile=True)
     want = rc.composite_pairs_bwd_plain(*bargs)
     torch.cuda.synchronize()
-    assert (rc.composite_pairs_bwd.launches, rc.composite_pairs_bwd2.launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert launched_since(before, K2, K6) == (1, 1)
     _assert_grads_close(got, want, channels)  # one row per Gaussian: rows are the sums
     _assert_grads_close(got2, want, channels)
 
@@ -183,11 +193,11 @@ def test_k4_on_a_table_whose_k_is_not_a_multiple_of_the_sub_chunk(cuda_device, c
     g_out = torch.randn(*alpha.shape, channels, generator=gen, device=cuda_device)
     g_alpha = torch.randn(alpha.shape, generator=gen, device=cuda_device)
     bargs = (counts, tables, bg, g_out, g_alpha, logt, ncomp, tw, ts)
-    before = rc.composite_tables_bwd.launches
+    before = _build.launches.copy()
     got = rc.composite_tables_bwd(*bargs)
     want = rc.composite_tables_bwd_plain(*bargs)
     torch.cuda.synchronize()
-    assert rc.composite_tables_bwd.launches == before + 1
+    assert launched_since(before, K4) == (1,)
     _assert_grads_close(got.reshape(-1, attrs.shape[1]), want.reshape(-1, attrs.shape[1]),
                         channels)
 
@@ -199,10 +209,10 @@ def test_p2_bit_equal_to_plain(cuda_device, starts):
     src = torch.randn(4096, 128, generator=torch.Generator(device=cuda_device).manual_seed(8),
                       device=cuda_device)
     s = torch.tensor(starts, dtype=torch.int32, device=cuda_device)
-    before = pk.read_at.launches
+    before = _build.launches.copy()
     got = pk.read_at(src, s)
     torch.cuda.synchronize()
-    assert pk.read_at.launches == before + 1
+    assert launched_since(before, "ggt_probe_read_at") == (1,)
     assert got.shape == (len(starts), 128, 128)
     assert torch.equal(got, pk.read_at_plain(src, s))
 
@@ -217,12 +227,11 @@ ODD_W, ODD_H = 160, 96
 def test_k5_bit_equal_to_k1(cuda_device, channels, opacity):
     args = _k1_args(cuda_device, channels, opacity, ODD_W, ODD_H)
     assert args[1].shape[0] % 2 == 1
-    before = (rc.composite_pairs_fwd.launches, rc.composite_pairs_fwd2.launches)
-    got = rc.composite_pairs_fwd2(*args)
+    before = _build.launches.copy()
+    got = rc.composite_pairs_fwd(*args, two_tile=True)
     want = rc.composite_pairs_fwd(*args)
     torch.cuda.synchronize()
-    assert (rc.composite_pairs_fwd.launches, rc.composite_pairs_fwd2.launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert launched_since(before, K1, K5) == (1, 1)
     assert got[0].shape == want[0].shape == (args[1].shape[0], 32 * 32, channels)
     for name, a, b in zip(("out", "alpha", "logt", "ncomp"), got, want):
         assert torch.equal(a, b), name
@@ -239,12 +248,12 @@ def test_k6_matches_k2_and_plain(cuda_device, channels):
     g_out = torch.randn(*alpha.shape, channels, generator=gen, device=cuda_device)
     g_alpha = torch.randn(alpha.shape, generator=gen, device=cuda_device)
     bargs = args[:5] + (g_out, g_alpha, logt, ncomp) + args[5:]
-    before = rc.composite_pairs_bwd2.launches
-    got = _per_gaussian(args, rc.composite_pairs_bwd2(*bargs))
+    before = _build.launches.copy()
+    got = _per_gaussian(args, rc.composite_pairs_bwd(*bargs, two_tile=True))
     k2 = _per_gaussian(args, rc.composite_pairs_bwd(*bargs))
     plain = _per_gaussian(args, rc.composite_pairs_bwd_plain(*bargs))
     torch.cuda.synchronize()
-    assert rc.composite_pairs_bwd2.launches == before + 1
+    assert launched_since(before, K6) == (1,)
     _assert_grads_close(got, k2, channels)
     _assert_grads_close(got, plain, channels)
 
@@ -274,12 +283,10 @@ def test_train_step_tp2_loss_equals_tp1(cuda_device, monkeypatch):
     losses = {}
     for tp in (1, 2):
         monkeypatch.setattr(rc, "TP", tp)
-        launches = (rc.composite_pairs_fwd2.launches, rc.composite_pairs_bwd2.launches)
+        before = _build.launches.copy()
         _, m = train_step(state, cam, batch, cfg)
         losses[tp] = float(m["loss"])
-        moved = (rc.composite_pairs_fwd2.launches - launches[0],
-                 rc.composite_pairs_bwd2.launches - launches[1])
-        assert moved == ((1, 1) if tp == 2 else (0, 0))
+        assert launched_since(before, K5, K6) == ((1, 1) if tp == 2 else (0, 0))
     assert np.isfinite(losses[1])
     assert abs(losses[2] - losses[1]) <= 1e-6 * abs(losses[1])
 
@@ -382,18 +389,17 @@ def test_chunked_widths_match_plain(cuda_device, channels):
                                   rc.KERNEL_CHANNELS, attrs, bg)
         assert len(pieces) == len(rc.channel_pieces(channels))
         _assert_pieces_agree(pieces)
-        fn = rc.composite_pairs_fwd2 if two_tile else rc.composite_pairs_fwd
-        before = fn.launches
-        got = fn(*args)
-        assert fn.launches == before + len(pieces)
+        before = _build.launches.copy()
+        got = rc.composite_pairs_fwd(*args, two_tile=two_tile)
+        assert launched_since(before, K5 if two_tile else K1) == (len(pieces),)
         assert got[0].shape == want[0].shape
         _assert_fwd_close(got, want)
     bargs = _bwd_args(args, seed=7)
     plain = _per_gaussian(args, rc.composite_pairs_bwd_plain(*bargs))
-    for fn in (rc.composite_pairs_bwd, rc.composite_pairs_bwd2):
-        before = fn.launches
-        got = fn(*bargs)
-        assert fn.launches == before + len(rc.channel_pieces(channels))
+    for two_tile in (False, True):
+        before = _build.launches.copy()
+        got = rc.composite_pairs_bwd(*bargs, two_tile=two_tile)
+        assert launched_since(before, K6 if two_tile else K2) == (len(rc.channel_pieces(channels)),)
         assert got.shape == (gidx.shape[0], 6 + channels)
         _assert_grads_close(_per_gaussian(args, got), plain, channels)
     wide = _widen(args, 123)
@@ -426,12 +432,12 @@ def _table_args(device, channels, opacity, w=W, h=H):
 @pytest.mark.parametrize("channels", rc.KERNEL_CHANNELS)
 def test_k3_matches_plain_and_is_bit_equal_to_k1(cuda_device, channels, opacity):
     targs, k1, _, _ = _table_args(cuda_device, channels, opacity)
-    before = rc.composite_tables_fwd.launches
+    before = _build.launches.copy()
     got = rc.composite_tables_fwd(*targs)
     want = rc.composite_tables_fwd_plain(*targs)
     k1_out = rc.composite_pairs_fwd(*k1)
     torch.cuda.synchronize()
-    assert rc.composite_tables_fwd.launches == before + 1
+    assert launched_since(before, K3) == (1,)
     for name, a, b in zip(("out", "alpha", "logt"), got, want):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0, msg=name)
     torch.testing.assert_close(got[3], want[3], atol=0, rtol=0)
@@ -450,13 +456,13 @@ def test_k4_matches_plain_and_k2(cuda_device, channels):
     g_out = torch.randn(*alpha.shape, channels, generator=gen, device=cuda_device)
     g_alpha = torch.randn(alpha.shape, generator=gen, device=cuda_device)
     bargs = targs[:3] + (g_out, g_alpha, logt, ncomp) + targs[3:]
-    before = rc.composite_tables_bwd.launches
+    before = _build.launches.copy()
     got = rc.scatter_table(tile_gidx, n, rc.composite_tables_bwd(*bargs))
     plain = rc.scatter_table(tile_gidx, n, rc.composite_tables_bwd_plain(*bargs))
     k2 = _per_gaussian(k1, rc.composite_pairs_bwd(*(k1[:5] + (g_out, g_alpha, logt, ncomp)
                                                     + k1[5:])))
     torch.cuda.synchronize()
-    assert rc.composite_tables_bwd.launches == before + 1
+    assert launched_since(before, K4) == (1,)
     _assert_grads_close(got, plain, channels)
     _assert_grads_close(got, k2, channels)
 
@@ -487,14 +493,14 @@ def test_probes_match_plain(cuda_device):
     assert torch.equal(pk.read_at(src, starts), pk.read_at_plain(src, starts))
     vals = torch.randn(4, 128, 128, device=cuda_device)
     starts = torch.tensor([0, 100, 200, 150], dtype=torch.int32, device=cuda_device)
-    before = (pk.affine.launches, pk.read_at.launches, pk.write_at.launches)
+    before = _build.launches.copy()
     got = pk.write_at(vals, starts, 512)
     want = pk.write_at_plain(vals, starts, 512)
     covered = pk.covered_rows(starts, 512).to(cuda_device)
     torch.cuda.synchronize()
     assert torch.equal(got[covered], want[covered])
-    assert (pk.affine.launches, pk.read_at.launches, pk.write_at.launches) == \
-        (before[0], before[1], before[2] + 1)
+    assert launched_since(before, "ggt_probe_affine", "ggt_probe_read_at",
+                          "ggt_probe_write_at") == (0, 0, 1)
 
 
 def _p3_case(device, shape):
@@ -527,11 +533,11 @@ def test_p1_p3_exact_at_probe_and_large_shapes(cuda_device, shape):
     n = chip_smoke.P1_LARGE if shape == "large" else 8 * 128
     x = torch.randn(n, generator=torch.Generator(cuda_device).manual_seed(2), device=cuda_device)
     vals, starts, rows = _p3_case(cuda_device, shape)
-    before = (pk.affine.launches, pk.write_at.launches)
+    before = _build.launches.copy()
     got_x = pk.affine(x)
     got = pk.write_at(vals, starts, rows)
     torch.cuda.synchronize()
-    assert (pk.affine.launches, pk.write_at.launches) == (before[0] + 1, before[1] + 1)
+    assert launched_since(before, "ggt_probe_affine", "ggt_probe_write_at") == (1, 1)
     assert torch.equal(got_x, pk.affine_plain(x))
     covered = pk.covered_rows(starts, rows).to(cuda_device)
     assert torch.equal(got[covered], pk.write_at_plain(vals, starts, rows)[covered])
@@ -551,11 +557,11 @@ def test_chunked_table_widths_match_plain(cuda_device):
     _assert_fwd_close(got, rc.composite_tables_fwd_plain(*targs))
     bargs = _bwd_args(args, seed=7)
     tbargs = targs[:3] + bargs[5:7] + got[2:] + targs[3:]
-    before = rc.composite_tables_bwd.launches
+    before = _build.launches.copy()
     gattr = rc.composite_tables_bwd(*tbargs)
     plain = rc.composite_tables_bwd_plain(*tbargs)
     torch.cuda.synchronize()
-    assert rc.composite_tables_bwd.launches == before + 2
+    assert launched_since(before, K4) == (2,)
     _assert_grads_close(gattr.reshape(-1, 6 + 71), plain.reshape(-1, 6 + 71), 71)
     with pytest.raises(ValueError, match="C <= 122"):
         rc.composite_tables_fwd(counts, torch.zeros(*tables.shape[:2], 6 + 123, device=cuda_device),
@@ -588,15 +594,13 @@ def test_k1_k3_k5_on_counts_around_sub_chunks_and_batches(cuda_device, channels,
     39 and K3 unpadded."""
     args = _straddle_args(cuda_device, channels, opaque, ts)
     counts = args[2]
-    before = [k.launches for k in (rc.composite_pairs_fwd, rc.composite_pairs_fwd2,
-                                   rc.composite_tables_fwd)]
+    before = _build.launches.copy()
     got = rc.composite_pairs_fwd(*args)
-    got5 = rc.composite_pairs_fwd2(*args)
+    got5 = rc.composite_pairs_fwd(*args, two_tile=True)
     got3 = rc.composite_tables_fwd(*_table_of(args, 203))
     want = rc.composite_pairs_fwd_plain(*args)
     torch.cuda.synchronize()
-    assert [k.launches for k in (rc.composite_pairs_fwd, rc.composite_pairs_fwd2,
-                                 rc.composite_tables_fwd)] == [b + 1 for b in before]
+    assert launched_since(before, K1, K5, K3) == (1, 1, 1)
     if opaque:
         assert bool((got[3][counts >= 2] == 1).all())
     _assert_fwd_close(got, want)
@@ -616,8 +620,8 @@ def test_padded_widths_match_plain(cuda_device, feature_dim):
     _assert_fwd_close(rc.composite_pairs_fwd(*args), rc.composite_pairs_fwd_plain(*args))
     bargs = _bwd_args(args, seed=7)
     want = _per_gaussian(args, rc.composite_pairs_bwd_plain(*bargs))
-    for fn in (rc.composite_pairs_bwd, rc.composite_pairs_bwd2):
-        got = fn(*bargs)
+    for two_tile in (False, True):
+        got = rc.composite_pairs_bwd(*bargs, two_tile=two_tile)
         assert got.shape == (args[0].shape[0], 6 + channels)
         _assert_grads_close(_per_gaussian(args, got), want, channels)
     targs = _table_of(args, int(args[2].max()))
@@ -647,7 +651,7 @@ def _train_cli_two_steps(tmp_path, feature_dim):
         losses.append(float(out[1]["loss"]))
         return out
 
-    before = (rc.composite_pairs_fwd.launches, rc.composite_pairs_bwd.launches)
+    before = _build.launches.copy()
     train_state.train_step = recorded
     try:
         trainer = train.main(["--data", str(scene), "--output-dir", str(tmp_path / "out"),
@@ -657,8 +661,7 @@ def _train_cli_two_steps(tmp_path, feature_dim):
     finally:
         train_state.train_step = step
     torch.cuda.synchronize()
-    return trainer, losses, (rc.composite_pairs_fwd.launches - before[0],
-                             rc.composite_pairs_bwd.launches - before[1])
+    return trainer, losses, launched_since(before, K1, K2)
 
 
 @pytest.mark.gpu
@@ -813,7 +816,7 @@ def test_k1_colour_sums_on_a_dense_tile(cuda_device):
     with torch.no_grad():
         got = rc.composite_pairs_fwd(*args)
         want = rc.composite_pairs_fwd_plain(*args, count_live=True)
-        k5 = rc.composite_pairs_fwd2(*args)
+        k5 = rc.composite_pairs_fwd(*args, two_tile=True)
         k3 = rc.composite_tables_fwd(*_table_of(args, 2048))
         emul = {r: tensor_core_fwd(args, r)[0] for r in ("rz", "rn", "group")}
     torch.cuda.synchronize()
@@ -890,7 +893,7 @@ def test_update_cli_on_the_card_matches_cpu(cuda_device, trained_run):
             losses.append(float(out[1]["loss"]))
             return out
 
-        before = (rc.composite_pairs_fwd.launches, rc.composite_pairs_bwd.launches)
+        before = _build.launches.copy()
         train_state.train_step = recorded
         try:
             update.main(["--run-dir", str(run_dev), "--edit-object", str(root / "obj.npy"),
@@ -898,8 +901,7 @@ def test_update_cli_on_the_card_matches_cpu(cuda_device, trained_run):
                          "--max-iterations", "3", "--device", dev])
         finally:
             train_state.train_step = step
-        launches = (rc.composite_pairs_fwd.launches - before[0],
-                    rc.composite_pairs_bwd.launches - before[1])
+        launches = launched_since(before, K1, K2)
         ckpts = run_dev / "edit" / "checkpoints"
         runs[dev] = (losses, launches, ckpt.load_checkpoint(ckpts / "step_000000000.pt"),
                      ckpt.load_checkpoint(ckpts / "step_009999999.pt"))
@@ -944,10 +946,10 @@ def test_export_clis_on_the_card(cuda_device, trained_run):
     host = export_ply.main(["--run-dir", str(run), "--output", str(root / "cpu.ply"),
                             "--device", "cpu"])
     assert card.read_bytes() == host.read_bytes()
-    before = rc.composite_pairs_fwd.launches
+    before = _build.launches.copy()
     export_pointcloud.main(["--run-dir", str(run), "--num-views", "3", "--mesh",
                             "--tsdf-resolution", "32"])
-    assert rc.composite_pairs_fwd.launches - before == 3
+    assert launched_since(before, K1) == (3,)
     data = (run / "pointcloud_mesh.ply").read_bytes()
     assert data.startswith(b"ply\n") and b"element face " in data
 
@@ -1011,11 +1013,10 @@ def test_four_way_split_matches_rasterize_projected(cuda_device):
         loss = (out["image"] * g_img).sum() + 0.5 * out["alpha"].sum()
         return out, torch.autograd.grad(loss, leaves)
 
-    before = (rc.composite_pairs_fwd.launches, rc.composite_pairs_bwd.launches)
+    before = _build.launches.copy()
     split, g_split = run(lambda p, c, o: composite_tile_split(p, c, o, bg, w, h, cfg.raster, d=4))
     torch.cuda.synchronize()
-    launches = (rc.composite_pairs_fwd.launches - before[0],
-                rc.composite_pairs_bwd.launches - before[1])
+    launches = launched_since(before, K1, K2)
     whole, g_whole = run(lambda p, c, o: rasterize_projected(p, c, o, bg, w, h, cfg.raster))
     assert launches == (4, 4)
     assert torch.equal(split["image"], whole["image"]) and torch.equal(split["alpha"], whole["alpha"])
@@ -1035,13 +1036,12 @@ def test_train_cli_mesh_one_rank(cuda_device, tmp_path):
 
     scene = generate_tabletop(tmp_path / "scene", width=64, height=48, n_views=4,
                               feature_downscale=2)
-    before = (rc.composite_pairs_fwd.launches, rc.composite_pairs_bwd.launches)
+    before = _build.launches.copy()
     trainer = train.main(["--data", str(scene), "--output-dir", str(tmp_path / "out"),
                           "--max-iterations", "2", "--capacity", "4096", "--mesh", "1,1",
                           "--tile-shard", "on"])
     torch.cuda.synchronize()
-    assert (rc.composite_pairs_fwd.launches - before[0],
-            rc.composite_pairs_bwd.launches - before[1]) == (2, 2)
+    assert launched_since(before, K1, K2) == (2, 2)
     assert trainer.state.step == 2 and not torch.distributed.is_initialized()
     assert all(bool(torch.isfinite(x).all()) for x in trainer.state.field)
     assert (tmp_path / "out" / "gaussian-splatting" / "checkpoints" / "step_000000002.pt").exists()
@@ -1282,14 +1282,14 @@ def test_hash_grid_kernel_matches_plain(cuda_device, grid, x_grad):
     for path in ("kernel", "plain"):
         g.table.grad = None
         xp = x.clone().requires_grad_(x_grad)
-        fwd, bwd = enc.hash_grid_fwd_cuda.launches, enc.hash_grid_bwd_cuda.launches
+        before = _build.launches.copy()
         if path == "kernel":
             out = enc.hash_grid_encode(g, xp)
-            assert enc.hash_grid_fwd_cuda.launches == fwd + 1
+            assert launched_since(before, "ggt_hash_grid_fwd") == (1,)
         else:
             out = enc.encode_plain(g.table, g.resolutions, xp)
         (out * cot).sum().backward()
-        assert enc.hash_grid_bwd_cuda.launches == bwd + (path == "kernel")
+        assert launched_since(before, "ggt_hash_grid_bwd") == (int(path == "kernel"),)
         grads[path] = (out.detach(), g.table.grad, xp.grad)
     (ok, gtk, gxk), (op, gtp, gxp) = grads["kernel"], grads["plain"]
     assert torch.equal(ok, op)
@@ -1321,7 +1321,7 @@ def test_hash_grid_kernel_double_backward(cuda_device, grid, inner):
     for path in ("kernel", "plain"):
         g.table.grad = None
         xp = x.clone().requires_grad_(True)
-        bwd2 = enc.hash_grid_bwd2_cuda.launches
+        before = _build.launches.copy()
         out = enc.hash_grid_encode(g, xp) if path == "kernel" else \
             enc.encode_plain(g.table, g.resolutions, xp)
         wrt = [xp] if inner == "x" else [xp, g.table]
@@ -1330,7 +1330,7 @@ def test_hash_grid_kernel_double_backward(cuda_device, grid, inner):
         if inner != "x":
             loss = loss + (grads[1] ** 3).sum()
         loss.backward()
-        assert enc.hash_grid_bwd2_cuda.launches == bwd2 + (path == "kernel")
+        assert launched_since(before, "ggt_hash_grid_bwd2") == (int(path == "kernel"),)
         got[path] = [gr.detach() for gr in grads] + [g.table.grad, xp.grad]
     for k, p in zip(got["kernel"], got["plain"]):
         scale = float(p.abs().max())
@@ -1441,12 +1441,12 @@ def test_voxel_cluster_kernel_roots_equal_host_roots(cuda_device, name, dtype):
         assert np.prod(dims, dtype=object) > 2 ** 31
     want = vc.roots_host(keys, dims)
     keys_t = torch.as_tensor(keys, device=cuda_device)
-    before = vc.roots_cuda.launches
+    before = _build.launches.copy()
     for _ in range(5):
         np.testing.assert_array_equal(vc.roots_cuda(keys_t, dims).cpu().numpy(), want)
-    assert vc.roots_cuda.launches == before + 5
+    assert launched_since(before, "ggt_voxel_cluster") == (5,)
     card = vc.largest_component(keys, inverse, dims)
-    assert vc.roots_cuda.launches == before + 6
+    assert launched_since(before, "ggt_voxel_cluster") == (6,)
     with mock.patch("torch.cuda.is_available", return_value=False):
         host = vc.largest_component(keys, inverse, dims)
     np.testing.assert_array_equal(card, host)

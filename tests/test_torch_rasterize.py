@@ -23,9 +23,11 @@ import numpy as np
 import pytest
 import torch
 
+from gaussiangrasper_torch import _build
 from gaussiangrasper_torch.ops import rasterize_cuda as rc
 from gaussiangrasper_torch.ops.oracle import render_oracle as t_oracle
 from gaussiangrasper_torch.ops.rasterize import RasterizeConfig, bin_gaussians, rasterize_projected
+from gaussiangrasper_torch.probes import kernels as pk
 from gaussiangrasper_tpu.ops import rasterize_pallas as rp
 from gaussiangrasper_tpu.ops.oracle import render_oracle as j_oracle
 from gaussiangrasper_tpu.ops.rasterize import RasterizeConfig as JConfig
@@ -200,6 +202,44 @@ def test_kernel_wrapper_checks_inputs():
             rc.composite_pairs_fwd(torch.tensor(gidx, dtype=i32), torch.zeros(1, dtype=i32),
                                    torch.tensor([count], dtype=i32), torch.zeros(2, 9),
                                    torch.zeros(3), 1, 32)
+
+
+def meta_entry_call(name: str, two_tile: bool):
+    """A call of the public kernel entry `name` on meta tensors of valid
+    shapes and dtypes (2 tiles of 32 x 32 pixels, C 3)."""
+    def m(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    i32, t, p, c = torch.int32, 2, 32 * 32, 3
+    stream = (m(8, dtype=i32), m(t, dtype=i32), m(t, dtype=i32), m(4, 6 + c), m(c))
+    table = (m(t, dtype=i32), m(t, 5, 6 + c), m(c))
+    grads = (m(t, p, c), m(t, p), m(t, p), m(t, p))
+    blocks = m(2, dtype=i32)
+    return {
+        "composite_pairs_fwd": lambda: rc.composite_pairs_fwd(*stream, 1, 32, two_tile=two_tile),
+        "composite_pairs_bwd": lambda: rc.composite_pairs_bwd(*stream, *grads, 1, 32,
+                                                              two_tile=two_tile),
+        "composite_tables_fwd": lambda: rc.composite_tables_fwd(*table, 1, 32),
+        "composite_tables_bwd": lambda: rc.composite_tables_bwd(*table, *grads, 1, 32),
+        "affine": lambda: pk.affine(m(8, pk.COLS)),
+        "read_at": lambda: pk.read_at(m(512, pk.COLS), blocks),
+        "write_at": lambda: pk.write_at(m(2, pk.BLOCK_ROWS, pk.COLS), blocks, 512),
+    }[name]
+
+
+@pytest.mark.parametrize("name, two_tile", [
+    ("composite_pairs_fwd", False), ("composite_pairs_fwd", True), ("composite_pairs_bwd", False),
+    ("composite_pairs_bwd", True), ("composite_tables_fwd", False),
+    ("composite_tables_bwd", False), ("affine", False), ("read_at", False), ("write_at", False)])
+def test_kernel_entries_raise_off_cuda_and_cpu(name, two_tile):
+    """The one device rule (`_device.use_kernel`) of every public kernel
+    entry: a device other than cuda or cpu raises ValueError naming the
+    entry, before any input check that reads values (a host sync a meta
+    tensor cannot take), and nothing is launched."""
+    before = _build.launches.copy()
+    with pytest.raises(ValueError, match=f"^{name} runs on cuda or cpu, not meta$"):
+        meta_entry_call(name, two_tile)()
+    assert _build.launches == before
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -660,9 +700,9 @@ def test_wrappers_raise_past_122_channels():
         rp._gather_pairs(jnp.asarray(gidx), jnp.asarray(attrs[:, :2]), jnp.asarray(attrs[:, 2:5]),
                          jnp.asarray(attrs[:, 5]), jnp.asarray(attrs[:, 6:]), rp.KC)
     args = (T(gidx), T(starts), T(counts), T(attrs), T(bg), 1, 32)
-    for fn in (rc.composite_pairs_fwd, rc.composite_pairs_fwd2):
+    for two_tile in (False, True):
         with pytest.raises(ValueError, match=r"C <= 122, a feature dim of at most 115"):
-            fn(*args)
+            rc.composite_pairs_fwd(*args, two_tile=two_tile)
     tables = torch.zeros(counts.shape[0], 1, 6 + 123)
     with pytest.raises(ValueError, match=r"C <= 122"):
         rc.composite_tables_fwd(T(np.zeros_like(counts)), tables, T(bg), 1, 32)

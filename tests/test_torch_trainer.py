@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from gaussiangrasper_torch import _build
 from gaussiangrasper_torch.configs import get_method
 from gaussiangrasper_torch.engine import optimizers as topt
 from gaussiangrasper_torch.engine import train_state as tts
@@ -261,8 +262,9 @@ def test_tp2_plain_versions_match_jax_two_tile_kernels(n_channels, monkeypatch):
                                   jnp.asarray(attrs[:, 6:]), kr)
     ref = rp._call_fwd_pairs2(jnp.asarray(starts), jnp.asarray(counts), pair_attrs,
                               jnp.asarray(bg)[None], tw, 32, 9, n_channels, kr, interpret=True)
-    before = (rc.composite_pairs_fwd2.launches, rc.composite_pairs_bwd2.launches)
-    got = rc.composite_pairs_fwd2(T(gidx), T(starts), T(counts), T(attrs), T(bg), tw, 32)
+    before = _build.launches.copy()
+    got = rc.composite_pairs_fwd(T(gidx), T(starts), T(counts), T(attrs), T(bg), tw, 32,
+                                 two_tile=True)
     for name, a, b in zip(("out", "alpha", "logt"), ref, got):
         close(b, a, atol=1e-5, rtol=1e-4, msg=name)
     # ncomp bounds the backward's walk, which stops at min(ncomp, count). An
@@ -280,25 +282,26 @@ def test_tp2_plain_versions_match_jax_two_tile_kernels(n_channels, monkeypatch):
                                jnp.asarray(g_out), jnp.asarray(g_alpha), ref[2], ref[3], tw, 32, kr,
                                interpret=True)
     gref = np.asarray(gref)[: gidx.shape[0], : 6 + n_channels]
-    ggot = rc.composite_pairs_bwd2(T(gidx), T(starts), T(counts), T(attrs), T(bg), T(g_out),
-                                   T(g_alpha), got[2], got[3], tw, 32)
+    ggot = rc.composite_pairs_bwd(T(gidx), T(starts), T(counts), T(attrs), T(bg), T(g_out),
+                                  T(g_alpha), got[2], got[3], tw, 32, two_tile=True)
     for name, lo, hi in (("dxy", 0, 2), ("dconic", 2, 5), ("dopacity", 5, 6),
                          ("dcolor", 6, 6 + n_channels)):
         close_scaled(ggot[:, lo:hi], gref[:, lo:hi], 1e-5, msg=name)
     # CPU tensors: the plain versions, no kernel launch
-    assert (rc.composite_pairs_fwd2.launches, rc.composite_pairs_bwd2.launches) == before
+    assert _build.launches == before
 
 
 def test_tp2_composite_and_grads_match_jax(monkeypatch):
     """composite_pair_stream under TP = 2 in both packages: the port's
-    autograd entry takes the two-tile wrappers, and its outputs and VJP match
+    autograd entry takes the two-tile path, and its outputs and VJP match
     the JAX vjp through `_call_fwd_pairs2` / `_call_bwd_pairs2`."""
     monkeypatch.setattr(rc, "TP", 2)
     monkeypatch.setattr(rp, "TP", 2)
     calls = []
-    fwd2, bwd = rc.composite_pairs_fwd2, rc._bwd_dispatch
-    monkeypatch.setattr(rc, "composite_pairs_fwd2", lambda *a: calls.append("fwd2") or fwd2(*a))
-    monkeypatch.setattr(rc, "_bwd_dispatch",
+    fwd, bwd = rc.composite_pairs_fwd, rc._pairs_bwd_unchecked
+    monkeypatch.setattr(rc, "composite_pairs_fwd",
+                        lambda *a, **k: calls.append(("fwd", k)) or fwd(*a, **k))
+    monkeypatch.setattr(rc, "_pairs_bwd_unchecked",
                         lambda *a, **k: calls.append(("bwd", k)) or bwd(*a, **k))
     jp, gidx, starts, counts, attrs, bg = pairs2_inputs(39, seed=24)
     tw, k = -(-TW2 // 32), attrs.shape[0]
@@ -319,7 +322,7 @@ def test_tp2_composite_and_grads_match_jax(monkeypatch):
     tgrads = torch.autograd.grad((tout * T(g_out)).sum() + (talpha * T(g_alpha)).sum(), targs)
     for name, a, b in zip(("xys", "conics", "opacities", "colors", "bg"), tgrads, jgrads):
         close_scaled(a, b, 1e-4, msg=name)
-    assert calls == ["fwd2", ("bwd", {"two_tile": True})]
+    assert calls == [("fwd", {"two_tile": True}), ("bwd", {"two_tile": True})]
 
 
 def test_tp_setting_other_than_1_or_2_raises(monkeypatch):
