@@ -173,10 +173,17 @@ Phases, one JSON line each:
            the kernels' roots equal to the host union-find's, the kernels' ms
            (CUDA events), `largest_component` and `grasp.largest_cluster` on the
            card (host clock, the copies in), the host union-find's ms
-Then the kernels line (thirteen kernels: the nine TPU kernels' ports, the
+  pixel_gather  (after train) csrc/pixel_gather.cu at efd-train-800's shape (the 32-channel
+           slice of an 800x800x39 image, 52,200 rows of which 44,800 pad at
+           (0, 0)): the forward bit-equal to the plain index, both paths'
+           gradients against a float64 sum, one launch of each kernel; each
+           kernel's ms, the pair's forward plus backward beside the plain
+           path's and index_select / index_add_'s, the bytes bound
+Then the kernels line (fourteen rows: the nine TPU kernels' ports, the
 three hash-grid kernels, H1-H3, whose launches by path come from the
-nerf_zoo CLIs and the hash_grid phase, and the voxel labelling, V1, whose
-launches come from edit's and e2e_small's grasp CLIs and its own phase), the
+nerf_zoo CLIs and the hash_grid phase, the voxel labelling, V1, whose
+launches come from edit's and e2e_small's grasp CLIs and its own phase, and
+the pixel gather pair, G1, launched by the train phase and its own), the
 nvidia-smi line and, last, the ok line. Any
 failure exits non-zero without the ok line. Without a card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -222,7 +229,7 @@ KERNELS = {"k1": "ggt_composite_pairs_fwd", "k2": "ggt_composite_pairs_bwd",
            "k5": "ggt_composite_pairs_fwd2", "k6": "ggt_composite_pairs_bwd2",
            "p1": "ggt_probe_affine", "p2": "ggt_probe_read_at", "p3": "ggt_probe_write_at",
            "h1": "ggt_hash_grid_fwd", "h2": "ggt_hash_grid_bwd", "h3": "ggt_hash_grid_bwd2",
-           "v1": "ggt_voxel_cluster"}
+           "v1": "ggt_voxel_cluster", "g1": "ggt_pixel_gather_fwd", "g2": "ggt_pixel_gather_bwd"}
 """This script's short names of the kernels, and the C entry by which the
 port's launch counter (`gaussiangrasper_torch._build.launches`) counts
 each one's launches."""
@@ -1124,6 +1131,9 @@ def train_phase(device, cfg) -> dict:
     launches = launch_counts("k1", "k2")
     if launches != {"k1": TRAIN_STEPS, "k2": TRAIN_STEPS}:
         raise RuntimeError(f"launches {launches} for {TRAIN_STEPS} train steps")
+    gather_launches = launch_counts("g1", "g2")
+    if gather_launches != {"g1": TRAIN_STEPS, "g2": TRAIN_STEPS}:
+        raise RuntimeError(f"pixel gather launches {gather_launches} for {TRAIN_STEPS} train steps")
     if alive_after == alive_before or not all(bool(torch.isfinite(x).all()) for x in refined.field):
         raise RuntimeError(f"refine: alive {alive_before} -> {alive_after}")
     ms = 1e3 * float(np.median(batch_s[1:])) / 10
@@ -1136,7 +1146,8 @@ def train_phase(device, cfg) -> dict:
     profile["step_ms"] = 1e3 * (time.perf_counter() - t0)
     row = {"phase": "train", "gaussians": N_FULL, "capacity": CAPACITY, "width": WIDTH,
            "height": HEIGHT, "channels": cfg.num_channels, "steps": [STEP, STEP + TRAIN_STEPS - 1],
-           "launches": launches, "ms_per_step": ms, "px_per_s": WIDTH * HEIGHT / (ms / 1e3),
+           "launches": launches, "gather_launches": gather_launches, "ms_per_step": ms,
+           "px_per_s": WIDTH * HEIGHT / (ms / 1e3),
            "batch_ms_per_step": [1e3 * b / 10 for b in batch_s], "loss_every_10": losses,
            "final_metrics": final, "alive_before_refine": alive_before,
            "alive_after_refine": alive_after, "train_profile": profile,
@@ -2060,6 +2071,89 @@ def voxel_cluster_phase(device) -> dict:
     emit(row)
     if mismatched or not np.array_equal(mask, labels == np.bincount(labels).argmax()):
         raise RuntimeError(f"voxel_cluster: the kernels' roots or mask differ from the host's: {row}")
+    return row
+
+
+GATHER_GROUPS, GATHER_PAIRS, GATHER_POINTS = 32, 800, 1000  # efd-train-800's EFD batch
+GATHER_INSTANCES = 4  # the tabletop's ids: the other 28 groups' pairs pad at pixel (0, 0)
+GATHER_GRAD_ERR = 1e-6  # of the sum of a pixel's terms' magnitudes, against a float64 sum
+
+
+def gather_rows(seed: int) -> np.ndarray:
+    """(2 G P + S, 2) int32 rows as `train_loss` concatenates efd-train-800's
+    batch: GATHER_INSTANCES groups' pairs at seeded pixels, the rest at (0,
+    0) as the sampler pads them, then seeded points."""
+    rng = np.random.default_rng(seed)
+    pairs = np.zeros((2, GATHER_GROUPS, GATHER_PAIRS, 2), np.int32)
+    pairs[:, :GATHER_INSTANCES] = rng.integers(0, WIDTH, (2, GATHER_INSTANCES, GATHER_PAIRS, 2))
+    points = rng.integers(0, WIDTH, (GATHER_POINTS, 2))
+    return np.concatenate([pairs.reshape(-1, 2), points]).astype(np.int32)
+
+
+def pixel_gather_phase(device) -> dict:
+    """csrc/pixel_gather.cu at efd-train-800's shape: the 32-channel feature
+    slice of an (800, 800, 39) image, `gather_rows`' 52,200 rows. Through
+    `gather_pixels` with every launch count set to 0 just before (one
+    forward, one backward) against the plain advanced index: the outputs
+    bit-equal, each path's gradient within GATHER_GRAD_ERR of the sum of its
+    terms' magnitudes at each entry against a float64 sum. Device time a
+    call (`device_ms`, the profiler over 20 calls: kernels of tens of
+    microseconds, where CUDA events around one call time the host's launch
+    path; the gradient taken at the slice, so autograd's slice backward is
+    in no path's time): each kernel alone (the backward's with the
+    wrapper's zero fill), the pair's forward plus backward through
+    autograd, the plain path's, and the library's index_select forward and
+    index_add_ backward on the (H W, F) view (a view of the slice, no
+    copy). Bound: the pixels read, the rows written, g_out's rows read, the
+    gradient's zero fill and its pixels added, once."""
+    import torch
+    from gaussiangrasper_torch.ops import pixel_gather as pg
+
+    gen = torch.Generator(device).manual_seed(40)
+    img = torch.rand(HEIGHT, WIDTH, 39, device=device, generator=gen)
+    fea = img[..., 3:35]
+    idx = torch.as_tensor(gather_rows(41), device=device)
+    n, f = idx.shape[0], fea.shape[2]
+    g_out = torch.randn(n, f, device=device, generator=gen)
+    leaf = img.clone().requires_grad_(True)
+    view = leaf[..., 3:35]
+    key = idx[:, 0].long() * WIDTH + idx[:, 1].long()
+
+    def fwd_bwd(read, at):
+        return torch.autograd.grad(read(), at, g_out)[0]
+
+    kernel = lambda: pg.gather_pixels(view, idx)  # noqa: E731
+    plain = lambda: view[idx[:, 0], idx[:, 1]]  # noqa: E731
+    library = lambda: view.reshape(-1, f).index_select(0, key)  # noqa: E731
+    reset_launches()
+    out = kernel()
+    got = torch.autograd.grad(out, view, g_out)[0]
+    launched = launch_counts("g1", "g2")
+    want_out = plain()
+    want = fwd_bwd(plain, view)
+    ref = torch.zeros(HEIGHT * WIDTH, f, dtype=torch.float64, device=device)
+    mass = torch.zeros_like(ref).index_add_(0, key, g_out.double().abs()).clamp(min=1e-300)
+    ref.index_add_(0, key, g_out.double())
+    rel = {name: float(((g.reshape(-1, f).double() - ref).abs() / mass).max())
+           for name, g in (("kernel", got), ("plain", want))}
+    padding = int((idx == 0).all(1).sum())
+    row = {"phase": "pixel_gather", "image": [HEIGHT, WIDTH, 39], "channels": f, "rows": n,
+           "rows_at_0_0": padding, "launches": launched,
+           "out_bit_equal": bool(torch.equal(out, want_out)), "grad_rel_err": rel,
+           "grad_max_abs_diff": float((got - want).abs().max()),
+           "fwd_ms": device_ms(lambda: pg.pixel_gather_fwd_cuda(fea, idx), 20),
+           "bwd_ms": device_ms(lambda: pg.pixel_gather_bwd_cuda(idx, g_out, HEIGHT, WIDTH), 20),
+           "ms": device_ms(lambda: fwd_bwd(kernel, view), 20),
+           "plain_ms": device_ms(lambda: fwd_bwd(plain, view), 20),
+           "library_ms": device_ms(lambda: fwd_bwd(library, view), 20),
+           "bound_ms": 1e3 * (2 * n * f * 4 + 2 * n * 8 + HEIGHT * WIDTH * f * 4
+                              + 3 * len(torch.unique(key)) * f * 4) / HBM_BYTES_PER_S,
+           "bound_by": "bytes"}
+    row["max_abs_err"] = rel["kernel"]
+    emit(row)
+    if not row["out_bit_equal"] or max(rel.values()) > GATHER_GRAD_ERR \
+            or launched != {"g1": 1, "g2": 1} or padding < 2 * 28 * GATHER_PAIRS:
+        raise RuntimeError(f"pixel_gather: {row}")
     return row
 
 
@@ -3603,6 +3697,7 @@ def main() -> int:
     serve = serve_phase(device, cfg)
     train_small_phase(cfg)
     train = train_phase(device, cfg)
+    gather = pixel_gather_phase(device)
     table = table_phase(device, cfg)
     probes = probes_phase(device)
     # the large probe shapes' ~1 GB and the earlier phases' blocks, cached by
@@ -3709,6 +3804,15 @@ def main() -> int:
                            "e2e_small_grasp_sweep": e2e["v1_launches"]["grasp_sweep"],
                            "voxel_cluster_phase": voxel["launches"]})
 
+    def gather_row():
+        """G1's row: the kernel pair's forward plus backward; launches (each
+        entry's) of the train phase and of this script's phase."""
+        by_path = {"train": sum(train["gather_launches"].values()),
+                   "pixel_gather_phase": sum(gather["launches"].values())}
+        return kernel_row("pixel_gather", "pixel_gather",
+                          "none (models/model.py's advanced index, autograd's index_put)",
+                          gather, by_path)
+
     def c71_row(row):
         return {k: row[k] for k in ("max_abs_err", "ms", "piece_kernel_ms", "plain_ms", "bound_ms",
                                     "bound_by")}
@@ -3781,7 +3885,7 @@ def main() -> int:
         {**kernel_row("probe_write_at", "probes", "dma_probe.py:65 (_write_kernel)",
                       probes["p3"], {"copy_probe": probes["launches"]["p3"]}),
          "large": large_row(probes["p3_large"])},
-    ] + hash_rows() + [voxel_row()]})
+    ] + hash_rows() + [voxel_row(), gather_row()]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -23,6 +23,7 @@ from gaussiangrasper_torch.core.transforms import quat_to_rotmat
 from gaussiangrasper_torch.models import losses
 from gaussiangrasper_torch.models.efd import mlp_apply
 from gaussiangrasper_torch.models.gaussian_field import GaussianParams
+from gaussiangrasper_torch.ops.pixel_gather import gather_pixels
 from gaussiangrasper_torch.ops.projection import project_gaussians
 from gaussiangrasper_torch.ops.rasterize import RasterizeConfig, rasterize_projected
 from gaussiangrasper_torch.utils.profiler import PROFILER
@@ -199,8 +200,8 @@ def train_loss(
         fea = outs["feature"]
         g, p_, _ = batch["pair_a"].shape
         idx = torch.cat([batch["pair_a"].reshape(-1, 2), batch["pair_b"].reshape(-1, 2),
-                         batch["points"]], dim=0).long()
-        feats = fea[idx[:, 0], idx[:, 1]]  # (2 G P + S, F)
+                         batch["points"]], dim=0)
+        feats = gather_pixels(fea, idx)  # (2 G P + S, F)
         fa = feats[: g * p_].reshape(g, p_, -1)
         fb = feats[g * p_: 2 * g * p_].reshape(g, p_, -1)
         fea_loss = losses.contrastive_pairs_loss(fa, fb, batch["pair_valid"],

@@ -33,6 +33,7 @@ W, H, STEP = 128, 96, 4000
 K1, K2, K3, K4, K5, K6 = ("ggt_composite_pairs_fwd", "ggt_composite_pairs_bwd",
                           "ggt_composite_tables_fwd", "ggt_composite_tables_bwd",
                           "ggt_composite_pairs_fwd2", "ggt_composite_pairs_bwd2")
+GATHER = ("ggt_pixel_gather_fwd", "ggt_pixel_gather_bwd")
 
 
 def launched_since(before, *entries) -> tuple:
@@ -313,8 +314,11 @@ def _train_step_card_vs_cpu(cuda_device, cfg):
         field, alive, cam = _scene(dev)
         state = init_train_state(field, alive, {k: v.to(dev) for k, v in fea.items()})
         state = dataclasses.replace(state, step=STEP + 9)
+        before = _build.launches.copy()
         out[dev.type] = train_step(state, cam, {k: torch.as_tensor(v, device=dev)
                                                 for k, v in batch.items()}, cfg)
+        # the EFD loss's pixel gather through its kernels on the card
+        assert launched_since(before, *GATHER) == ((1, 1) if dev.type == "cuda" else (0, 0))
     (gs, gm), (cs, cm) = out[cuda_device.type], out["cpu"]
     for k, v in cm.items():
         torch.testing.assert_close(gm[k].cpu().float(), v.float(), atol=1e-5, rtol=1e-3, msg=k)
@@ -1497,3 +1501,110 @@ def test_grasp_request_on_the_card_matches_cpu(cuda_device):
         np.testing.assert_allclose(got[k], want[k], atol=1e-5, rtol=0)
     a, b = np.asarray(got["axis"]), np.asarray(want["axis"])
     assert min(np.abs(a - b).max(), np.abs(a + b).max()) <= 1e-5
+
+
+# (image H, W, C, the map's channels [lo, hi) of the image, rows; None: efd-train-800's batch)
+GATHER_CASES = {"padded": (800, 800, 39, 3, 35, None), "random": (96, 128, 39, 3, 35, 20_000),
+                "f3": (96, 128, 39, 0, 3, 20_000), "f6": (96, 128, 39, 3, 9, 20_000)}
+
+
+def _gather_rows(h, w, n, seed=31):
+    """(N, 2) int32 rows: chip_smoke.py's `gather_rows` where n is None
+    (efd-train-800's 52,200, 44,800 of them the sampler's padding at (0,
+    0)), else n seeded pixels, a quarter of them drawn from 16 pixels (runs
+    of equal pixels within and across warps)."""
+    import chip_smoke
+
+    if n is None:
+        return chip_smoke.gather_rows(seed)
+    rng = np.random.default_rng(seed)
+    rows = np.stack([rng.integers(0, h, n), rng.integers(0, w, n)], 1)
+    hot = rng.random(n) < 0.25
+    rows[hot] = rows[rng.integers(0, 16, int(hot.sum()))]
+    return rows.astype(np.int32)
+
+
+def _assert_scatter_close(got, idx, g_out, w):
+    """got (H, W, F) against the float64 sum of g_out's rows into their
+    pixels: within 1e-6 of the sum of the terms' magnitudes at each entry,
+    the scale of any summation order's rounding (the kernel sums a pixel's
+    rows in warps, then by float atomics in an order that varies; the plain
+    path walks them one by one)."""
+    key = idx[:, 0].long() * w + idx[:, 1].long()
+    f = g_out.shape[1]
+    ref = torch.zeros(got.shape[0] * w, f, dtype=torch.float64, device=got.device)
+    mass = torch.zeros_like(ref).index_add_(0, key, g_out.double().abs())
+    ref.index_add_(0, key, g_out.double())
+    err = (got.reshape(-1, f).double() - ref).abs()
+    assert bool((err <= 1e-6 * mass).all()), float((err / mass.clamp(min=1e-300)).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(GATHER_CASES))
+def test_pixel_gather_kernel_matches_plain(cuda_device, name):
+    """`gather_pixels` through the kernels against the plain advanced index
+    on the card, both reading the feature slice of one image: the forward
+    bit-equal (a copy), each path's gradient as `_assert_scatter_close`
+    holds it and zero outside the slice, one launch of each kernel a call;
+    efd-train-800's padded batch (44,800 rows at (0, 0)), seeded rows with
+    hot pixels at F 32 (the float4 path), F 3 (one channel a lane) and F 6
+    (float2)."""
+    from gaussiangrasper_torch.ops.pixel_gather import gather_pixels
+
+    h, w, c, lo, hi, n = GATHER_CASES[name]
+    gen = torch.Generator(cuda_device).manual_seed(32)
+    img = torch.rand(h, w, c, device=cuda_device, generator=gen)
+    idx = torch.as_tensor(_gather_rows(h, w, n), device=cuda_device)
+    if name == "padded":
+        assert int((idx == 0).all(1).sum()) >= 44_800
+    g_out = torch.randn(idx.shape[0], hi - lo, device=cuda_device, generator=gen)
+    got = {}
+    for path in ("kernel", "plain"):
+        leaf = img.clone().requires_grad_(True)
+        fea = leaf[..., lo:hi]
+        before = _build.launches.copy()
+        out = gather_pixels(fea, idx) if path == "kernel" else fea[idx[:, 0], idx[:, 1]]
+        assert launched_since(before, *GATHER) == ((1, 0) if path == "kernel" else (0, 0))
+        (grad,) = torch.autograd.grad(out, leaf, g_out)
+        assert launched_since(before, *GATHER) == ((1, 1) if path == "kernel" else (0, 0))
+        got[path] = (out, grad)
+    assert torch.equal(got["kernel"][0], got["plain"][0])
+    for _, grad in got.values():
+        assert not grad[..., :lo].any() and not grad[..., hi:].any()
+        _assert_scatter_close(grad[..., lo:hi], idx, g_out, w)
+
+
+@pytest.mark.gpu
+def test_pixel_gather_bwd_on_unaligned_rows_and_no_rows(cuda_device):
+    """The backward kernel where g_out starts 4 bytes past a float4 edge
+    (F 32: the one-channel path) as `_assert_scatter_close` holds it, and
+    an empty gather: no launch, a (0, F) output and a zero gradient."""
+    from gaussiangrasper_torch.ops import pixel_gather as pg
+
+    h, w, f = 96, 128, 32
+    idx = torch.as_tensor(_gather_rows(h, w, 5000), device=cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(33)
+    g_out = torch.randn(idx.shape[0] * f + 1, device=cuda_device, generator=gen)[1:].view(-1, f)
+    assert g_out.is_contiguous() and g_out.data_ptr() % 16 != 0
+    _assert_scatter_close(pg.pixel_gather_bwd_cuda(idx, g_out, h, w), idx, g_out, w)
+    leaf = torch.rand(h, w, 39, device=cuda_device).requires_grad_(True)
+    before = _build.launches.copy()
+    out = pg.gather_pixels(leaf[..., 3:35], idx[:0])
+    (grad,) = torch.autograd.grad(out.sum(), leaf)
+    assert out.shape == (0, f) and not grad.any()
+    assert launched_since(before, *GATHER) == (0, 0)
+
+
+@pytest.mark.gpu
+def test_pixel_gather_raises_for_a_float64_map_on_the_card(cuda_device):
+    """On the card the device alone picks the kernels: a float64 map raises
+    the kernels' ValueError, and nothing is launched or quietly run by the
+    plain index."""
+    from gaussiangrasper_torch.ops.pixel_gather import gather_pixels
+
+    fea = torch.rand(8, 9, 5, dtype=torch.float64, device=cuda_device)
+    idx = torch.zeros(3, 2, dtype=torch.int32, device=cuda_device)
+    before = _build.launches.copy()
+    with pytest.raises(ValueError, match="float32"):
+        gather_pixels(fea, idx)
+    assert launched_since(before, *GATHER) == (0, 0)
